@@ -6,7 +6,9 @@ printing one JSON line:
 
 1. device  - the card's name and power limit (also printed raw, as
              nvidia-smi gives them);
-2. build   - compiles kernel K1 (csrc/intersect.cu) with nvcc;
+2. build   - compiles kernel K1 (csrc/intersect.cu), kernel K2
+             (csrc/bvhw.cu) and the gather probes (csrc/gather_probe.cu)
+             with nvcc, and the native BVH builder with g++, all at once;
 3. k1      - K1 against its plain PyTorch version on the card, at the main
              path's shapes (131,072 rays x cornell's 36 triangles): hit
              flags, triangle ids and any-hit identical, t and b to
@@ -18,8 +20,24 @@ printing one JSON line:
 5. main    - cornell 640x480, 16 spp, depth 5, "onesample" MIS: one
              warm-up render, one timed render, Mrays/s, finite film with
              positive weight everywhere, exact K1 launch count;
-6. k1_profile - K1's own device time at phase 3's shapes, from a
-             torch.profiler trace (last, as tracing slows later launches).
+6. k2      - K2 against its plain version on the full box-field table
+             (4,000 boxes, 48,012 triangles) and 131,072 rays (camera rays
+             of the first 1920x1080 band and random directions from inside
+             the room): closest and any-hit, both timed; and against K1
+             (brute force) on the same rays;
+7. box_golden - box field 64x36, 2 spp, depth 3, "ref" MIS on the card
+             against the port's own CPU film (the plain traversal) at
+             RMSE < 1e-3 and alpha rtol 1e-5, exact K2 launch count, no K1;
+8. box_main - box field 1920x1080, 4,000 boxes, 2 spp, depth 5,
+             "onesample" MIS: one warm-up render, one timed render,
+             Mrays/s, set-up seconds, table size, peak device memory,
+             exact K2 launch count, no K1, finite film with positive
+             weight everywhere;
+9. probes  - the gather probes P1-P5 once through ``run_probes`` (their
+             path), then each against its plain version (exact) and both
+             timed;
+10. profile - K1's and K2's own device times from a torch.profiler trace
+             (last, as tracing slows later launches).
 
 Then one JSON line listing the kernels, and last the status line. Any
 failure raises (non-zero exit). Without a CUDA card it exits non-zero and
@@ -32,12 +50,18 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORNELL = os.path.join(ROOT, "data", "cornell-box.xml")
 GOLDEN = os.path.join(ROOT, "tests", "golden_cornell_32.npz")
 K1_RAYS = 1 << 17
 K1_REPS = 30
+K2_RAYS = 1 << 17
+# the plain traversal runs a Python loop of ~100 tensor ops per step
+PLAIN_K2_REPS = 5
+BOX_RES = (1920, 1080)
+BOX_BOXES = 4000
 
 
 def emit(obj) -> None:
@@ -80,17 +104,51 @@ def kernel_device_ms(fn, name: str, reps: int = K1_REPS) -> float:
     return us / reps / 1e3
 
 
-def k1_inputs(dev, n_rays: int = K1_RAYS, resolution=(640, 480)):
-    """The main path's K1 inputs: the camera rays of the first row band
-    of a cornell render (sample frame 0), and shadow rays spawned from
-    their hits toward the area light, mixed at random (seed 0) to
-    ``n_rays`` rays. Returns (scene, o, d, t_max)."""
+def first_band_rays(cam, integ, dev):
+    """The camera rays of the first row band of a render (sample frame 0)
+    and the band's Sobol indices and scrambles. Returns (o, d, idx_lo,
+    idx_hi, scramble) on ``dev``."""
     import numpy as np
     import torch
 
     from pathtracer_tpu_torch.core.camera import generate_rays
     from pathtracer_tpu_torch.core.film import sample_bounds
     from pathtracer_tpu_torch.core.math import ONE_MINUS_EPSILON
+    from pathtracer_tpu_torch.ops import sobol as sb
+
+    band, _ = integ.band_layout(cam)
+    (x0, y0), (x1, y1) = sample_bounds(*cam.resolution, integ.filter_radius)
+    domain = sb.SobolDomain.create((x0, y0), (x1, y1), integ.spp)
+    xs, ys = np.meshgrid(np.arange(x0, x1), np.arange(y0, y0 + band),
+                         indexing="xy")
+    px, py = xs.ravel(), ys.ravel()
+    scramble, b_base = sb.pixel_statics(domain, px, np.minimum(py, y1 - 1))
+    lo, hi, delta = sb.frame_statics(domain, 0)
+    idx_lo, idx_hi = sb.sobol_index(
+        torch.as_tensor(b_base.astype(np.int64), device=dev), int(delta),
+        int(lo), int(hi), *sb.vdc_inv_rows(domain, dev))
+    s01 = sb.sobol_sample_dim2(idx_lo, idx_hi, 0,
+                               torch.zeros_like(idx_lo), sb.sm32_device(dev))
+    pxf = torch.as_tensor(px, dtype=torch.float32, device=dev)
+    pyf = torch.as_tensor(py, dtype=torch.float32, device=dev)
+    one_minus = float(ONE_MINUS_EPSILON)
+    jx = torch.clamp(s01[:, 0] * float(domain.resolution) + x0 - pxf,
+                     0.0, one_minus)
+    jy = torch.clamp(s01[:, 1] * float(domain.resolution) + y0 - pyf,
+                     0.0, one_minus)
+    o, d = generate_rays(*cam.ray_params(dev),
+                         torch.stack([pxf + jx, pyf + jy], dim=-1))
+    scr = torch.as_tensor(scramble.astype(np.int64), device=dev)
+    return o.expand(d.shape[0], 3), d, idx_lo, idx_hi, scr
+
+
+def k1_inputs(dev, n_rays: int = K1_RAYS, resolution=(640, 480)):
+    """The main path's K1 inputs: the camera rays of the first row band
+    of a cornell render (sample frame 0), and shadow rays spawned from
+    their hits toward the area light, mixed at random (seed 0) to
+    ``n_rays`` rays. Returns (scene, o, d, t_max)."""
+    import torch
+
     from pathtracer_tpu_torch.integrator import (PathIntegrator,
                                                  TracedScene)
     from pathtracer_tpu_torch.ops import interaction as ia
@@ -101,30 +159,8 @@ def k1_inputs(dev, n_rays: int = K1_RAYS, resolution=(640, 480)):
 
     cam, sd, _ = load_mitsuba(CORNELL, resolution=resolution, device=dev)
     scene = TracedScene.create(sd)
-    integ = PathIntegrator(spp=16)
-    band, _ = integ.band_layout(cam)
-    (x0, y0), (x1, y1) = sample_bounds(*resolution, integ.filter_radius)
-    domain = sb.SobolDomain.create((x0, y0), (x1, y1), integ.spp)
-    xs, ys = np.meshgrid(np.arange(x0, x1), np.arange(y0, y0 + band),
-                         indexing="xy")
-    px, py = xs.ravel(), ys.ravel()
-    scramble, b_base = sb.pixel_statics(domain, px, np.minimum(py, y1 - 1))
-    lo, hi, delta = sb.frame_statics(domain, 0)
-    idx_lo, idx_hi = sb.sobol_index(
-        torch.as_tensor(b_base.astype(np.int64), device=dev), int(delta),
-        int(lo), int(hi), *sb.vdc_inv_rows(domain, dev))
-    sm32 = sb.sm32_device(dev)
-    s01 = sb.sobol_sample_dim2(idx_lo, idx_hi, 0,
-                               torch.zeros_like(idx_lo), sm32)
-    pxf = torch.as_tensor(px, dtype=torch.float32, device=dev)
-    pyf = torch.as_tensor(py, dtype=torch.float32, device=dev)
-    one_minus = float(ONE_MINUS_EPSILON)
-    jx = torch.clamp(s01[:, 0] * float(domain.resolution) + x0 - pxf,
-                     0.0, one_minus)
-    jy = torch.clamp(s01[:, 1] * float(domain.resolution) + y0 - pyf,
-                     0.0, one_minus)
-    o, d = generate_rays(*cam.ray_params(dev),
-                         torch.stack([pxf + jx, pyf + jy], dim=-1))
+    o, d, idx_lo, idx_hi, scr = first_band_rays(
+        cam, PathIntegrator(spp=16), dev)
     n_cam = o.shape[0]
     t_inf = torch.full((n_cam,), torch.inf, device=dev)
 
@@ -132,7 +168,7 @@ def k1_inputs(dev, n_rays: int = K1_RAYS, resolution=(640, 480)):
     hit = intersect_plain(o.contiguous(), d.contiguous(), t_inf,
                           scene.tri_pack)
     it = ia.make_interaction(sd, o, d, hit, scene.tri_attr)
-    scr = torch.as_tensor(scramble.astype(np.int64), device=dev)
+    sm32 = sb.sm32_device(dev)
     u = sb.sobol_sample_dim2(idx_lo, idx_hi, 2, scr, sm32)
     pick = torch.clamp_max(
         (sb.sobol_sample_dim(idx_lo, idx_hi, 6, scr, sm32)
@@ -144,7 +180,7 @@ def k1_inputs(dev, n_rays: int = K1_RAYS, resolution=(640, 480)):
                                    ls["target_n"])
     gen = torch.Generator().manual_seed(0)
     pick_rays = torch.randperm(2 * n_cam, generator=gen)[:n_rays].to(dev)
-    o_all = torch.cat([o.expand(n_cam, 3), so])[pick_rays].contiguous()
+    o_all = torch.cat([o, so])[pick_rays].contiguous()
     d_all = torch.cat([d, sdir])[pick_rays].contiguous()
     t_all = torch.cat([t_inf, st])[pick_rays].contiguous()
     return scene, o_all, d_all, t_all
@@ -193,19 +229,6 @@ def phase_k1(dev):
                ms=ms, plain_ms=plain_ms, ms_anyhit=ms_any,
                plain_ms_anyhit=plain_ms_any, reps=K1_REPS,
                mrays_per_s=n / ms / 1e3)
-    emit(out)
-    return out
-
-
-def phase_k1_profile(dev):
-    """K1's own device time at the main path's shapes. It runs last: an
-    active CUPTI trace slows every later launch of the host-bound render."""
-    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
-
-    scene, o, d, t_max = k1_inputs(dev)
-    out = dict(phase="k1_profile", kernel_device_ms=kernel_device_ms(
-        lambda: k1.intersect(o, d, t_max, scene.tri_pack),
-        "intersect_kernel"), reps=K1_REPS)
     emit(out)
     return out
 
@@ -299,6 +322,316 @@ def phase_main(dev, smi: str):
     return out
 
 
+def box_scene(dev, resolution=BOX_RES, n_boxes: int = BOX_BOXES):
+    """The box field on ``dev`` and its TracedScene. Returns (camera,
+    scene, seconds of TracedScene.create: BVH build, reorder and upload)."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator import TracedScene
+    from pathtracer_tpu_torch.scene.procedural import box_field_scene
+
+    cam, sd = box_field_scene(resolution, n_boxes=n_boxes, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = TracedScene.create(sd)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return cam, scene, time.perf_counter() - t0
+
+
+def k2_inputs(dev, n_rays: int = K2_RAYS):
+    """K2's inputs on the full box field: the first n_rays / 2 camera rays
+    of the first 1920x1080 band, and n_rays / 2 random directions from a
+    point inside the room above the boxes (numpy seed 0). Returns (scene,
+    o, d, t_inf, t_any), t_any a random finite bound in [0.5, 40) for the
+    any-hit query."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+
+    cam, scene, _ = box_scene(dev)
+    integ = PathIntegrator(PathConfig(max_depth=5, mis_mode="onesample"),
+                           spp=2)
+    o_cam, d_cam = first_band_rays(cam, integ, dev)[:2]
+    half = n_rays // 2
+    if o_cam.shape[0] < half:
+        raise AssertionError(f"first band has {o_cam.shape[0]} rays, "
+                             f"fewer than {half}")
+    rng = np.random.default_rng(0)
+    d_rnd = rng.normal(size=(n_rays - half, 3)).astype(np.float32)
+    d_rnd /= np.linalg.norm(d_rnd, axis=-1, keepdims=True)
+    o_rnd = np.tile(np.float32([0.0, 12.0, 0.0]), (n_rays - half, 1))
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    o = torch.cat([o_cam[:half], t(o_rnd)]).contiguous()
+    d = torch.cat([d_cam[:half], t(d_rnd)]).contiguous()
+    t_inf = torch.full((n_rays,), torch.inf, device=dev)
+    t_any = t(rng.uniform(0.5, 40.0, n_rays).astype(np.float32))
+    return scene, o, d, t_inf, t_any
+
+
+def phase_k2(dev):
+    import torch
+
+    from pathtracer_tpu_torch.accel.bvhw import bvhw_intersect as bvhw_plain
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    scene, o, d, t_inf, t_any = k2_inputs(dev)
+    table, stackw = scene.bw_rows, scene.bw_depth
+
+    def kernel(t_max, any_hit=False):
+        return k2.bvhw_intersect(table, o, d, t_max, any_hit=any_hit,
+                                 stackw=stackw)
+
+    def plain(t_max, any_hit=False):
+        return bvhw_plain(table, o, d, t_max, any_hit=any_hit,
+                                       stackw=stackw)
+
+    got, got_any = kernel(t_inf), kernel(t_any, True)
+    want, want_any = plain(t_inf), plain(t_any, True)
+    torch.cuda.synchronize()
+    if not torch.equal(got["valid"], want["valid"]):
+        raise AssertionError("K2 valid differs from the plain version")
+    if not torch.equal(got["tri"], want["tri"]):
+        raise AssertionError("K2 tri differs from the plain version")
+    if not torch.equal(got_any, want_any):
+        raise AssertionError("K2 any-hit differs from the plain version")
+    hit = want["valid"]
+    if int(hit.sum()) == 0 or bool(hit.all()) or bool(want_any.all()) \
+            or not bool(want_any.any()):
+        raise AssertionError("K2 inputs need both hits and misses")
+    errs = {}
+    for key in ("t", "b"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-6,
+                                   atol=1e-7)
+        errs[key] = float((got[key] - want[key]).abs().max())
+
+    # against brute force (K1, no triangle cap) on the same rays
+    brute = k1.intersect(o, d, t_inf, scene.tri_pack)
+    brute_any = k1.intersect(o, d, t_any, scene.tri_pack, any_hit=True)
+    torch.cuda.synchronize()
+    if not torch.equal(got["valid"], brute["valid"]):
+        raise AssertionError("K2 valid differs from brute force (K1)")
+    if not torch.equal(got_any, brute_any):
+        raise AssertionError("K2 any-hit differs from brute force (K1)")
+    torch.testing.assert_close(got["t"][hit], brute["t"][hit], rtol=1e-5,
+                               atol=0.0)
+    tri_differ = hit & (got["tri"] != brute["tri"])
+    if not torch.equal(got["t"][tri_differ], brute["t"][tri_differ]):
+        raise AssertionError("K2 and K1 pick different triangles at "
+                             "different t")
+
+    ms = time_ms(lambda: kernel(t_inf))
+    ms_any = time_ms(lambda: kernel(t_any, True))
+    plain_ms = time_ms(lambda: plain(t_inf), reps=PLAIN_K2_REPS)
+    plain_ms_any = time_ms(lambda: plain(t_any, True), reps=PLAIN_K2_REPS)
+    out = dict(phase="k2", rays=o.shape[0],
+               triangles=int(scene.tri_pack.shape[0]),
+               table_rows=int(table.shape[0]), depth=stackw,
+               hit_lanes=int(hit.sum()), anyhit_lanes=int(want_any.sum()),
+               max_abs_err_t=errs["t"], max_abs_err_b=errs["b"],
+               t_bit_equal_frac=float((got["t"] == want["t"]).float().mean()),
+               k1_tri_ties=int(tri_differ.sum()),
+               k1_max_rel_err_t=float(((got["t"][hit] - brute["t"][hit]).abs()
+                                       / brute["t"][hit]).max()),
+               ms=ms, plain_ms=plain_ms, ms_anyhit=ms_any,
+               plain_ms_anyhit=plain_ms_any, reps=K1_REPS,
+               plain_reps=PLAIN_K2_REPS, mrays_per_s=o.shape[0] / ms / 1e3)
+    emit(out)
+    return out
+
+
+def phase_box_golden(dev):
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    cfg = PathConfig(max_depth=3)
+    films = {}
+    for where in ("cpu", "cuda"):
+        cam, scene, _ = box_scene(torch.device(where) if where == "cpu"
+                                  else dev, resolution=(64, 36))
+        integ = PathIntegrator(cfg, spp=2)
+        k1_before, k2_before = k1.LAUNCHES, k2.LAUNCHES
+        film = integ.render(cam, scene)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        _, n_bands = integ.band_layout(cam)
+        launches = (k1.LAUNCHES - k1_before, k2.LAUNCHES - k2_before)
+        expect = (0, 0) if where == "cpu" else \
+            (0, n_bands * integ.spp * (3 * cfg.max_depth + 1))
+        if launches != expect:
+            raise AssertionError(f"box golden on {where} launched (K1, K2) "
+                                 f"{launches} times, expected {expect}")
+        films[where] = (film.cpu().numpy(), launches[1], integ.last_ray_count)
+    got, want = films["cuda"][0], films["cpu"][0]
+    if not (np.isfinite(got).all() and (got[..., 3] > 0).all()):
+        raise AssertionError("box golden film must be finite with "
+                             "positive weight")
+    np.testing.assert_allclose(got[..., 3], want[..., 3], rtol=1e-5)
+    rmse = float(np.sqrt(np.mean((got[..., :3] - want[..., :3]) ** 2)))
+    if not rmse < 1e-3:
+        raise AssertionError(f"box golden RMSE {rmse} >= 1e-3")
+    diff = np.abs(got[..., :3] - want[..., :3]).max(axis=-1)
+    out = dict(phase="box_golden", rmse=rmse,
+               alpha_max_rel=float(np.max(np.abs(got[..., 3] - want[..., 3])
+                                          / np.abs(want[..., 3]))),
+               pixels_differing=int((diff > 0).sum()),
+               max_pixel_diff=float(diff.max()), launches=films["cuda"][1],
+               rays_card=films["cuda"][2], rays_cpu=films["cpu"][2])
+    emit(out)
+    return out
+
+
+def phase_box_main(dev, smi: str):
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cam, scene, create_s = box_scene(dev)
+    cfg = PathConfig(max_depth=5, mis_mode="onesample")
+    integ = PathIntegrator(cfg, spp=2)
+    _, n_bands = integ.band_layout(cam)
+    expect = n_bands * integ.spp * (2 * cfg.max_depth + 1)
+
+    t0 = time.perf_counter()
+    integ.render(cam, scene)  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    k1.LAUNCHES = 0  # the box field's main path starts here
+    k2.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film = integ.render(cam, scene)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, k1_launches = k2.LAUNCHES, k1.LAUNCHES
+    if (launches, k1_launches) != (expect, 0):
+        raise AssertionError(f"box render launched K2 {launches} and K1 "
+                             f"{k1_launches} times, expected {expect} and 0")
+    w, h = BOX_RES
+    if tuple(film.shape) != (h, w, 4):
+        raise AssertionError(f"film shape {tuple(film.shape)}")
+    if not bool(torch.isfinite(film).all()):
+        raise AssertionError("film has non-finite values")
+    if not bool((film[..., 3] > 0).all()):
+        raise AssertionError("film weight must be positive everywhere")
+    table = scene.bw_rows
+    out = dict(phase="box_main", resolution=list(BOX_RES),
+               n_boxes=BOX_BOXES, triangles=int(scene.tri_pack.shape[0]),
+               table_rows=int(table.shape[0]),
+               table_bytes=table.numel() * table.element_size(),
+               depth=scene.bw_depth, spp=integ.spp,
+               max_depth=cfg.max_depth, mis_mode=cfg.mis_mode,
+               bands=n_bands, rays=integ.last_ray_count, seconds=dt,
+               warmup_seconds=warm_s, create_seconds=create_s,
+               mrays_per_s=integ.last_ray_count / dt / 1e6,
+               launches=launches, expected_launches=expect,
+               k1_launches=k1_launches,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+               bad_samples=integ.bad_sample_count,
+               film_mean_rgb=[float(v) for v in
+                              film[..., :3].mean(dim=(0, 1)).cpu()],
+               card=smi)
+    emit(out)
+    return out
+
+
+def phase_probes(dev):
+    import torch
+
+    from pathtracer_tpu_torch.probes import gather as pg
+
+    x = pg.probe_inputs(dev)
+    for key in pg.LAUNCHES:  # the probes' path starts here
+        pg.LAUNCHES[key] = 0
+    outs = pg.run_probes(dev, x)
+    torch.cuda.synchronize()
+    launches = dict(pg.LAUNCHES)
+    if launches != {"gather_rows": 2, "gather_cols": 1,
+                    "gather_rows_warp": 1, "stack_push_read": 1}:
+        raise AssertionError(f"probe launches {launches}")
+    probes = {}
+    for pid, fn in pg.PROBES.items():
+        want = pg.PLAIN[pid](x)
+        if not torch.equal(outs[pid], want):
+            raise AssertionError(f"{pid} differs from its plain version")
+        probes[pid] = dict(
+            ms=time_ms(lambda: fn(x)),
+            plain_ms=time_ms(lambda: pg.PLAIN[pid](x)))
+    out = dict(phase="probes", M=pg.M, W=pg.W, N=pg.N, D=pg.D,
+               launches=launches, reps=K1_REPS, probes=probes)
+    emit(out)
+    return out
+
+
+def phase_profile(dev):
+    """K1's and K2's own device times at the shapes of phases 3 and 6.
+    It runs last: an active CUPTI trace slows every later launch of the
+    host-bound render."""
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    scene, o, d, t_max = k1_inputs(dev)
+    k1_ms = kernel_device_ms(
+        lambda: k1.intersect(o, d, t_max, scene.tri_pack),
+        "intersect_kernel")
+    scene, o, d, t_inf, t_any = k2_inputs(dev)
+    k2_ms = kernel_device_ms(
+        lambda: k2.bvhw_intersect(scene.bw_rows, o, d, t_inf,
+                                  stackw=scene.bw_depth), "bvhw_kernel")
+    k2_any_ms = kernel_device_ms(
+        lambda: k2.bvhw_intersect(scene.bw_rows, o, d, t_any, any_hit=True,
+                                  stackw=scene.bw_depth), "bvhw_kernel")
+    out = dict(phase="profile", k1_kernel_device_ms=k1_ms,
+               k2_kernel_device_ms=k2_ms,
+               k2_anyhit_kernel_device_ms=k2_any_ms, reps=K1_REPS)
+    emit(out)
+    return out
+
+
+def phase_build():
+    """Compile every native source at once (one compiler process each)."""
+    from pathtracer_tpu_torch.accel import cpp
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.probes import gather as pg
+
+    def timed(build):
+        t0 = time.perf_counter()
+        path = build()
+        return os.path.relpath(path, ROOT), time.perf_counter() - t0
+
+    builds = dict(intersect=lambda: k1.build(verbose=True),
+                  bvhw=lambda: k2.build(verbose=True),
+                  gather_probe=lambda: pg.build(verbose=True),
+                  bvh_builder=cpp.library_path)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in builds.items()}
+        done = {name: fut.result() for name, fut in futures.items()}
+    k1._load()
+    k2._load()
+    pg._load()
+    cpp._load()
+    out = dict(phase="build", seconds=time.perf_counter() - t0,
+               libraries={name: dict(path=path, seconds=sec)
+                          for name, (path, sec) in done.items()})
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -308,7 +641,7 @@ def main() -> int:
         return 1
     # before any output: without the package beside it, the script fails
     # having printed nothing
-    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    import pathtracer_tpu_torch.integrator  # noqa: F401
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -321,25 +654,47 @@ def main() -> int:
               torch=torch.__version__, cuda=torch.version.cuda,
               count=torch.cuda.device_count()))
 
-    t0 = time.perf_counter()
-    lib_path = k1.build(verbose=True)
-    k1._load()
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              library=os.path.relpath(lib_path, ROOT)))
-
+    phase_build()
     k1_out = phase_k1(dev)
     phase_golden(dev)
     main_out = phase_main(dev, smi)
-    prof_out = phase_k1_profile(dev)
+    k2_out = phase_k2(dev)
+    phase_box_golden(dev)
+    box_out = phase_box_main(dev, smi)
+    probe_out = phase_probes(dev)
+    prof_out = phase_profile(dev)
 
-    emit({"kernels": [dict(
-        name="intersect", route="cuda",
-        source="pathtracer_tpu_torch/csrc/intersect.cu",
-        replaces="pathtracer_tpu/ops/pallas/intersect_pl.py:52",
-        launches=main_out["launches"],
-        max_abs_err=max(k1_out["max_abs_err_t"], k1_out["max_abs_err_b"]),
-        ms=k1_out["ms"], plain_ms=k1_out["plain_ms"],
-        kernel_device_ms=prof_out["kernel_device_ms"])]})
+    probe_src = "pathtracer_tpu_torch/csrc/gather_probe.cu"
+    probe_tool = "tools/probe_pallas_gather.py"
+    kernels = [
+        dict(name="intersect", route="cuda",
+             source="pathtracer_tpu_torch/csrc/intersect.cu",
+             replaces="pathtracer_tpu/ops/pallas/intersect_pl.py:52",
+             launches=main_out["launches"],
+             max_abs_err=max(k1_out["max_abs_err_t"],
+                             k1_out["max_abs_err_b"]),
+             ms=k1_out["ms"], plain_ms=k1_out["plain_ms"],
+             kernel_device_ms=prof_out["k1_kernel_device_ms"]),
+        dict(name="bvhw", route="cuda",
+             source="pathtracer_tpu_torch/csrc/bvhw.cu",
+             replaces="pathtracer_tpu/accel/bvhw.py:596",
+             launches=box_out["launches"],
+             max_abs_err=max(k2_out["max_abs_err_t"],
+                             k2_out["max_abs_err_b"]),
+             ms=k2_out["ms"], plain_ms=k2_out["plain_ms"],
+             kernel_device_ms=prof_out["k2_kernel_device_ms"])]
+    for pid, kernel, line in (("P1", "gather_rows", 65),
+                              ("P2", "gather_rows", 78),
+                              ("P3", "gather_cols", 92),
+                              ("P4", "gather_rows_warp", 107),
+                              ("P5", "stack_push_read", 130)):
+        kernels.append(dict(
+            name=f"{kernel} ({pid})", route="cuda", source=probe_src,
+            replaces=f"{probe_tool}:{line}",
+            launches=probe_out["launches"][kernel], max_abs_err=0.0,
+            ms=probe_out["probes"][pid]["ms"],
+            plain_ms=probe_out["probes"][pid]["plain_ms"]))
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

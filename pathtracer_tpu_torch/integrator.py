@@ -1,17 +1,21 @@
 """Wavefront path integrator: NEE + MIS + Russian roulette, fully batched.
 
-Port of ``pathtracer_tpu/integrator.py`` in its fused form, for scenes
-without a BVH (F <= 128 triangles), Lambertian materials and diffuse area
-lights, with the Sobol sampler and both MIS modes ("ref" and
-"onesample"). The bounce loop is a Python loop over SoA wavefront state;
-PyTorch runs it eagerly. Every closest-hit and shadow query goes through
-``ops/cuda/intersect_cu.intersect``: kernel K1 for CUDA tensors, its plain
-version for CPU tensors.
+Port of ``pathtracer_tpu/integrator.py`` in its fused form, for opaque
+scenes of Lambertian materials under diffuse area lights, with the Sobol
+sampler and both MIS modes ("ref" and "onesample"). The bounce loop is a
+Python loop over SoA wavefront state; PyTorch runs it eagerly. Every
+closest-hit and shadow query goes to one of two kernels, as in the
+reference: scenes of at most 128 triangles to the brute-force
+``ops/cuda/intersect_cu.intersect`` (K1), larger ones to the BVH32
+traversal ``ops/cuda/bvhw_cu.bvhw_intersect`` (K2) over the table that
+``TracedScene.create`` builds. Each wrapper launches its kernel for CUDA
+tensors and runs its plain version for CPU tensors.
 
 Left out, as they exist only for the TPU: ``tuning.py``/``tuned.json``,
 the wavefront sort, the one-hot MXU row gather (``table[idx]`` here), the
-lane-bounce budget and the segmented renderer. Options outside the slice
-raise NotImplementedError naming their ROADMAP item.
+lane-bounce budget, the segmented renderer and the traversal's chunk and
+interleave knobs. Options outside the slice raise NotImplementedError
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,16 +29,19 @@ from pathtracer_tpu.core.filter import filter_f1d as make_filter_f1d
 
 from .core import math as pm
 from .core.camera import Camera, generate_rays
+from .accel.bvh import build_bvh
+from .accel.bvhw import STACKW, bvhw_from_binary
 from .core.film import (film_crop, film_pad_accumulate, film_pad_new,
                         sample_bounds, splat_halfwidth, splat_tile)
 from .ops import bsdf as bx
 from .ops import interaction as ia
 from .ops import lights as lt
 from .ops import sobol as sb
+from .ops.cuda.bvhw_cu import bvhw_intersect
 from .ops.cuda.intersect_cu import intersect
 from .scene.scene import (LIGHT_AREA, MAT_GLASS, MAT_MATTE, MAT_MIRROR,
                           SceneData, pack_light_attr, pack_mat_attr,
-                          pack_tri_attr)
+                          pack_tri_attr, reorder_triangles)
 
 # static per-bounce dimension layout (after camera dims 0,1)
 DIMS_PER_BOUNCE = 8
@@ -89,7 +96,9 @@ class TracedScene:
 
     tri_attr / light_attr / mat_attr are the packed per-row attribute
     matrices (scene/scene.py pack_*); tri_pack is the (F, 12) [p0 p1 p2
-    pad] table K1 reads.
+    pad] table K1 reads. Scenes above 128 triangles also carry the BVH32
+    table ``bw_rows`` (R, 256) that K2 reads, and its depth ``bw_depth``;
+    their ``data`` is in BVH leaf order.
     """
 
     data: SceneData
@@ -100,63 +109,97 @@ class TracedScene:
     mat_set: tuple = (MAT_MATTE,)
     n_lights: int = 1
     light_set: tuple = (LIGHT_AREA,)
+    bw_rows: torch.Tensor | None = None
+    bw_depth: int = STACKW
 
     @property
     def device(self) -> torch.device:
         return self.tri_pack.device
 
     @staticmethod
-    def create(sd: SceneData) -> "TracedScene":
-        """Pack the scene on its own device. Scenes above 128 triangles
-        take the BVH route in the reference (``use_bvh = f > 128``)."""
+    def create(sd: SceneData, max_leaf: int = 4) -> "TracedScene":
+        """Pack the scene on its own device. Above 128 triangles it takes
+        the reference's BVH route (``use_bvh = f > 128``): the binary SAH
+        build, the triangles reordered into its leaf order, and the
+        32-wide collapse."""
+        if int(sd.p0.shape[0]) <= 128:
+            return TracedScene.from_tables(sd)
+        _check_scene(sd)  # before the build, not only after it
+        bvh = build_bvh(sd.p0.cpu().numpy(), sd.p1.cpu().numpy(),
+                        sd.p2.cpu().numpy(), max_leaf)
+        sd = reorder_triangles(sd, bvh.order)
+        table, depth = bvhw_from_binary(
+            bvh, sd.p0.cpu().numpy(), sd.p1.cpu().numpy(),
+            sd.p2.cpu().numpy())
+        return TracedScene.from_tables(sd, table, depth)
+
+    @staticmethod
+    def from_tables(sd: SceneData, bw_rows=None,
+                    bw_depth: int = STACKW) -> "TracedScene":
+        """Pack a scene whose triangles are already in the order of the
+        BVH32 table ``bw_rows`` (a host array; None for the
+        brute-force route)."""
+        _check_scene(sd)
         device = sd.device
         f = int(sd.p0.shape[0])
-        if f > 128:
-            raise NotImplementedError(
-                f"{f} triangles need the BVH path: ROADMAP Queue 1 item 10 "
-                "and Queue 2 kernel K2")
-        used = np.unique(sd.material_id.cpu().numpy())
-        mat_set = tuple(sorted(set(
-            sd.mat_type.cpu().numpy()[used].tolist())))
-        if set(mat_set) - {MAT_MATTE}:
-            raise NotImplementedError(
-                f"material types {mat_set}: {_MORE_MATERIALS}")
-        for name in ("mat_kd_tx", "mat_ks_tx", "mat_metallic_tx",
-                     "mat_rough_tx", "mat_normal_tx"):
-            if (getattr(sd, name).cpu().numpy()[used] >= 0).any():
-                raise NotImplementedError(f"textures: {_MORE_MATERIALS}")
-        if (sd.tri_alpha_txd >= 0).any():
-            raise NotImplementedError(
-                "alpha masks: ROADMAP Queue 1 item 10 (alpha path)")
-        if bool(sd.has_env):
-            raise NotImplementedError(f"environment light: {_MORE_MATERIALS}")
         n_lights = int(sd.n_lights)
-        light_set = tuple(sorted(set(sd.light_type.cpu().numpy().tolist()))) \
-            if n_lights > 0 else ()
-        if set(light_set) - {LIGHT_AREA}:
-            raise NotImplementedError(
-                f"light types {light_set}: {_MORE_MATERIALS}")
+        used = np.unique(sd.material_id.cpu().numpy())
 
         def t(a):
-            return torch.as_tensor(a, dtype=torch.float32, device=device)
+            return torch.as_tensor(np.array(a, np.float32), device=device)
 
         p = [sd.p0.cpu().numpy(), sd.p1.cpu().numpy(), sd.p2.cpu().numpy()]
         tri_pack = np.concatenate(p + [np.zeros((f, 3), np.float32)], axis=1)
         return TracedScene(
             data=sd, tri_attr=t(pack_tri_attr(sd)),
             light_attr=t(pack_light_attr(sd)), mat_attr=t(pack_mat_attr(sd)),
-            tri_pack=t(tri_pack), mat_set=mat_set, n_lights=n_lights,
-            light_set=light_set)
+            tri_pack=t(tri_pack),
+            mat_set=tuple(sorted(set(
+                sd.mat_type.cpu().numpy()[used].tolist()))),
+            n_lights=n_lights,
+            light_set=tuple(sorted(set(
+                sd.light_type.cpu().numpy().tolist())))
+            if n_lights > 0 else (),
+            bw_rows=None if bw_rows is None
+            else t(bw_rows).contiguous(),
+            bw_depth=int(bw_depth))
+
+
+def _check_scene(sd: SceneData) -> None:
+    """Raise NotImplementedError for what the port does not render yet."""
+    used = np.unique(sd.material_id.cpu().numpy())
+    mat_set = set(sd.mat_type.cpu().numpy()[used].tolist())
+    if mat_set - {MAT_MATTE}:
+        raise NotImplementedError(
+            f"material types {sorted(mat_set)}: {_MORE_MATERIALS}")
+    for name in ("mat_kd_tx", "mat_ks_tx", "mat_metallic_tx",
+                 "mat_rough_tx", "mat_normal_tx"):
+        if (getattr(sd, name).cpu().numpy()[used] >= 0).any():
+            raise NotImplementedError(f"textures: {_MORE_MATERIALS}")
+    if (sd.tri_alpha_txd >= 0).any():
+        raise NotImplementedError(
+            "alpha masks: ROADMAP Queue 1 item 10b (alpha path)")
+    if bool(sd.has_env):
+        raise NotImplementedError(f"environment light: {_MORE_MATERIALS}")
+    if int(sd.n_lights) > 0 and \
+            set(sd.light_type.cpu().numpy().tolist()) - {LIGHT_AREA}:
+        raise NotImplementedError(f"light types: {_MORE_MATERIALS}")
 
 
 def _scene_intersect(scene, o, d, t_max):
-    return intersect(o.contiguous(), d.contiguous(), t_max.contiguous(),
-                     scene.tri_pack)
+    o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
+    if scene.bw_rows is not None:
+        return bvhw_intersect(scene.bw_rows, o, d, t_max,
+                              stackw=scene.bw_depth)
+    return intersect(o, d, t_max, scene.tri_pack)
 
 
 def _scene_intersect_p(scene, o, d, t_max):
-    return intersect(o.contiguous(), d.contiguous(), t_max.contiguous(),
-                     scene.tri_pack, any_hit=True)
+    o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
+    if scene.bw_rows is not None:
+        return bvhw_intersect(scene.bw_rows, o, d, t_max, any_hit=True,
+                              stackw=scene.bw_depth)
+    return intersect(o, d, t_max, scene.tri_pack, any_hit=True)
 
 
 def _to_local(it, w):
@@ -305,8 +348,13 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2):
     prev_perr, prev_ng = st["prev_perr"], st["prev_ng"]
 
     st["rays"] = st["rays"] + torch.sum(active.to(torch.float32))
-    hit = _scene_intersect(scene, o, d,
-                           torch.full((n,), torch.inf, device=o.device))
+    if scene.bw_rows is not None:
+        # wavefront compaction: the traversal kills t_max <= 0 lanes on
+        # entry, so finished paths cost no traversal steps
+        t_in = torch.where(active, torch.inf, 0.0)
+    else:
+        t_in = torch.full((n,), torch.inf, device=o.device)
+    hit = _scene_intersect(scene, o, d, t_in)
     found = hit["valid"] & active
 
     # emitted radiance. "ref": camera/specular bounces only; "onesample":

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .core.camera import Camera
+from .integrator import TracedScene
 from .scene.scene import SceneData
 
 
@@ -22,6 +23,18 @@ def scene_from_reference(sd, device=None) -> SceneData:
     return SceneData(**{
         f.name: torch.as_tensor(np.array(getattr(sd, f.name)), device=device)
         for f in dataclasses.fields(SceneData)})
+
+
+def traced_scene_from_reference(ts, device=None):
+    """The reference's ``TracedScene`` -> this package's, on ``device``:
+    its (reordered) SceneData and, for BVH scenes, its BVH32 table
+    ``bw_rows`` and depth ``bw_depth``, so both packages trace one
+    identical table."""
+    bw_rows = getattr(ts, "bw_rows", None)
+    return TracedScene.from_tables(
+        scene_from_reference(ts.data, device),
+        None if bw_rows is None else np.asarray(bw_rows),
+        int(ts.bw_depth))
 
 
 def camera_from_reference(cam) -> Camera:

@@ -7,31 +7,22 @@ kernel in ``csrc/intersect.cu``; CPU tensors go to ``intersect_plain``,
 the plain PyTorch version built on ``ops/intersect.py``. There is no
 fallback between the two: a CUDA input that the kernel cannot take raises.
 
-The kernel is compiled with nvcc into a shared library with a plain C
-interface at first use (``build/``, keyed by a hash of the source and
-flags) and loaded with ctypes.
+The kernel is compiled with nvcc at first use (``ops/cuda/_build.py``:
+``build/``, keyed by a hash of the source and flags) and loaded with
+ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
 from ..intersect import (GAMMA2, GAMMA3, GAMMA5, intersect_brute,
                          intersect_p_brute)
+from . import _build
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "intersect.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = "intersect.cu"
 
 # kernel launches made by ``intersect`` (CPU calls never count)
 LAUNCHES = 0
@@ -39,56 +30,17 @@ LAUNCHES = 0
 _lib = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return found
-
-
 def build(verbose: bool = False) -> str:
-    """Compile csrc/intersect.cu into build/ unless an up-to-date library
-    (same source and flags) is already there. Returns the library path."""
-    with open(SOURCE, "rb") as fh:
-        src = fh.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libintersect_{key}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, SOURCE]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        if verbose:
-            print(res.stdout + res.stderr, flush=True)
-        os.replace(tmp, out)  # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    """Compile csrc/intersect.cu into build/ (once). Returns its path."""
+    return _build.build_cuda(SOURCE, verbose=verbose)
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.pt_intersect_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 5)
-        fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _build.load_cuda(SOURCE, {"pt_intersect_launch": (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+            + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 5)})
     return _lib
 
 
@@ -155,15 +107,12 @@ def intersect(o, d, t_max, tri_pack, any_hit: bool = False):
             return None if x is None else x.data_ptr()
 
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.pt_intersect_launch(
                 ptr(o), ptr(d), ptr(t_max), ptr(tri_pack), n,
                 tri_pack.shape[0], int(bool(any_hit)), GAMMA2, GAMMA3,
                 GAMMA5, ptr(valid), ptr(t),
-                ptr(tri), ptr(b), stream)
-        if err != 0:
-            raise RuntimeError(f"intersect kernel launch failed: CUDA error "
-                               f"{err}")
+                ptr(tri), ptr(b), _build.stream_of(dev))
+        _build.check_launch(err, "intersect")
         LAUNCHES += 1
     if any_hit:
         return valid

@@ -123,6 +123,46 @@ def watertight_hit_diag(o, d, t_max, p0, p1, p2):
     return _watertight(*shear(p0), *shear(p1), *shear(p2), sz, t_max)
 
 
+def _sel3(k, c0, c1, c2):
+    return torch.where(k == 0, c0, torch.where(k == 1, c1, c2))
+
+
+def watertight_cols_pre(o, d):
+    """Per-ray shear constants for watertight_hit_cols, as flat (N,)
+    columns: the kz = argmax |d| permutation and the shear coefficients of
+    watertight_hit_diag's prologue, computed once per ray so a traversal
+    testing many triangles per ray hoists them out of its loop."""
+    kx, ky, kz = _permute_ray(d)
+    dz = _take3(d, kz)
+    return dict(kx=kx, ky=ky, kz=kz, o0=o[..., 0], o1=o[..., 1],
+                o2=o[..., 2], sx=-_take3(d, kx) / dz, sy=-_take3(d, ky) / dz,
+                sz=torch.reciprocal(dz))
+
+
+def watertight_hit_cols(pre, t_max, c9):
+    """Watertight test of ray i against triangle i, all-columns form.
+
+    pre: watertight_cols_pre(o, d), each column broadcastable against the
+    triangle columns; t_max likewise; c9: 9 columns [p0.x p0.y p0.z p1.x ..
+    p2.z] in world space. Returns (t, b0, b1, b2, hit). The same operations
+    in the same order as watertight_hit_diag, so the same bits.
+    """
+    kx, ky, kz = pre["kx"], pre["ky"], pre["kz"]
+    sx, sy, sz = pre["sx"], pre["sy"], pre["sz"]
+
+    def shear(cx, cy, cz):
+        a0 = cx - pre["o0"]
+        a1 = cy - pre["o1"]
+        a2 = cz - pre["o2"]
+        pz = _sel3(kz, a0, a1, a2)
+        return (_sel3(kx, a0, a1, a2) + sx * pz,
+                _sel3(ky, a0, a1, a2) + sy * pz, pz)
+
+    t, b, hit = _watertight(*shear(*c9[0:3]), *shear(*c9[3:6]),
+                            *shear(*c9[6:9]), sz, t_max)
+    return t, b[..., 0], b[..., 1], b[..., 2], hit
+
+
 def intersect_brute(o, d, t_max, p0, p1, p2):
     """Closest hit over all triangles.
 

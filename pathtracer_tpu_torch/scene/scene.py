@@ -1,8 +1,9 @@
 """Packed scene representation: a dataclass of tensors + host build.
 
-Port of ``pathtracer_tpu/scene/scene.py`` for the Cornell slice: the
-triangle soup, material table and light table as tensors; SceneBuilder
-accumulates meshes on the host in numpy. Textures, point/distant lights
+Port of ``pathtracer_tpu/scene/scene.py`` for matte scenes under area
+lights: the triangle soup, material table and light table as tensors;
+SceneBuilder accumulates meshes on the host in numpy; reorder_triangles
+puts the soup in BVH leaf order. Textures, point/distant lights
 and environment maps are outside the slice (ROADMAP Queue 1 item 9): the
 texture-descriptor and environment fields hold the reference's "none"
 defaults, and SceneBuilder has no way to add them.
@@ -246,6 +247,29 @@ def pack_mat_attr(sd: SceneData) -> np.ndarray:
     ], axis=1).astype(np.float32)
     assert cols.shape[1] == MA_WIDTH
     return cols
+
+
+_TRIANGLE_FIELDS = ("p0", "p1", "p2", "n0", "n1", "n2", "has_normals",
+                    "uv0", "uv1", "uv2", "material_id", "area_light_id",
+                    "tri_ng", "tri_alpha_txd")
+
+
+def reorder_triangles(scene: SceneData, order) -> SceneData:
+    """Permute the triangle soup (e.g. into BVH leaf order).
+
+    ``order[k]`` is the old index of the triangle now at slot k. Area-light
+    triangle references are remapped through the inverse permutation.
+    """
+    order = np.asarray(order, np.int64)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(len(order))
+    lt = _np(scene.light_tri)
+    light_tri = np.where(lt >= 0, inv[np.maximum(lt, 0)],
+                         lt).astype(np.int32)
+    idx = torch.as_tensor(order, device=scene.device)
+    return dataclasses.replace(
+        scene, light_tri=torch.as_tensor(light_tri, device=scene.device),
+        **{name: getattr(scene, name)[idx] for name in _TRIANGLE_FIELDS})
 
 
 _DEFAULT_MATERIAL = dict(

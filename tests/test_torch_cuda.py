@@ -1,4 +1,5 @@
-"""Kernel K1 on the card against its plain PyTorch version.
+"""Kernels K1, K2 and the gather probes P1-P5 on the card against their
+plain PyTorch versions.
 
 These tests need a CUDA card (marked ``cuda``; without one they skip: the
 kernel has no CPU or interpret mode). The file imports neither JAX nor
@@ -11,14 +12,18 @@ import numpy as np
 import pytest
 import torch
 
+from pathtracer_tpu_torch.accel.bvhw import build_bvhw
+from pathtracer_tpu_torch.accel.bvhw import bvhw_intersect as bvhw_plain
+from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
 from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+from pathtracer_tpu_torch.probes import gather as pg
 
 
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 is a CUDA kernel with no CPU or "
-                    "interpret mode")
+        pytest.skip("needs a CUDA card: the kernels are CUDA kernels with no "
+                    "CPU or interpret mode")
     return torch.device("cuda")
 
 
@@ -71,3 +76,85 @@ def test_kernel_handles_empty_and_rejects_strided(dev):
     with pytest.raises(ValueError, match="on"):
         k1.intersect(o, d, t_max, tri_pack.cpu())
     assert k1.LAUNCHES == before
+
+
+def _bvh_case(seed, f, n, dev):
+    """Random soup, its BVH32 table and depth, and rays from inside and
+    around it; a quarter of the rays get a finite t_max, some are dead
+    (t_max = 0) and some axis-parallel (1/d = inf)."""
+    rng = np.random.default_rng(seed)
+    c = (rng.random((f, 1, 3)) * 2 - 1) * 4.0
+    tri = (c + (rng.random((f, 3, 3)) * 2 - 1) * 0.4).astype(np.float32)
+    table, order, depth = build_bvhw(tri[:, 0], tri[:, 1], tri[:, 2])
+    tri = tri[order]
+    o = ((rng.random((n, 3)) * 2 - 1) * 6).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[::17, 1:] = 0.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.where(rng.random(n) < 0.25, rng.uniform(0.5, 6.0, n),
+                     np.inf).astype(np.float32)
+    t_max[::13] = 0.0
+    pack = np.concatenate([tri.reshape(f, 9), np.zeros((f, 3))], axis=1)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return t(table), depth, t(o), t(d), t(t_max), t(pack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,n", [(5, 1000), (26, 4096), (3000, 65536),
+                                 (20000, 8192)])
+def test_bvhw_kernel_matches_plain_and_k1(dev, f, n):
+    """K2 against its plain version (valid, tri, any-hit identical; t and b
+    to rtol 1e-6 / atol 1e-7) and against brute force K1 (valid identical,
+    t to rtol 1e-5; tri only where t ties)."""
+    table, depth, o, d, t_max, pack = _bvh_case(f + n, f, n, dev)
+    before = k2.LAUNCHES
+    got = k2.bvhw_intersect(table, o, d, t_max, stackw=depth)
+    got_any = k2.bvhw_intersect(table, o, d, t_max, any_hit=True,
+                                stackw=depth)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES == before + 2
+    want = bvhw_plain(table, o, d, t_max, stackw=depth)
+    want_any = bvhw_plain(table, o, d, t_max, any_hit=True, stackw=depth)
+    assert torch.equal(got["valid"], want["valid"])
+    assert torch.equal(got["tri"], want["tri"])
+    assert torch.equal(got_any, want_any)
+    torch.testing.assert_close(got["t"], want["t"], rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(got["b"], want["b"], rtol=1e-6, atol=1e-7)
+    brute = k1.intersect(o, d, t_max, pack)
+    assert torch.equal(got["valid"], brute["valid"])
+    v = brute["valid"]
+    torch.testing.assert_close(got["t"][v], brute["t"][v], rtol=1e-5,
+                               atol=0.0)
+    differ = v & (got["tri"] != brute["tri"])
+    assert torch.equal(got["t"][differ], brute["t"][differ])
+    assert torch.equal(got_any, k1.intersect(o, d, t_max, pack,
+                                             any_hit=True))
+
+
+@pytest.mark.cuda
+def test_bvhw_kernel_short_stack_and_rejects(dev):
+    table, depth, o, d, t_max, _ = _bvh_case(3, 3000, 4096, dev)
+    for stackw in (1, 10):
+        got = k2.bvhw_intersect(table, o, d, t_max, stackw=stackw)
+        want = bvhw_plain(table, o, d, t_max, stackw=stackw)
+        assert torch.equal(got["valid"], want["valid"])
+        assert torch.equal(got["tri"], want["tri"])
+    before = k2.LAUNCHES
+    with pytest.raises(ValueError, match="stackw"):
+        k2.bvhw_intersect(table, o, d, t_max, stackw=11)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.bvhw_intersect(table.t().contiguous().t(), o, d, t_max)
+    with pytest.raises(TypeError, match="float32"):
+        k2.bvhw_intersect(table.double(), o, d, t_max)
+    assert k2.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pid", ["P1", "P2", "P3", "P4", "P5"])
+def test_gather_probe_matches_plain(dev, pid):
+    x = pg.probe_inputs(dev)
+    got = pg.PROBES[pid](x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pg.PLAIN[pid](x))

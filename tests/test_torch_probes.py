@@ -1,0 +1,61 @@
+"""The gather probes P1-P5 (``probes/gather.py``) on the CPU, at the TPU
+probe's shapes and on its ``default_rng(0)`` draws, against the probe's own
+numpy references (``tools/probe_pallas_gather.py``: ``table[idx]`` for the
+row gathers, the transposed table for the lane gather, and ``v`` for the
+stack push / read-back). They only move words, so equality is exact. The
+tool itself is not imported: it runs its TPU calls at import.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pathtracer_tpu_torch.probes import gather as pg
+
+
+def _numpy_draws():
+    """The tool's draws, in its order."""
+    rng = np.random.default_rng(0)
+    table = rng.random((pg.M, pg.W), np.float32)
+    idx = rng.integers(0, pg.M, pg.N).astype(np.int32)
+    sp = rng.integers(0, pg.D, pg.N).astype(np.int32)
+    v = rng.random(pg.N).astype(np.float32)
+    return table, idx, sp, v
+
+
+def test_probe_inputs_are_the_tools_draws():
+    table, idx, sp, v = _numpy_draws()
+    x = pg.probe_inputs()
+    assert x["table"].shape == (65536, 8) and x["idx"].shape == (8192,)
+    np.testing.assert_array_equal(x["table"].numpy(), table)
+    np.testing.assert_array_equal(x["table_t"].numpy(), table.T)
+    np.testing.assert_array_equal(x["idx"].numpy(), idx)
+    np.testing.assert_array_equal(x["sp"].numpy(), sp)
+    np.testing.assert_array_equal(x["v"].numpy(), v)
+
+
+@pytest.mark.parametrize("pid", ["P1", "P2", "P3", "P4", "P5"])
+def test_plain_probe_matches_numpy_reference(pid):
+    table, idx, sp, v = _numpy_draws()
+    before = dict(pg.LAUNCHES)
+    got = pg.run_probes()[pid].numpy()
+    assert pg.LAUNCHES == before  # CPU tensors: the plain versions
+    want = {"P1": table[idx], "P2": table[idx], "P3": table.T[:, idx],
+            "P4": table[idx], "P5": v}[pid]
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    if pid == "P3":  # the tool transposes the lane gather back
+        np.testing.assert_array_equal(got.T, table[idx])
+
+
+def test_probe_wrappers_reject_bad_inputs():
+    x = pg.probe_inputs()
+    with pytest.raises(TypeError, match="int32"):
+        pg.gather_rows(x["table"], x["idx"].long())
+    with pytest.raises(TypeError, match="float32"):
+        pg.stack_push_read(x["sp"], x["v"].double())
+    with pytest.raises(ValueError, match="depth"):
+        pg.stack_push_read(x["sp"], x["v"], depth=65)
+    with pytest.raises(ValueError, match="expected"):
+        pg.gather_cols(x["table_t"], torch.zeros(4, dtype=torch.int32,
+                                                 device="meta"))

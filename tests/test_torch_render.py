@@ -160,6 +160,11 @@ def test_port_render_imports_no_jax():
         "film = PathIntegrator(PathConfig(max_depth=2), spp=1)"
         ".render(cam, sd)\n"
         "assert torch.isfinite(film).all()\n"
+        "from pathtracer_tpu_torch.scene.procedural import box_field_scene\n"
+        "cam, sd = box_field_scene((8, 6), n_boxes=30)\n"
+        "film = PathIntegrator(PathConfig(max_depth=2), spp=1)"
+        ".render(cam, sd)\n"
+        "assert torch.isfinite(film).all()\n"
         "assert 'jax' not in sys.modules, 'the port imported jax'\n"
         "assert not [m for m in sys.modules if m.startswith('jax')]\n"
         "print('ok')\n")
