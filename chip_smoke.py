@@ -7,8 +7,9 @@ printing one JSON line:
 1. device  - the card's name and power limit (also printed raw, as
              nvidia-smi gives them);
 2. build   - compiles kernel K1 (csrc/intersect.cu), kernel K2
-             (csrc/bvhw.cu) and the gather probes (csrc/gather_probe.cu)
-             with nvcc, and the native BVH builder with g++, all at once;
+             (csrc/bvhw.cu) and the gather probes (csrc/gather_probe.cu,
+             csrc/gather_probe2.cu) with nvcc, and the native BVH builder
+             (csrc/bvh_builder.cpp) with g++, all at once;
 3. k1      - K1 against its plain PyTorch version on the card, at the main
              path's shapes (131,072 rays x cornell's 36 triangles): hit
              flags, triangle ids and any-hit identical, t and b to
@@ -24,7 +25,8 @@ printing one JSON line:
              (4,000 boxes, 48,012 triangles) and 131,072 rays (camera rays
              of the first 1920x1080 band and random directions from inside
              the room): closest and any-hit, both timed; and against K1
-             (brute force) on the same rays;
+             (brute force) on the same rays; the plain traversal counts
+             the rows these rays visit, for K2's bound;
 7. box_golden - box field 64x36, 2 spp, depth 3, "ref" MIS on the card
              against the port's own CPU film (the plain traversal) at
              RMSE < 1e-3 and alpha rtol 1e-5, exact K2 launch count, no K1;
@@ -36,12 +38,30 @@ printing one JSON line:
 9. probes  - the gather probes P1-P5 once through ``run_probes`` (their
              path), then each against its plain version (exact) and both
              timed;
-10. profile - K1's and K2's own device times from a torch.profiler trace
+10. probes2 - the gather probes P6-P9 likewise (exact), each also beside
+             its library call (P9: ``tbl[idx]`` and ``torch.matmul`` of
+             the one-hot operands);
+11. materials_golden - configs B, C and D at 64x64, band_rows 16, 2 spp,
+             depths 4, 6 and 4 ("ref" MIS) on the card, against the
+             committed goldens at tests/test_golden.py's _golden_check bar
+             (alpha rtol 1e-5, RMSE < 2e-3, mean within 2 %) and against
+             the port's own CPU film (RMSE < 1e-3), exact K2 launch
+             counts, no K1;
+12. materials_main - each config at 640x480, 4 spp, "onesample" MIS
+             (C at depth 15, B and D at depth 5): a 1 spp warm-up render,
+             then one timed render with the launch counts set to 0 just
+             before it: Mrays/s, set-up seconds, peak device memory,
+             exact K2 launch count, no K1, finite film with positive
+             weight everywhere;
+13. profile - K1's and K2's own device times from a torch.profiler trace
              (last, as tracing slows later launches).
 
-Then one JSON line listing the kernels, and last the status line. Any
-failure raises (non-zero exit). Without a CUDA card it exits non-zero and
-prints no result.
+Then one JSON line listing the kernels, each with its time, its plain
+version's, its library call's where one exists, and its bound (the least
+time an H100 could take: the larger of the bytes it must move over
+3.35 TB/s and its FP32 operations over 67 TFLOP/s), and last the status
+line. Any failure raises (non-zero exit). Without a CUDA card it exits
+non-zero and prints no result.
 """
 
 import json
@@ -62,6 +82,37 @@ K2_RAYS = 1 << 17
 PLAIN_K2_REPS = 5
 BOX_RES = (1920, 1080)
 BOX_BOXES = 4000
+# configs B, C, D: (builder, golden, golden depth, main depth)
+MATERIAL_CONFIGS = {
+    "B": ("small_scene", "golden_small_64.npz", 4, 5),
+    "C": ("microfacet_scene", "golden_microfacet_64.npz", 6, 15),
+    "D": ("envmap_disney_scene", "golden_envmap_64.npz", 4, 5),
+}
+MAT_RES = (640, 480)
+MAT_SPP = 4
+
+# the H100 SXM's published peaks (NVIDIA data sheet; 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# FP32 operations every ray-triangle pair pays in the watertight test
+# before its early exit: 9 translations, 6 shear multiply-adds (12) and
+# 3 edge functions of two products and a difference (9)
+PAIR_OPS = 30
+# per child slab test of a BVH32 interior row: per axis 2 subtractions,
+# 2 multiplies, a min, a max and the gamma scaling (21), the entry / exit
+# reduction (4) and the two range compares (2)
+SLAB_OPS = 27
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time an H100 could take for work that must move
+    ``nbytes`` and do ``ops`` FP32 operations, and which of the two sets
+    it."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
 
 
 def emit(obj) -> None:
@@ -223,7 +274,10 @@ def phase_k1(dev):
                                           any_hit=True))
     plain_ms_any = time_ms(lambda: k1.intersect_plain(
         o, d, t_max, scene.tri_pack, any_hit=True))
+    # inputs o, d, t_max (28 B a ray) and the (F, 12) table; outputs
+    # valid, t, tri and b (21 B a ray)
     out = dict(phase="k1", rays=n, triangles=f, hit_lanes=int(hit.sum()),
+               **bound(49.0 * n + 48.0 * f, PAIR_OPS * float(n) * f),
                anyhit_lanes=int(want_any.sum()), max_abs_err_t=errs["t"],
                max_abs_err_b=errs["b"], t_bit_equal_frac=t_bits_equal,
                ms=ms, plain_ms=plain_ms, ms_anyhit=ms_any,
@@ -392,7 +446,9 @@ def phase_k2(dev):
                                        stackw=stackw)
 
     got, got_any = kernel(t_inf), kernel(t_any, True)
-    want, want_any = plain(t_inf), plain(t_any, True)
+    rows = {}
+    want = bvhw_plain(table, o, d, t_inf, stackw=stackw, row_counts=rows)
+    want_any = plain(t_any, True)
     torch.cuda.synchronize()
     if not torch.equal(got["valid"], want["valid"]):
         raise AssertionError("K2 valid differs from the plain version")
@@ -429,7 +485,13 @@ def phase_k2(dev):
     ms_any = time_ms(lambda: kernel(t_any, True))
     plain_ms = time_ms(lambda: plain(t_inf), reps=PLAIN_K2_REPS)
     plain_ms_any = time_ms(lambda: plain(t_any, True), reps=PLAIN_K2_REPS)
-    out = dict(phase="k2", rays=o.shape[0],
+    n = o.shape[0]
+    # rays in and out (49 B a ray) and the table; the closest-hit query's
+    # visited rows: 32 slab tests an interior row, 25 triangle tests a leaf
+    out = dict(phase="k2", rays=n, rows_visited=rows,
+               **bound(49.0 * n + table.numel() * 4.0,
+                       SLAB_OPS * 32.0 * rows["interior"]
+                       + PAIR_OPS * 25.0 * rows["leaf"]),
                triangles=int(scene.tri_pack.shape[0]),
                table_rows=int(table.shape[0]), depth=stackw,
                hit_lanes=int(hit.sum()), anyhit_lanes=int(want_any.sum()),
@@ -562,16 +624,231 @@ def phase_probes(dev):
     if launches != {"gather_rows": 2, "gather_cols": 1,
                     "gather_rows_warp": 1, "stack_push_read": 1}:
         raise AssertionError(f"probe launches {launches}")
+    # the bytes each probe must move: its indices, the distinct table rows
+    # they name, its output; P5 its pointers, values and output
+    rows = torch.unique(x["idx"]).numel()
+    gather = bound(4.0 * pg.N + 4.0 * pg.W * (rows + pg.N), 0.0)
+    bounds = dict(P1=gather, P2=gather, P3=gather, P4=gather,
+                  P5=bound(12.0 * pg.N, 0.0))
     probes = {}
     for pid, fn in pg.PROBES.items():
         want = pg.PLAIN[pid](x)
         if not torch.equal(outs[pid], want):
             raise AssertionError(f"{pid} differs from its plain version")
+        plain_ms = time_ms(lambda: pg.PLAIN[pid](x))
         probes[pid] = dict(
-            ms=time_ms(lambda: fn(x)),
-            plain_ms=time_ms(lambda: pg.PLAIN[pid](x)))
+            ms=time_ms(lambda: fn(x)), plain_ms=plain_ms,
+            # P1-P4's plain version is the library's indexed load itself
+            library_ms=None if pid == "P5" else plain_ms, **bounds[pid])
     out = dict(phase="probes", M=pg.M, W=pg.W, N=pg.N, D=pg.D,
                launches=launches, reps=K1_REPS, probes=probes)
+    emit(out)
+    return out
+
+
+def phase_probes2(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from pathtracer_tpu_torch.probes import gather2 as pg
+
+    x = pg.probe_inputs(dev)
+    for key in pg.LAUNCHES:  # the probes' path starts here
+        pg.LAUNCHES[key] = 0
+    outs = pg.run_probes(dev, x)
+    torch.cuda.synchronize()
+    launches = dict(pg.LAUNCHES)
+    if launches != {k: 1 for k in pg.LAUNCHES}:
+        raise AssertionError(f"probe2 launches {launches}")
+
+    # bytes each must move: indices, the distinct table words they read,
+    # output; P9 also 2 FP32 operations per one-hot term
+    n_idx = float(pg.S * pg.L)
+    lane = torch.arange(pg.L, device=dev)
+    idx_i = x["idx_i"].long()
+    cas = torch.take_along_dim(idx_i >> 7, idx_i & (pg.L - 1), dim=1)
+    words = dict(
+        P6=torch.unique(x["idx_g"].long() * pg.L + lane).numel(),
+        P7=torch.unique(x["idx_h"].long()
+                        + pg.L * torch.arange(pg.S, device=dev)[:, None]
+                        ).numel(),
+        P8=torch.unique(cas * pg.L + lane).numel())
+    bounds = {pid: bound(4.0 * (2 * n_idx + w), 0.0)
+              for pid, w in words.items()}
+    bounds["P9"] = bound(4.0 * (pg.L * pg.L + n_idx + n_idx * pg.L),
+                         2.0 * n_idx * pg.L * pg.L)
+
+    tbl, idx_j = x["tbl_j"], x["idx_j"]
+    onehot = F.one_hot(idx_j.long().reshape(-1), pg.L).float()
+    p9_out = torch.empty((pg.S, pg.L, pg.L), device=dev)
+    kernels = dict(pg.PROBES, P9=lambda x: pg.onehot_matmul(
+        tbl, idx_j, out=p9_out))  # one output buffer, reused
+    probes = {}
+    for pid, fn in kernels.items():
+        want = pg.PLAIN[pid](x)
+        if not torch.equal(outs[pid], want):
+            raise AssertionError(f"{pid} differs from its plain version")
+        plain_ms = time_ms(lambda: pg.PLAIN[pid](x))
+        probes[pid] = dict(ms=time_ms(lambda: fn(x)), plain_ms=plain_ms,
+                           max_abs_err=0.0, **bounds[pid])
+    # library calls: P6 / P7's plain gather is one; P8 has none
+    probes["P6"]["library_ms"] = probes["P6"]["plain_ms"]
+    probes["P7"]["library_ms"] = probes["P7"]["plain_ms"]
+    probes["P8"]["library_ms"] = None
+    if not torch.equal(tbl[idx_j].reshape(-1, pg.L),
+                       torch.matmul(onehot, tbl)):
+        raise AssertionError("P9's library calls disagree")
+    probes["P9"]["library_ms"] = time_ms(lambda: tbl[idx_j])
+    probes["P9"]["matmul_ms"] = time_ms(lambda: torch.matmul(onehot, tbl))
+    out = dict(phase="probes2", C=pg.C, S=pg.S, L=pg.L, launches=launches,
+               reps=K1_REPS, probes=probes)
+    emit(out)
+    return out
+
+
+def material_scene(name: str, dev, resolution):
+    """A config's camera and TracedScene on ``dev``, with the seconds of
+    the scene build (meshes, environment tables, upload) and of
+    TracedScene.create (BVH build, reorder, 32-wide collapse, upload),
+    each synchronised."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator import TracedScene
+    from pathtracer_tpu_torch.scene import procedural
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    sync()
+    t0 = time.perf_counter()
+    cam, sd = getattr(procedural, name)(resolution, device=dev)
+    sync()
+    t1 = time.perf_counter()
+    scene = TracedScene.create(sd)
+    sync()
+    return cam, scene, t1 - t0, time.perf_counter() - t1
+
+
+def phase_materials_golden(dev):
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    out = dict(phase="materials_golden")
+    for config, (name, golden, depth, _) in MATERIAL_CONFIGS.items():
+        films = {}
+        for where in (torch.device("cpu"), dev):
+            cam, scene, _, _ = material_scene(name, where, (64, 64))
+            integ = PathIntegrator(PathConfig(max_depth=depth), spp=2,
+                                   band_rows=16)
+            before = (k1.LAUNCHES, k2.LAUNCHES)
+            film = integ.render(cam, scene)
+            if where.type == "cuda":
+                torch.cuda.synchronize()
+            launches = (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1])
+            _, n_bands = integ.band_layout(cam)
+            expect = (0, 0) if where.type == "cpu" else \
+                (0, n_bands * integ.spp * (3 * depth + 1))
+            if launches != expect:
+                raise AssertionError(f"config {config} on {where} launched "
+                                     f"(K1, K2) {launches} times, expected "
+                                     f"{expect}")
+            films[where.type] = (film.cpu().numpy(), launches[1],
+                                 integ.last_ray_count)
+        got, want = films["cuda"][0], films["cpu"][0]
+        if not (np.isfinite(got).all() and (got[..., 3] > 0).all()):
+            raise AssertionError(f"config {config}: card film must be "
+                                 "finite with positive weight")
+        ref = np.load(os.path.join(ROOT, "tests", golden))["film"]
+        # tests/test_golden.py's _golden_check bar
+        np.testing.assert_allclose(got[..., 3], ref[..., 3], rtol=1e-5)
+        rmse_golden = float(np.sqrt(np.mean((got[..., :3]
+                                             - ref[..., :3]) ** 2)))
+        mean_rel = abs(float(got[..., :3].mean() - ref[..., :3].mean())) \
+            / float(ref[..., :3].mean())
+        if not (rmse_golden < 2e-3 and mean_rel < 0.02):
+            raise AssertionError(f"config {config}: golden RMSE "
+                                 f"{rmse_golden}, mean off by {mean_rel}")
+        # the card against the port's own CPU film
+        np.testing.assert_allclose(got[..., 3], want[..., 3], rtol=1e-5)
+        rmse_cpu = float(np.sqrt(np.mean((got[..., :3]
+                                          - want[..., :3]) ** 2)))
+        if not rmse_cpu < 1e-3:
+            raise AssertionError(f"config {config}: card vs CPU RMSE "
+                                 f"{rmse_cpu} >= 1e-3")
+        diff = np.abs(got[..., :3] - want[..., :3]).max(axis=-1)
+        out[config] = dict(scene=name, max_depth=depth,
+                           rmse_golden=rmse_golden, mean_rel_golden=mean_rel,
+                           rmse_cpu=rmse_cpu,
+                           pixels_differing_cpu=int((diff > 0).sum()),
+                           launches=films["cuda"][1],
+                           rays_card=films["cuda"][2],
+                           rays_cpu=films["cpu"][2])
+    emit(out)
+    return out
+
+
+def phase_materials_main(dev, smi: str):
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    w, h = MAT_RES
+    out = dict(phase="materials_main", resolution=list(MAT_RES),
+               spp=MAT_SPP, mis_mode="onesample", card=smi)
+    total = 0
+    for config, (name, _, _, depth) in MATERIAL_CONFIGS.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        cam, scene, build_s, create_s = material_scene(name, dev, MAT_RES)
+        cfg = PathConfig(max_depth=depth, mis_mode="onesample")
+        t0 = time.perf_counter()
+        PathIntegrator(cfg, spp=1).render(cam, scene)  # warm-up, 1 spp
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        integ = PathIntegrator(cfg, spp=MAT_SPP)
+        _, n_bands = integ.band_layout(cam)
+        expect = n_bands * integ.spp * (2 * depth + 1)
+
+        k1.LAUNCHES = 0  # this config's main path starts here
+        k2.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = integ.render(cam, scene)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, k1_launches = k2.LAUNCHES, k1.LAUNCHES
+        if (launches, k1_launches) != (expect, 0):
+            raise AssertionError(f"config {config} launched K2 {launches} "
+                                 f"and K1 {k1_launches} times, expected "
+                                 f"{expect} and 0")
+        if tuple(film.shape) != (h, w, 4):
+            raise AssertionError(f"film shape {tuple(film.shape)}")
+        if not bool(torch.isfinite(film).all()):
+            raise AssertionError(f"config {config}: non-finite film")
+        if not bool((film[..., 3] > 0).all()):
+            raise AssertionError(f"config {config}: film weight must be "
+                                 "positive everywhere")
+        total += launches
+        out[config] = dict(
+            scene=name, max_depth=depth,
+            triangles=int(scene.tri_pack.shape[0]),
+            table_rows=int(scene.bw_rows.shape[0]), depth=scene.bw_depth,
+            bands=n_bands, rays=integ.last_ray_count, seconds=dt,
+            warmup_1spp_seconds=warm_s, build_seconds=build_s,
+            create_seconds=create_s,
+            mrays_per_s=integ.last_ray_count / dt / 1e6,
+            launches=launches, expected_launches=expect,
+            k1_launches=k1_launches,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+            bad_samples=integ.bad_sample_count,
+            film_mean_rgb=[float(v) for v in
+                           film[..., :3].mean(dim=(0, 1)).cpu()])
+    out["launches"] = total
     emit(out)
     return out
 
@@ -607,6 +884,7 @@ def phase_build():
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
     from pathtracer_tpu_torch.probes import gather as pg
+    from pathtracer_tpu_torch.probes import gather2 as pg2
 
     def timed(build):
         t0 = time.perf_counter()
@@ -616,6 +894,7 @@ def phase_build():
     builds = dict(intersect=lambda: k1.build(verbose=True),
                   bvhw=lambda: k2.build(verbose=True),
                   gather_probe=lambda: pg.build(verbose=True),
+                  gather_probe2=lambda: pg2.build(verbose=True),
                   bvh_builder=cpp.library_path)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -624,6 +903,7 @@ def phase_build():
     k1._load()
     k2._load()
     pg._load()
+    pg2._load()
     cpp._load()
     out = dict(phase="build", seconds=time.perf_counter() - t0,
                libraries={name: dict(path=path, seconds=sec)
@@ -662,7 +942,13 @@ def main() -> int:
     phase_box_golden(dev)
     box_out = phase_box_main(dev, smi)
     probe_out = phase_probes(dev)
+    probe2_out = phase_probes2(dev)
+    phase_materials_golden(dev)
+    mat_out = phase_materials_main(dev, smi)
     prof_out = phase_profile(dev)
+
+    def keys(d):
+        return {k: d[k] for k in ("bound_ms", "bound_by")}
 
     probe_src = "pathtracer_tpu_torch/csrc/gather_probe.cu"
     probe_tool = "tools/probe_pallas_gather.py"
@@ -674,15 +960,19 @@ def main() -> int:
              max_abs_err=max(k1_out["max_abs_err_t"],
                              k1_out["max_abs_err_b"]),
              ms=k1_out["ms"], plain_ms=k1_out["plain_ms"],
-             kernel_device_ms=prof_out["k1_kernel_device_ms"]),
+             kernel_device_ms=prof_out["k1_kernel_device_ms"],
+             library_ms=None, **keys(k1_out)),
         dict(name="bvhw", route="cuda",
              source="pathtracer_tpu_torch/csrc/bvhw.cu",
              replaces="pathtracer_tpu/accel/bvhw.py:596",
              launches=box_out["launches"],
              max_abs_err=max(k2_out["max_abs_err_t"],
                              k2_out["max_abs_err_b"]),
+             launches_by_path=dict(box_main=box_out["launches"],
+                                   materials_main=mat_out["launches"]),
              ms=k2_out["ms"], plain_ms=k2_out["plain_ms"],
-             kernel_device_ms=prof_out["k2_kernel_device_ms"])]
+             kernel_device_ms=prof_out["k2_kernel_device_ms"],
+             library_ms=None, **keys(k2_out))]
     for pid, kernel, line in (("P1", "gather_rows", 65),
                               ("P2", "gather_rows", 78),
                               ("P3", "gather_cols", 92),
@@ -693,7 +983,22 @@ def main() -> int:
             replaces=f"{probe_tool}:{line}",
             launches=probe_out["launches"][kernel], max_abs_err=0.0,
             ms=probe_out["probes"][pid]["ms"],
-            plain_ms=probe_out["probes"][pid]["plain_ms"]))
+            plain_ms=probe_out["probes"][pid]["plain_ms"],
+            library_ms=probe_out["probes"][pid]["library_ms"],
+            **keys(probe_out["probes"][pid])))
+    probe2_tool = "tools/probe_pallas_gather2.py"
+    for pid, kernel, line in (("P6", "gather_sublane", 62),
+                              ("P7", "gather_lane", 81),
+                              ("P8", "gather_two_step", 102),
+                              ("P9", "onehot_matmul", 145)):
+        p = probe2_out["probes"][pid]
+        kernels.append(dict(
+            name=f"{kernel} ({pid})", route="cuda",
+            source="pathtracer_tpu_torch/csrc/gather_probe2.cu",
+            replaces=f"{probe2_tool}:{line}",
+            launches=probe2_out["launches"][kernel], max_abs_err=0.0,
+            ms=p["ms"], plain_ms=p["plain_ms"], library_ms=p["library_ms"],
+            **keys(p)))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -295,7 +295,7 @@ def _leaf_anyhit(pre, t_max, row, lact, found):
 
 
 def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
-                   stackw: int = STACKW):
+                   stackw: int = STACKW, row_counts: dict | None = None):
     """Lockstep BVH32 traversal, one (N, 256) row gather per step.
 
     table: (R, 256) f32 from build_bvhw, on the rays' device; o, d: (N, 3);
@@ -303,7 +303,10 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
     the short stack (descents push at most depth - 1 times, so the build
     depth suffices; a deeper descent drops the oldest entry, as in the
     reference). Returns dict(valid, t (0 on a miss), tri (0 on a miss),
-    b (0 on a miss)) or, with any_hit, an (N,) bool tensor.
+    b (0 on a miss)) or, with any_hit, an (N,) bool tensor. Where
+    ``row_counts`` is given, the rows the rays visit are added to its
+    "interior" (the root's slab test included) and "leaf" counts: the
+    work the traversal does on these inputs.
     """
     if not 1 <= stackw <= STACKW:
         raise ValueError(f"stackw must be in [1, {STACKW}], got {stackw}")
@@ -324,6 +327,9 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
     root = table[0:1]
     cur_mask = _hit_mask(_slab32(root, oc96, ic96, t_max), bitvals)
     cur_mask = torch.where(t_max > 0.0, cur_mask, 0)  # dead on entry
+    if row_counts is not None:  # (interior, leaf) rows visited
+        visits = [(t_max > 0.0).sum(), torch.zeros((), dtype=torch.int64,
+                                                   device=dev)]
     cur_base = root[:, 192].long().expand(n)
     cur_occ = _occupancy(root).expand(n)
     zeros_i = torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -370,6 +376,8 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
 
         # interior: slab-test the 32 grandchildren, descend
         iact = act & ~is_leaf
+        if row_counts is not None:
+            visits = [visits[0] + iact.sum(), visits[1] + lact.sum()]
         new_mask = _hit_mask(_slab32(row, oc96, ic96, t_best)
                              & iact[:, None], bitvals)
         descend = iact & (new_mask != 0)
@@ -382,6 +390,9 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
         cur_mask = torch.where(descend, new_mask, cur_mask)
         cur_occ = torch.where(descend, _occupancy(row), cur_occ)
 
+    if row_counts is not None:
+        for key, v in zip(("interior", "leaf"), visits):
+            row_counts[key] = row_counts.get(key, 0) + int(v)
     if any_hit:
         return st["found"]
     valid = st["found"]

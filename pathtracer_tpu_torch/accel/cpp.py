@@ -1,10 +1,9 @@
 """ctypes binding for the native SAH BVH builder.
 
-Port of ``pathtracer_tpu/accel/cpp/__init__.py``. It compiles the JAX
-package's C++ source ``pathtracer_tpu/accel/cpp/bvh_builder.cpp`` (read,
-never written) with g++ into this package's gitignored ``build/``, keyed
-by a hash of the source and flags, and never touches the library that sits
-beside that source.
+Port of ``pathtracer_tpu/accel/cpp/__init__.py``. It compiles this
+package's ``csrc/bvh_builder.cpp`` (a byte-identical copy of the JAX
+package's builder source) with g++ into the gitignored ``build/``, keyed
+by a hash of the source and flags.
 """
 
 from __future__ import annotations
@@ -14,10 +13,9 @@ import os
 
 import numpy as np
 
-from ..ops.cuda._build import PKG_DIR, build_library
+from ..ops.cuda._build import CSRC_DIR, build_library
 
-SOURCE = os.path.join(os.path.dirname(PKG_DIR), "pathtracer_tpu", "accel",
-                      "cpp", "bvh_builder.cpp")
+SOURCE = os.path.join(CSRC_DIR, "bvh_builder.cpp")
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _lib = None

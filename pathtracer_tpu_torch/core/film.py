@@ -11,8 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pathtracer_tpu.core.filter import FILTER_TABLE_WIDTH
-
+from .filter import FILTER_TABLE_WIDTH
 from .math import gamma_correct
 
 FILM_PAD = 4  # padded border: filter radius 2 (sample bounds) + 2 (splat)
@@ -28,7 +27,7 @@ def sample_bounds(width: int, height: int, radius: float = 2.0):
 
 
 def film_pad_new(width: int, height: int, extra_rows: int = 0,
-                 device=None) -> torch.Tensor:
+                 device="cuda") -> torch.Tensor:
     """Zeroed padded accumulator (4, H+2*FILM_PAD+extra_rows, W+2*FILM_PAD).
 
     ``extra_rows`` leaves room for the last row band's zero-weight rows.

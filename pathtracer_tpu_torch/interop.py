@@ -17,7 +17,7 @@ from .integrator import TracedScene
 from .scene.scene import SceneData
 
 
-def scene_from_reference(sd, device=None) -> SceneData:
+def scene_from_reference(sd, device="cuda") -> SceneData:
     """The reference's ``SceneData`` -> this package's ``SceneData`` of
     tensors on ``device`` (its texture pool has no counterpart here)."""
     return SceneData(**{
@@ -25,7 +25,7 @@ def scene_from_reference(sd, device=None) -> SceneData:
         for f in dataclasses.fields(SceneData)})
 
 
-def traced_scene_from_reference(ts, device=None):
+def traced_scene_from_reference(ts, device="cuda"):
     """The reference's ``TracedScene`` -> this package's, on ``device``:
     its (reordered) SceneData and, for BVH scenes, its BVH32 table
     ``bw_rows`` and depth ``bw_depth``, so both packages trace one

@@ -1,7 +1,7 @@
 """Surface interaction construction from hit records (SoA tensors).
 
 Port of ``pathtracer_tpu/ops/interaction.py`` without ray differentials
-and normal mapping (ROADMAP Queue 1 item 9). Per-hit triangle data is one
+and normal mapping (ROADMAP Queue 1 item 10b). Per-hit triangle data is one
 packed row fetch, ``tri_attr[tri]``.
 """
 
@@ -47,7 +47,7 @@ def make_interaction(scene, o, d, hit, tri_attr):
     ns_len = pm.norm_sq(ns_interp)
     ns = torch.where(
         (has_n & (ns_len > 0.0))[..., None],
-        ns_interp / torch.sqrt(torch.clamp_min(ns_len, 1e-30))[..., None], ng)
+        ns_interp / pm.sqrt(torch.clamp_min(ns_len, 1e-30))[..., None], ng)
     # geometric normal face-forwarded to the shading normal
     ng = torch.where(has_n[..., None], pm.face_forward(ng, ns), ng)
 
@@ -55,7 +55,7 @@ def make_interaction(scene, o, d, hit, tri_attr):
     ss0 = pm.normalize(dpdu)
     ts = pm.cross(ss0, ns)
     ts_len = pm.norm_sq(ts)
-    ts_n = ts / torch.sqrt(torch.clamp_min(ts_len, 1e-30))[..., None]
+    ts_n = ts / pm.sqrt(torch.clamp_min(ts_len, 1e-30))[..., None]
     ss = torch.where((ts_len > 0.0)[..., None], pm.cross(ts_n, ns), ss0)
     cs_u, _ = pm.coordinate_system(ns)
     ss = torch.where((ts_len > 0.0)[..., None], ss, cs_u)

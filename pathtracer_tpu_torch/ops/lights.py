@@ -1,32 +1,30 @@
-"""Light sampling: the diffuse area (triangle) light of the slice.
+"""Light sampling: area (triangle), point, distant and infinite lights.
 
-Port of the LIGHT_AREA branches of ``sample_li`` / ``pdf_li`` of
-``pathtracer_tpu/ops/lights.py``, with ``_tri_sample`` and
-``_tri_pdf_along_sampled``. Any other light type in ``light_set`` raises
-NotImplementedError (ROADMAP Queue 1 item 9).
+Port of ``sample_li`` / ``pdf_li`` of ``pathtracer_tpu/ops/lights.py``
+with the triangle sampling (``_tri_sample``, ``_tri_pdf_along_sampled``)
+and the environment light (``env_direction_to_uv``, ``env_lookup``,
+``env_le``, ``_env_sample_li``, ``env_pdf_li``). Every light type in
+``light_set`` is evaluated for the whole batch and the per-ray result is
+selected by the chosen light's type. Emission sampling (``sample_le``,
+``pdf_le``, ``power``) is ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import math as pm
 from ..core.math import gamma
-from ..core.sampling import uniform_sample_triangle
+from ..core.sampling import sample_distribution_2d, uniform_sample_triangle
 from ..scene.scene import (LA_EMIT, LA_HASN, LA_N0, LA_N1, LA_N2, LA_P0,
-                           LA_P1, LA_P2, LA_TYPE, LIGHT_AREA, LIGHT_DISTANT,
-                           LIGHT_INFINITE, LIGHT_POINT)
+                           LA_P1, LA_P2, LA_TYPE, LA_VEC, LIGHT_AREA,
+                           LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_POINT)
+from .bsdf import select
 from .intersect import watertight_hit_diag
 
 GAMMA6 = float(gamma(6))
-
-
-def _check_light_set(light_set):
-    other = set(light_set) - {LIGHT_AREA}
-    if other:
-        raise NotImplementedError(
-            f"light types {sorted(other)}: ROADMAP Queue 1 item 9 (full "
-            "material and light set)")
+ALL_LIGHTS = (LIGHT_AREA, LIGHT_POINT, LIGHT_DISTANT, LIGHT_INFINITE)
 
 
 def _tri_area(p0, p1, p2):
@@ -50,6 +48,82 @@ def _tri_sample(rows, u):
     return p, n, p_err
 
 
+def _mat3_rows(m, w):
+    """w @ m.T for (..., 3) vectors and a (3, 3) matrix, summed in index
+    order (no BLAS, so the CPU and the card round alike)."""
+    return w[..., 0:1] * m[:, 0] + w[..., 1:2] * m[:, 1] + \
+        w[..., 2:3] * m[:, 2]
+
+
+def env_direction_to_uv(scene, w_world):
+    """World direction -> equirect uv of the environment map."""
+    w = pm.normalize(_mat3_rows(scene.world_to_env, w_world))
+    return torch.stack([pm.spherical_phi(w) * pm.INV_2_PI,
+                        pm.spherical_theta(w) * pm.INV_PI], dim=-1)
+
+
+def env_lookup(scene, uv):
+    """Bilinear lookup of the environment map at uv (level 0; repeat wrap
+    in u, clamp in v)."""
+    img = scene.env_map
+    h, w = img.shape[0], img.shape[1]
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    fx = (x - x0.to(torch.float32))[..., None]
+    fy = (y - y0.to(torch.float32))[..., None]
+    xm = torch.remainder(x0, w)
+    xp = torch.remainder(x0 + 1, w)
+    ym = torch.clamp(y0, 0, h - 1)
+    yp = torch.clamp(y0 + 1, 0, h - 1)
+    top = img[ym, xm] * (1 - fx) + img[ym, xp] * fx
+    bot = img[yp, xm] * (1 - fx) + img[yp, xp] * fx
+    return top * (1 - fy) + bot * fy
+
+
+def env_le(scene, d_world):
+    """Radiance of the environment along world directions (zero without
+    an environment)."""
+    le = env_lookup(scene, env_direction_to_uv(scene, d_world))
+    return torch.where(scene.has_env, le, torch.zeros_like(le))
+
+
+def _env_sample_li(scene, u):
+    """Importance-sample the environment's 2D table at u (N, 2). Returns
+    (wi_world, pdf (solid angle), radiance)."""
+    uv, map_pdf = sample_distribution_2d(
+        scene.env_cond_func, scene.env_cond_cdf, scene.env_cond_int,
+        scene.env_marg_func, scene.env_marg_cdf, scene.env_marg_int, u)
+    theta = uv[..., 1] * np.pi
+    phi = uv[..., 0] * 2.0 * np.pi
+    sin_t = torch.sin(theta)
+    w_local = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
+                           torch.cos(theta)], dim=-1)
+    wi = _mat3_rows(scene.env_to_world, w_local)
+    pdf = torch.where(sin_t == 0.0, 0.0,
+                      map_pdf / (2.0 * np.pi * np.pi
+                                 * torch.clamp_min(sin_t, 1e-20)))
+    le = env_lookup(scene, uv)
+    ok = map_pdf > 0.0
+    return wi, torch.where(ok, pdf, 0.0), torch.where(ok[..., None], le, 0.0)
+
+
+def env_pdf_li(scene, w_world):
+    """Solid-angle pdf of the environment light along world directions."""
+    w = pm.normalize(_mat3_rows(scene.world_to_env, w_world))
+    theta = pm.spherical_theta(w)
+    phi = pm.spherical_phi(w)
+    sin_t = torch.sin(theta)
+    nv, nu = scene.env_cond_func.shape
+    iu = torch.clamp((phi * pm.INV_2_PI * nu).to(torch.int64), 0, nu - 1)
+    iv = torch.clamp((theta * pm.INV_PI * nv).to(torch.int64), 0, nv - 1)
+    d2 = scene.env_cond_func[iv, iu] / torch.clamp_min(scene.env_marg_int,
+                                                        1e-30)
+    pdf = d2 / (2.0 * np.pi * np.pi * torch.clamp_min(sin_t, 1e-20))
+    return torch.where((sin_t == 0.0) | ~scene.has_env, 0.0, pdf)
+
+
 def _tri_pdf_along_sampled(rows, ref_p, ref_err, ref_n, wi):
     """Solid-angle pdf of the light triangle along wi, by re-intersecting
     that one triangle from the offset reference point."""
@@ -68,28 +142,97 @@ def _tri_pdf_along_sampled(rows, ref_p, ref_err, ref_n, wi):
 
 
 def sample_li(scene, light_rows, ref_p, ref_err, ref_n, u,
-              light_set=(LIGHT_AREA,)):
-    """sample_li for each ray's chosen (area) light.
+              light_set=ALL_LIGHTS):
+    """sample_li for each ray's chosen light.
 
-    light_rows: (N, LA_WIDTH) rows of the chosen lights. Returns dict(wi,
-    pdf, li, target_p, target_err, target_n, is_delta, is_env, is_area).
+    light_rows: (N, LA_WIDTH) rows of the chosen lights; light_set: the
+    light types present (the others are not evaluated; with one type, its
+    result holds for every lane). Returns dict(wi, pdf, li, target_p,
+    target_err, target_n, is_delta, is_env, is_area).
     """
-    _check_light_set(light_set)
     ltype = light_rows[:, LA_TYPE].to(torch.int32)
     emit = light_rows[:, LA_EMIT]
-    ps, ns, perr = _tri_sample(light_rows, u)
-    wi = pm.normalize(ps - ref_p)
-    pdf = _tri_pdf_along_sampled(light_rows, ref_p, ref_err, ref_n, wi)
-    # one-sided emission toward the receiver
-    li = torch.where((pm.dot(ns, -wi) > 0.0)[..., None], emit, 0.0)
-    return dict(wi=wi, pdf=pdf, li=li, target_p=ps, target_err=perr,
-                target_n=ns,
+    lvec = light_rows[:, LA_VEC]
+    zero1 = torch.zeros(ref_p.shape[:1], dtype=torch.float32,
+                        device=ref_p.device)
+    zero3 = torch.zeros_like(ref_p)
+    preds, wis, pdfs, lis, targets, terrs, tns = [], [], [], [], [], [], []
+
+    if LIGHT_AREA in light_set:
+        ps, ns, perr = _tri_sample(light_rows, u)
+        wi_area = pm.normalize(ps - ref_p)
+        preds.append(ltype == LIGHT_AREA)
+        wis.append(wi_area)
+        pdfs.append(_tri_pdf_along_sampled(light_rows, ref_p, ref_err, ref_n,
+                                           wi_area))
+        # one-sided emission toward the receiver
+        lis.append(torch.where((pm.dot(ns, -wi_area) > 0.0)[..., None],
+                               emit, 0.0))
+        targets.append(ps)
+        terrs.append(perr)
+        tns.append(ns)
+
+    if LIGHT_POINT in light_set:
+        to_l = lvec - ref_p
+        dist_sq_p = pm.norm_sq(to_l)
+        preds.append(ltype == LIGHT_POINT)
+        wis.append(to_l / pm.sqrt(torch.clamp_min(dist_sq_p,
+                                                  1e-30))[..., None])
+        pdfs.append(torch.ones_like(zero1))
+        lis.append(emit / torch.clamp_min(dist_sq_p, 1e-30)[..., None])
+        targets.append(lvec.expand(ref_p.shape))
+        terrs.append(zero3)
+        tns.append(zero3)
+
+    if LIGHT_DISTANT in light_set:
+        preds.append(ltype == LIGHT_DISTANT)
+        wis.append(lvec)
+        pdfs.append(torch.ones_like(zero1))
+        lis.append(emit)
+        targets.append(ref_p + lvec * (2.0 * scene.world_radius))
+        terrs.append(zero3)
+        tns.append(zero3)
+
+    if LIGHT_INFINITE in light_set:
+        wi_env, pdf_env, li_env = _env_sample_li(scene, u)
+        preds.append(ltype == LIGHT_INFINITE)
+        wis.append(wi_env)
+        pdfs.append(pdf_env)
+        lis.append(li_env)
+        targets.append(ref_p + wi_env * (2.0 * scene.world_radius))
+        terrs.append(zero3)
+        tns.append(zero3)
+
+    def sel(vals, default):
+        if len(vals) == 1:
+            return vals[0]
+        if vals[0].dim() == 2:
+            return select([p[..., None] for p in preds], vals, default)
+        return select(preds, vals, default)
+
+    return dict(wi=sel(wis, wis[0]), pdf=sel(pdfs, zero1),
+                li=sel(lis, zero3), target_p=sel(targets, targets[0]),
+                target_err=sel(terrs, zero3), target_n=sel(tns, zero3),
                 is_delta=(ltype == LIGHT_POINT) | (ltype == LIGHT_DISTANT),
                 is_env=ltype == LIGHT_INFINITE, is_area=ltype == LIGHT_AREA)
 
 
 def pdf_li(scene, light_rows, ref_p, ref_err, ref_n, wi,
-           light_set=(LIGHT_AREA,)):
-    """pdf of each ray's chosen (area) light along wi."""
-    _check_light_set(light_set)
-    return _tri_pdf_along_sampled(light_rows, ref_p, ref_err, ref_n, wi)
+           light_set=ALL_LIGHTS):
+    """pdf of each ray's chosen light along wi (the MIS BSDF branch).
+    Delta lights (point, distant) give 0."""
+    ltype = light_rows[:, LA_TYPE].to(torch.int32)
+    preds, pdfs = [], []
+    if LIGHT_AREA in light_set:
+        preds.append(ltype == LIGHT_AREA)
+        pdfs.append(_tri_pdf_along_sampled(light_rows, ref_p, ref_err,
+                                           ref_n, wi))
+    if LIGHT_INFINITE in light_set:
+        preds.append(ltype == LIGHT_INFINITE)
+        pdfs.append(env_pdf_li(scene, wi))
+    zero1 = torch.zeros(wi.shape[:-1], dtype=torch.float32, device=wi.device)
+    if not preds:
+        return zero1
+    if len(preds) == 1 and len(light_set) == 1:
+        return pdfs[0]
+    return select(preds, pdfs, zero1)

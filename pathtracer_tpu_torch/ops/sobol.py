@@ -1,7 +1,8 @@
 """Sobol' low-discrepancy sampling as vectorized bit-matrix XOR ops.
 
-Port of ``pathtracer_tpu/ops/sobol.py``. The tables are the JAX package's
-``pathtracer_tpu/assets/*.npy``, read by file path with numpy. PyTorch has
+Port of ``pathtracer_tpu/ops/sobol.py``. The tables are this package's
+``assets/*.npy`` (byte-identical copies of the JAX package's), read by
+file path with numpy. PyTorch has
 no uint32 shifts or subtraction on the CPU, so 32-bit words ride as int64
 tensors holding values in [0, 2^32); XOR and AND of such values stay in
 range, and ``_to_unit`` converts them to float32 exactly as uint32 -> f32
@@ -24,8 +25,8 @@ import torch
 from ..core.math import (HALF_MAX_I32, ONE_MINUS_EPSILON, log2_int,
                          round_up_pow2)
 
-_ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "..",
-                          "pathtracer_tpu", "assets")
+_ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets")
 
 _tables_cache: dict[str, np.ndarray] = {}
 

@@ -166,7 +166,7 @@ def stack_push_read(sp, v, depth: int = D):
 # --- the probe
 
 
-def probe_inputs(device=None) -> dict:
+def probe_inputs(device="cuda") -> dict:
     """The TPU probe's inputs, in its draw order from ``default_rng(0)``:
     table (M, W), idx (N,), table_t (W, M), sp (N,) and v (N,)."""
     rng = np.random.default_rng(0)
@@ -196,7 +196,7 @@ PLAIN = {
 }
 
 
-def run_probes(device=None, inputs: dict | None = None) -> dict:
+def run_probes(device="cuda", inputs: dict | None = None) -> dict:
     """Run P1-P5 once on ``device`` at the probe's shapes. Returns
     {probe id: output}."""
     x = probe_inputs(device) if inputs is None else inputs

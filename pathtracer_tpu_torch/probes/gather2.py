@@ -1,0 +1,205 @@
+"""Gather probes P6-P9: the per-lane gathers the TPU had to decompose.
+
+Port of the TPU Pallas probes in ``tools/probe_pallas_gather2.py``, at
+its shapes: S = 64 index rows of 128 lanes, a (C, 128) = (548, 128) f32
+table, and a (128, 128) table for the one-hot product.
+
+  P6  gather_sublane(data, idx)  out[s, l] = data[idx[s, l], l]
+  P7  gather_lane(data, idx)     out[s, l] = data[s, idx[s, l]]
+  P8  gather_two_step(flat2, idx)  the TPU body ``k_two`` as written:
+      chunk = idx >> 7, lp = idx & 127, cas[s, l] = chunk[s, lp[s, l]],
+      t2[s, l] = flat2[cas[s, l], l], out[s, l] = t2[s, lp[s, l]]. This
+      is not the tool's own reference ``flat[idx]`` (it agrees only where
+      a row's lanes share their chunk); the port computes what the TPU
+      kernel computes.
+  P9  onehot_matmul(tbl, idx)    onehot(idx) @ tbl, as (S, 128, 128)
+
+Each wrapper launches its CUDA kernel (``csrc/gather_probe2.cu``) for
+CUDA tensors and runs its plain PyTorch version for CPU tensors; a CUDA
+input the kernel cannot take raises. ``run_probes`` is the probe's entry
+point, as the tool's script is: it makes the tool's inputs from
+``default_rng(0)`` and runs P6-P9 once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.cuda import _build
+from .gather import _check
+
+C, S, L = 548, 64, 128  # table rows (chunks), index rows, lane width
+
+SOURCE = "gather_probe2.cu"
+
+# kernel launches by wrapper (CPU calls never count)
+LAUNCHES = {"gather_sublane": 0, "gather_lane": 0, "gather_two_step": 0,
+            "onehot_matmul": 0}
+
+_lib = None
+
+
+def build(verbose: bool = False) -> str:
+    """Compile csrc/gather_probe2.cu into build/ (once). Returns its path."""
+    return _build.build_cuda(SOURCE, verbose=verbose)
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        _lib = _build.load_cuda(SOURCE, {
+            "pt_gather_sublane_launch": (vp, vp, i, i, vp, vp),
+            "pt_gather_lane_launch": (vp, vp, i, vp, vp),
+            "pt_gather_two_step_launch": (vp, vp, i, i, vp, vp),
+            "pt_onehot_matmul_launch": (vp, vp, i, vp, vp),
+        })
+    return _lib
+
+
+# --- plain versions
+
+
+def gather_sublane_plain(data, idx):
+    return torch.gather(data, 0, idx.long())
+
+
+def gather_lane_plain(data, idx):
+    return torch.gather(data, 1, idx.long())
+
+
+def gather_two_step_plain(flat2, idx):
+    idx = idx.long()
+    lp = idx & (L - 1)
+    cas = torch.take_along_dim(idx >> 7, lp, dim=1)
+    t2 = torch.take_along_dim(flat2, cas, dim=0)
+    return torch.take_along_dim(t2, lp, dim=1)
+
+
+def onehot_matmul_plain(tbl, idx):
+    onehot = F.one_hot(idx.long().reshape(-1), L).to(tbl.dtype)
+    return (onehot @ tbl).reshape(idx.shape[0], L, L)
+
+
+# --- wrappers
+
+
+def _lane_args(table, idx, table_rows=None):
+    """Check a (rows, 128) f32 table and (S, 128) i32 indices."""
+    _check(dict(table=table, idx=idx),
+           dict(table=torch.float32, idx=torch.int32), table.device)
+    if table.dim() != 2 or table.shape[1] != L or idx.dim() != 2 \
+            or idx.shape[1] != L:
+        raise ValueError(f"table must be (rows, {L}) and idx (S, {L}), got "
+                         f"{tuple(table.shape)}, {tuple(idx.shape)}")
+    if table_rows is not None and table.shape[0] != table_rows:
+        raise ValueError(f"table must have {table_rows} rows, got "
+                         f"{table.shape[0]}")
+
+
+def _launch(kernel: str, fn_name: str, out, *args):
+    dev = out.device
+    with torch.cuda.device(dev):
+        err = getattr(_load(), fn_name)(*args, out.data_ptr(),
+                                        _build.stream_of(dev))
+    _build.check_launch(err, kernel)
+    LAUNCHES[kernel] += 1
+    return out
+
+
+def gather_sublane(data, idx):
+    """P6: (C, 128) f32 data, (S, 128) i32 idx in [0, C) -> (S, 128)."""
+    _lane_args(data, idx)
+    if data.device.type == "cpu":
+        return gather_sublane_plain(data, idx)
+    out = torch.empty(idx.shape, dtype=data.dtype, device=data.device)
+    return _launch("gather_sublane", "pt_gather_sublane_launch", out,
+                   data.data_ptr(), idx.data_ptr(), idx.shape[0],
+                   data.shape[0])
+
+
+def gather_lane(data, idx):
+    """P7: (S, 128) f32 data, (S, 128) i32 idx in [0, 128) -> (S, 128)."""
+    _lane_args(data, idx, table_rows=idx.shape[0])
+    if data.device.type == "cpu":
+        return gather_lane_plain(data, idx)
+    out = torch.empty_like(data)
+    return _launch("gather_lane", "pt_gather_lane_launch", out,
+                   data.data_ptr(), idx.data_ptr(), idx.shape[0])
+
+
+def gather_two_step(flat2, idx):
+    """P8: (C, 128) f32 flat2, (S, 128) i32 idx in [0, 128 C) -> (S, 128),
+    the TPU kernel's composite (module docstring)."""
+    _lane_args(flat2, idx)
+    if flat2.device.type == "cpu":
+        return gather_two_step_plain(flat2, idx)
+    out = torch.empty(idx.shape, dtype=flat2.dtype, device=flat2.device)
+    return _launch("gather_two_step", "pt_gather_two_step_launch", out,
+                   flat2.data_ptr(), idx.data_ptr(), idx.shape[0],
+                   flat2.shape[0])
+
+
+def onehot_matmul(tbl, idx, out=None):
+    """P9: (128, 128) f32 tbl, (S, 128) i32 idx in [0, 128) ->
+    onehot(idx) @ tbl as (S, 128, 128). ``out``, where given, is the
+    CUDA output buffer to write (a timing loop reuses one)."""
+    _lane_args(tbl, idx, table_rows=L)
+    if tbl.device.type == "cpu":
+        return onehot_matmul_plain(tbl, idx)
+    shape = (idx.shape[0], L, L)
+    if out is None:
+        out = torch.empty(shape, dtype=tbl.dtype, device=tbl.device)
+    elif tuple(out.shape) != shape or out.dtype != tbl.dtype or \
+            out.device != tbl.device or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {shape} float32 tensor "
+                         f"on {tbl.device}")
+    return _launch("onehot_matmul", "pt_onehot_matmul_launch", out,
+                   tbl.data_ptr(), idx.data_ptr(), idx.shape[0] * L)
+
+
+# --- the probe
+
+
+def probe_inputs(device="cuda") -> dict:
+    """The TPU probe's inputs, in its draw order from ``default_rng(0)``:
+    data_g, idx_g, data_h, idx_h, flat, idx_i, tbl_j, idx_j; plus flat2,
+    flat as (C, 128)."""
+    rng = np.random.default_rng(0)
+    arrays = dict(
+        data_g=rng.random((C, L), np.float32),
+        idx_g=rng.integers(0, C, (S, L)).astype(np.int32),
+        data_h=rng.random((S, L), np.float32),
+        idx_h=rng.integers(0, L, (S, L)).astype(np.int32),
+        flat=rng.random(C * L, np.float32),
+        idx_i=rng.integers(0, C * L, (S, L)).astype(np.int32),
+        tbl_j=rng.random((L, L), np.float32),
+        idx_j=rng.integers(0, L, (S, L)).astype(np.int32))
+    arrays["flat2"] = arrays["flat"].reshape(C, L)
+    return {k: torch.as_tensor(a, device=device) for k, a in arrays.items()}
+
+
+PROBES = {
+    "P6": lambda x: gather_sublane(x["data_g"], x["idx_g"]),
+    "P7": lambda x: gather_lane(x["data_h"], x["idx_h"]),
+    "P8": lambda x: gather_two_step(x["flat2"], x["idx_i"]),
+    "P9": lambda x: onehot_matmul(x["tbl_j"], x["idx_j"]),
+}
+
+PLAIN = {
+    "P6": lambda x: gather_sublane_plain(x["data_g"], x["idx_g"]),
+    "P7": lambda x: gather_lane_plain(x["data_h"], x["idx_h"]),
+    "P8": lambda x: gather_two_step_plain(x["flat2"], x["idx_i"]),
+    "P9": lambda x: onehot_matmul_plain(x["tbl_j"], x["idx_j"]),
+}
+
+
+def run_probes(device="cuda", inputs: dict | None = None) -> dict:
+    """Run P6-P9 once on ``device`` at the probe's shapes. Returns
+    {probe id: output}."""
+    x = probe_inputs(device) if inputs is None else inputs
+    return {pid: fn(x) for pid, fn in PROBES.items()}

@@ -12,12 +12,12 @@ import xml.etree.ElementTree as ET
 
 import numpy as np
 
-from pathtracer_tpu.scene import meshgen
-
 from ..core.camera import Camera
+from . import meshgen
 from .scene import MAT_MATTE, SceneBuilder, SceneData
 
-_MORE_MATERIALS = "ROADMAP Queue 1 item 9 (full material and light set)"
+_MORE_MATERIALS = ("ROADMAP Queue 1 item 9b (Mitsuba import of the other "
+                   "BSDFs, textures, shapes and emitters)")
 
 
 def _floats(el) -> dict[str, float]:
@@ -81,7 +81,7 @@ def _get_camera(sensor, resolution) -> Camera:
                          znear=0.01, zfar=10000.0)
 
 
-def load_mitsuba(path: str, resolution=None, device=None):
+def load_mitsuba(path: str, resolution=None, device="cuda"):
     """Parse a Mitsuba XML scene -> (Camera, SceneData on ``device``,
     settings dict with the scene's own max_depth / spp / film size)."""
     root = ET.parse(path).getroot()

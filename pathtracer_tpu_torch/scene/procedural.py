@@ -1,23 +1,28 @@
-"""Procedural benchmark scenes.
+"""Procedural test and benchmark scenes (BASELINE.md's configurations).
 
-Port of ``pathtracer_tpu/scene/procedural.py`` for the Config E stand-in,
-``box_field_scene``: a BVH-heavy field of matte boxes in a diffuse room
-under one ceiling area light (~12 triangles per box; 48,012 at the
-default 4,000 boxes). Configs B, C and D need mirror, glass, microfacet
-and Disney materials, point and distant lights and environment maps:
-ROADMAP Queue 1 item 9.
+Port of ``pathtracer_tpu/scene/procedural.py``: Config B (mirror and
+glass spheres over a checkered ground, point and distant lights), Config
+C (metal, substrate and glass microfacet spheres in a room under an area
+light), Config D (Disney spheres under an HDR environment map) and the
+Config E stand-in, ``box_field_scene`` (a BVH-heavy field of matte boxes,
+~12 triangles per box; 48,012 at the default 4,000 boxes). Each returns
+(camera, SceneData on ``device``).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-from pathtracer_tpu.scene import meshgen
-
 from ..core.camera import Camera
-from .scene import MAT_MATTE, SceneBuilder
+from ..utils.image import read_hdr
+from . import meshgen
+from .scene import (MAT_DISNEY, MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR,
+                    MAT_SUBSTRATE, SceneBuilder)
 
-_MORE_MATERIALS = "ROADMAP Queue 1 item 9 (full material and light set)"
+_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
+                     "data")
 
 
 def _plane_matrix(x_axis, y_axis, origin) -> np.ndarray:
@@ -64,23 +69,87 @@ def _ceiling_light(builder: SceneBuilder, half: float = 3.0,
                      emission=np.asarray(radiance, np.float32))
 
 
-def small_scene(resolution=(640, 480)):
-    raise NotImplementedError(f"Config B (mirror, glass, point and distant "
-                              f"lights, checker texture): {_MORE_MATERIALS}")
+def _camera(resolution, half: float = 3.0) -> Camera:
+    return Camera.look_at([0.0, half, 4.2 * half], [0.0, half * 0.8, 0.0],
+                          [0, 1, 0], np.pi / 5, resolution)
 
 
-def microfacet_scene(resolution=(640, 480)):
-    raise NotImplementedError(f"Config C (metal, substrate and glass "
-                              f"microfacet materials): {_MORE_MATERIALS}")
+def small_scene(resolution=(640, 480), device="cuda"):
+    """Config B: mirror + glass spheres over an open checkered ground with
+    point + directional lights (both always visible: an enclosed room
+    would occlude the directional light)."""
+    b = SceneBuilder()
+    checker = b.add_texture_checker((0.725, 0.71, 0.68), (0.25, 0.25, 0.3),
+                                    uv=(8, 8, 0, 0))
+    ground = b.add_material(mtype=MAT_MATTE, kd_tx=checker)
+    pos, idx, nrm, _ = meshgen.gen_rectangle()
+    m = _plane_matrix([12, 0, 0], [0, 0, -12], [0, 0, 0])  # floor +y
+    p, n = meshgen.transform_mesh(pos, nrm, m)
+    b.add_mesh(p, idx, n,
+               np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32),
+               ground)
+    mirror = b.add_material(mtype=MAT_MIRROR)
+    glass = b.add_material(mtype=MAT_GLASS, kd=(1, 1, 1), ks=(1, 1, 1),
+                           eta=(1.5, 1.5, 1.5))
+    for center, radius, mat in [((-1.2, 1.0, 0.0), 1.0, mirror),
+                                ((1.2, 1.0, 0.8), 1.0, glass)]:
+        pos, idx, nrm, _ = meshgen.gen_sphere(center, radius, 24, 24)
+        b.add_mesh(pos, idx, nrm, None, mat)
+    b.add_point_light((0.0, 5.0, 2.0), (60.0, 60.0, 60.0))
+    b.add_distant_light((-0.3, -1.0, -0.4), (1.5, 1.5, 1.4))
+    return _camera(resolution), b.build(device=device)
 
 
-def envmap_disney_scene(resolution=(640, 480)):
-    raise NotImplementedError(f"Config D (environment map, Disney BSDF): "
-                              f"{_MORE_MATERIALS}")
+def microfacet_scene(resolution=(640, 480), device="cuda"):
+    """Config C: metal/glass/substrate microfacet spheres, area light."""
+    b = SceneBuilder()
+    _room(b)
+    _ceiling_light(b)
+    metal = b.add_material(
+        mtype=MAT_METAL, ks=(1, 1, 1), eta=(0.2, 0.92, 1.1),
+        k=(3.9, 2.45, 2.14), rough=(0.1, 0.25))
+    substrate = b.add_material(
+        mtype=MAT_SUBSTRATE, kd=(0.4, 0.2, 0.55), ks=(0.04, 0.04, 0.04),
+        rough=(0.05, 0.05))
+    glass = b.add_material(mtype=MAT_GLASS, kd=(1, 1, 1), ks=(1, 1, 1),
+                           eta=(1.5, 1.5, 1.5))
+    for center, mat in [((-1.8, 0.9, -0.5), metal),
+                        ((0.0, 0.9, 0.5), substrate),
+                        ((1.8, 0.9, -0.3), glass)]:
+        pos, idx, nrm, _ = meshgen.gen_sphere(center, 0.9, 24, 24)
+        b.add_mesh(pos, idx, nrm, None, mat)
+    return _camera(resolution), b.build(device=device)
+
+
+def envmap_disney_scene(resolution=(640, 480), device="cuda"):
+    """Config D: HDR envmap lighting + Disney BSDF spheres."""
+    b = SceneBuilder()
+    floor = b.add_material(mtype=MAT_MATTE, kd=(0.6, 0.6, 0.6))
+    pos, idx, nrm, _ = meshgen.gen_rectangle()
+    m = np.asarray([[8, 0, 0, 0], [0, 0, -8, 0], [0, 8, 0, 0],
+                    [0, 0, 0, 1]], np.float64)
+    p, n = meshgen.transform_mesh(pos, nrm, m)
+    b.add_mesh(p, idx, n, None, floor)
+    for i, (metallic, rough) in enumerate(
+            [(0.0, 0.8), (0.4, 0.4), (0.9, 0.15), (1.0, 0.05)]):
+        mat = b.add_material(
+            mtype=MAT_DISNEY, kd=(0.7, 0.25, 0.2), eta=(1.5, 0, 0),
+            misc=(metallic, rough, 0.0, 0.0))
+        pos, idx, nrm, _ = meshgen.gen_sphere(
+            (-3.0 + 2.0 * i, 1.0, 0.0), 0.9, 24, 24)
+        b.add_mesh(pos, idx, nrm, None, mat)
+    hdr = read_hdr(os.path.join(_DATA, "abandoned_tank_farm_04_1k.hdr"))
+    a = -np.pi / 2
+    rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                   [0, np.sin(a), np.cos(a)]])
+    b.set_environment(hdr, rx)
+    cam = Camera.look_at([0, 2.5, 9.0], [0, 1.0, 0], [0, 1, 0],
+                         np.pi / 5, resolution)
+    return cam, b.build(device=device)
 
 
 def box_field_scene(resolution=(1920, 1080), n_boxes: int = 4000,
-                    seed: int = 0, device=None):
+                    seed: int = 0, device="cuda"):
     """Config E stand-in: BVH-heavy field of boxes (~12*n_boxes tris).
     Returns (camera, SceneData on ``device``)."""
     rng = np.random.default_rng(seed)

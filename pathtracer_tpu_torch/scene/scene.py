@@ -1,12 +1,12 @@
 """Packed scene representation: a dataclass of tensors + host build.
 
-Port of ``pathtracer_tpu/scene/scene.py`` for matte scenes under area
-lights: the triangle soup, material table and light table as tensors;
-SceneBuilder accumulates meshes on the host in numpy; reorder_triangles
-puts the soup in BVH leaf order. Textures, point/distant lights
-and environment maps are outside the slice (ROADMAP Queue 1 item 9): the
-texture-descriptor and environment fields hold the reference's "none"
-defaults, and SceneBuilder has no way to add them.
+Port of ``pathtracer_tpu/scene/scene.py``: the triangle soup, material
+table, light table (area, point, distant and infinite lights), constant
+and checker texture descriptors and the environment map with its 2D
+importance tables, as tensors. SceneBuilder accumulates all of it on the
+host in numpy; reorder_triangles puts the soup in BVH leaf order. Image
+textures, with their mip pool, and alpha masks are ROADMAP Queue 1 item
+10b: the port's SceneData has no texture pool.
 """
 
 from __future__ import annotations
@@ -15,6 +15,9 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..core.sampling import Distribution2D
+from ..utils.image import bilinear_sample
 
 # material type codes (same values as the JAX package)
 MAT_MATTE = 0
@@ -36,7 +39,7 @@ LIGHT_INFINITE = 3
 class SceneData:
     """Scene tensors, all on one device. Field names and meanings match
     the JAX package's SceneData (its texture pool ``tex`` has no
-    counterpart here: the slice has no textures)."""
+    counterpart here: image textures are ROADMAP Queue 1 item 10b)."""
 
     # triangle soup (F, ...)
     p0: torch.Tensor
@@ -70,7 +73,8 @@ class SceneData:
     light_tri: torch.Tensor
     light_vec: torch.Tensor
 
-    # texture descriptors (the single "none" descriptor in this slice)
+    # texture descriptors (K, ...): kind 0 = constant, 1 = checker,
+    # 2 = image (refused: item 10b)
     txd_kind: torch.Tensor
     txd_rgb0: torch.Tensor
     txd_rgb1: torch.Tensor
@@ -272,17 +276,47 @@ def reorder_triangles(scene: SceneData, order) -> SceneData:
         **{name: getattr(scene, name)[idx] for name in _TRIANGLE_FIELDS})
 
 
+_IMAGE_TEXTURES = "ROADMAP Queue 1 item 10b (image textures, mip pool)"
+
 _DEFAULT_MATERIAL = dict(
     mtype=MAT_MATTE, kd=(0.5, 0.5, 0.5), ks=(0.0, 0.0, 0.0),
     eta=(1.5, 1.5, 1.5), k=(0.0, 0.0, 0.0), rough=(0.0, 0.0),
     misc=(0.0, 0.0, 0.0, 0.0), remap=False,
     kd_tx=-1, ks_tx=-1, metallic_tx=-1, rough_tx=-1, normal_tx=-1)
 
+_NO_TEXTURE = dict(kind=0, rgb0=(0, 0, 0), rgb1=(0, 0, 0), scale=(1, 1, 1),
+                   uv=(1, 1, 0, 0), image=0, channel=-1, srgb=False)
+
+# luminance weights of the environment's importance image
+_LUM_RGB = np.asarray([0.212671, 0.715160, 0.072169], np.float32)
+
+
+def _env_tables(image: np.ndarray, l2w: np.ndarray) -> dict:
+    """The environment light's SceneData fields: the equirect map, the 2D
+    distribution of its sin(theta)-weighted luminance sampled bilinearly
+    on a grid of twice its resolution, and the light's rotation."""
+    he, we = image.shape[:2]
+    h2, w2 = 2 * he, 2 * we
+    vs = (np.arange(h2) + 0.5) / h2
+    us = (np.arange(w2) + 0.5) / w2
+    sin_theta = np.sin(np.pi * vs)
+    lum = np.asarray(image, np.float32) @ _LUM_RGB
+    func = (bilinear_sample(lum, us, vs) * sin_theta[:, None]) \
+        .astype(np.float32)
+    tables = {"env_" + k: v
+              for k, v in Distribution2D.build_host(func).items()}
+    l2w = np.asarray(l2w, np.float32)[:3, :3]
+    return dict(env_map=np.asarray(image, np.float32), **tables,
+                env_to_world=l2w,
+                world_to_env=np.linalg.inv(l2w).astype(np.float32))
+
 
 class SceneBuilder:
-    """Host-side accumulation of meshes/materials/area lights -> SceneData."""
+    """Host-side accumulation of meshes, materials, texture descriptors,
+    lights and the environment -> SceneData."""
 
     def __init__(self) -> None:
+        self.txds: list[dict] = []
         self.tri_p: list[np.ndarray] = []  # (f,3,3) per mesh
         self.tri_n: list[np.ndarray] = []
         self.tri_has_n: list[np.ndarray] = []
@@ -291,12 +325,24 @@ class SceneBuilder:
         self.tri_light: list[np.ndarray] = []
         self.materials: list[dict] = []
         self.lights: list[dict] = []
+        self.env: dict | None = None
 
     def add_material(self, **kwargs) -> int:
         mat = dict(_DEFAULT_MATERIAL)
         mat.update(kwargs)
         self.materials.append(mat)
         return len(self.materials) - 1
+
+    def add_texture_checker(self, color0, color1, uv=(1, 1, 0, 0)) -> int:
+        """Checker texture descriptor over the UV map (su, sv, ou, ov)."""
+        self.txds.append(dict(_NO_TEXTURE, kind=1, rgb0=color0, rgb1=color1,
+                              uv=uv))
+        return len(self.txds) - 1
+
+    def add_texture_image(self, image, scale=(1, 1, 1), uv=(1, 1, 0, 0),
+                          wrap: int = 0, channel: int = -1,
+                          srgb: bool = False) -> int:
+        raise NotImplementedError(f"image textures: {_IMAGE_TEXTURES}")
 
     def add_mesh(self, positions: np.ndarray, indices: np.ndarray,
                  normals: np.ndarray | None, uvs: np.ndarray | None,
@@ -333,7 +379,31 @@ class SceneBuilder:
         else:
             self.tri_light.append(np.full(f, -1, np.int32))
 
-    def build(self, device=None) -> SceneData:
+    def add_point_light(self, position, intensity) -> None:
+        self.lights.append(dict(
+            ltype=LIGHT_POINT, emit=np.asarray(intensity, np.float32),
+            tri=-1, vec=np.asarray(position, np.float32)))
+
+    def add_distant_light(self, direction, radiance) -> None:
+        """``direction`` points toward the light."""
+        d = np.asarray(direction, np.float32)
+        d = d / np.linalg.norm(d)
+        self.lights.append(dict(
+            ltype=LIGHT_DISTANT, emit=np.asarray(radiance, np.float32),
+            tri=-1, vec=d))
+
+    def set_environment(self, image: np.ndarray, light_to_world: np.ndarray,
+                        scale: np.ndarray | float = 1.0) -> None:
+        """Equirect HDR environment light (H, W, 3), rotated into the world
+        by ``light_to_world``."""
+        img = np.asarray(image, np.float32) * np.asarray(scale, np.float32)
+        self.env = dict(image=img,
+                        l2w=np.asarray(light_to_world, np.float32))
+        self.lights.append(dict(
+            ltype=LIGHT_INFINITE, emit=np.ones(3, np.float32),
+            tri=-1, vec=np.zeros(3, np.float32)))
+
+    def build(self, device="cuda") -> SceneData:
         if not self.tri_p:
             raise ValueError("scene has no geometry")
         p = np.concatenate(self.tri_p)  # (F,3,3)
@@ -356,6 +426,7 @@ class SceneBuilder:
         radius = float(np.linalg.norm(hi - center))
 
         mats = self.materials or [dict(_DEFAULT_MATERIAL)]
+        txds = self.txds or [_NO_TEXTURE]
         lights = self.lights or [dict(ltype=LIGHT_POINT,
                                       emit=np.zeros(3, np.float32), tri=-1,
                                       vec=np.zeros(3, np.float32))]
@@ -386,24 +457,33 @@ class SceneBuilder:
             mat_metallic_tx=i32([m["metallic_tx"] for m in mats]),
             mat_rough_tx=i32([m["rough_tx"] for m in mats]),
             mat_normal_tx=i32([m["normal_tx"] for m in mats]),
-            txd_kind=i32([0]), txd_rgb0=f32([(0, 0, 0)]),
-            txd_rgb1=f32([(0, 0, 0)]), txd_scale=f32([(1, 1, 1)]),
-            txd_uv=f32([(1, 1, 0, 0)]), txd_image=i32([0]),
-            txd_channel=i32([-1]), txd_srgb=np.asarray([False]),
+            txd_kind=i32([t["kind"] for t in txds]),
+            txd_rgb0=f32([t["rgb0"] for t in txds]),
+            txd_rgb1=f32([t["rgb1"] for t in txds]),
+            txd_scale=f32([t["scale"] for t in txds]),
+            txd_uv=f32([t["uv"] for t in txds]),
+            txd_image=i32([t["image"] for t in txds]),
+            txd_channel=i32([t["channel"] for t in txds]),
+            txd_srgb=np.asarray([bool(t["srgb"]) for t in txds]),
             light_type=i32([li["ltype"] for li in lights]),
             light_emit=f32([li["emit"] for li in lights]),
             light_tri=i32([li["tri"] for li in lights]),
             light_vec=f32([li["vec"] for li in lights]),
-            env_map=f32(np.zeros((1, 1, 3))),
-            env_cond_func=f32(np.zeros((1, 1))),
-            env_cond_cdf=f32(np.zeros((1, 2))),
-            env_cond_int=f32(np.zeros(1)),
-            env_marg_func=f32(np.zeros(1)),
-            env_marg_cdf=f32(np.zeros(2)),
-            env_marg_int=np.float32(0.0),
-            env_to_world=f32(np.eye(3)), world_to_env=f32(np.eye(3)),
             world_center=f32(center), world_radius=np.float32(radius),
-            n_lights=np.int32(len(self.lights)), has_env=np.asarray(False),
+            n_lights=np.int32(len(self.lights)),
+            has_env=np.asarray(self.env is not None),
         )
+        if self.env is not None:
+            fields.update(_env_tables(self.env["image"], self.env["l2w"]))
+        else:  # 1x1 black placeholders
+            fields.update(
+                env_map=f32(np.zeros((1, 1, 3))),
+                env_cond_func=f32(np.zeros((1, 1))),
+                env_cond_cdf=f32(np.zeros((1, 2))),
+                env_cond_int=f32(np.zeros(1)),
+                env_marg_func=f32(np.zeros(1)),
+                env_marg_cdf=f32(np.zeros(2)),
+                env_marg_int=np.float32(0.0),
+                env_to_world=f32(np.eye(3)), world_to_env=f32(np.eye(3)))
         return SceneData(**{k: torch.as_tensor(np.asarray(v), device=device)
                             for k, v in fields.items()})

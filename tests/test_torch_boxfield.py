@@ -58,7 +58,8 @@ def _assert_film_close(got, want):
 
 
 def test_box_field_scene_matches_jax():
-    cam, sd = procedural.box_field_scene(RES, n_boxes=40)
+    cam, sd = procedural.box_field_scene(RES, n_boxes=40,
+                                       device="cpu")
     jcam, jsd = jbox_field(RES, n_boxes=40)
     assert sd.p0.shape[0] == 40 * 12 + 12
     for f in dataclasses.fields(SceneData):
@@ -78,7 +79,8 @@ def test_box_field_film_matches_jitted_jax(jax_films, n_boxes, mis_mode):
     """The port's own scene and build, rendered through the BVH route on
     the CPU (the plain K2: no kernel launch, no K1)."""
     jcam, jts, jfilm = jax_films[n_boxes, mis_mode]
-    cam, sd = procedural.box_field_scene(RES, n_boxes=n_boxes)
+    cam, sd = procedural.box_field_scene(RES, n_boxes=n_boxes,
+                                       device="cpu")
     ts = TracedScene.create(sd)
     assert ts.bw_rows is not None
     assert ts.bw_depth == jts.bw_depth == (1 if n_boxes == 40 else 2)
@@ -93,12 +95,19 @@ def test_box_field_film_matches_jitted_jax(jax_films, n_boxes, mis_mode):
     # the reference's own table through interop gives the same film
     film2 = PathIntegrator(PathConfig(max_depth=DEPTH, mis_mode=mis_mode),
                            spp=SPP).render(camera_from_reference(jcam),
-                                           traced_scene_from_reference(jts))
+                                           traced_scene_from_reference(
+                                               jts, device="cpu"))
     np.testing.assert_array_equal(film2.numpy(), film)
 
 
 @pytest.mark.parametrize("name", ["small_scene", "microfacet_scene",
                                   "envmap_disney_scene"])
 def test_other_configs_raise(name):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """Configs B, C and D build on the card by default: without one, a
+    call that does not ask for the CPU raises rather than falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default call succeeds")
+    with pytest.raises((AssertionError, RuntimeError)):
         getattr(procedural, name)((16, 16))
+    cam, sd = getattr(procedural, name)((16, 16), device="cpu")
+    assert sd.device.type == "cpu" and sd.p0.shape[0] > 128

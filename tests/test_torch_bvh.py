@@ -222,7 +222,7 @@ def test_plain_bvhw_dead_lanes_and_wrapper():
 def test_reorder_triangles_matches_jax():
     """The permutation of every triangle field and the light_tri remap."""
     _, jsd = jbox_field((16, 9), n_boxes=12)
-    sd = scene_from_reference(jsd)
+    sd = scene_from_reference(jsd, device="cpu")
     order = np.random.default_rng(2).permutation(int(sd.p0.shape[0]))
     got = reorder_triangles(sd, order)
     want = jreorder(jsd, order)
@@ -243,7 +243,7 @@ def test_traced_scene_bvh_matches_jax():
     scene, table and depth; interop carries the reference's own."""
     _, jsd = jbox_field((16, 9), n_boxes=40)
     jts = JTracedScene.create(jsd, use_pallas=False)
-    ts = TracedScene.create(scene_from_reference(jsd))
+    ts = TracedScene.create(scene_from_reference(jsd, device="cpu"))
     assert ts.bw_rows is not None and ts.bw_depth == jts.bw_depth
     assert ts.bw_rows.numpy().tobytes() == \
         np.asarray(jts.bw_rows).tobytes()
@@ -255,14 +255,14 @@ def test_traced_scene_bvh_matches_jax():
         np.testing.assert_array_equal(getattr(ts, name).numpy(),
                                       np.asarray(getattr(jts, name)),
                                       err_msg=name)
-    ts2 = traced_scene_from_reference(jts)
+    ts2 = traced_scene_from_reference(jts, device="cpu")
     assert torch.equal(ts2.bw_rows, ts.bw_rows)
     assert ts2.bw_depth == ts.bw_depth
 
 
 def test_alpha_scene_above_128_raises():
     _, jsd = jbox_field((16, 9), n_boxes=12)
-    sd = scene_from_reference(jsd)
+    sd = scene_from_reference(jsd, device="cpu")
     sd.tri_alpha_txd[0] = 0
     with pytest.raises(NotImplementedError, match="10b"):
         TracedScene.create(sd)

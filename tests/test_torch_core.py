@@ -149,7 +149,7 @@ def test_splat_and_accumulate_match(kind):
     valid = rng.uniform(size=(th, tw)) < 0.9
     half = pfilm.splat_halfwidth(radius)
     assert half == jfilm.splat_halfwidth(radius)
-    film = pfilm.film_pad_new(w, h, extra_rows=th)
+    film = pfilm.film_pad_new(w, h, extra_rows=th, device="cpu")
     jf = jfilm.film_pad_new(w, h, extra_rows=th)
     for band_y0 in (y0, y0 + th):  # two bands: the second overlaps the pad
         tile = pfilm.splat_tile(torch.as_tensor(rad), torch.as_tensor(jx),

@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and the gather probes P1-P5 on the card against their
+"""Kernels K1, K2 and the gather probes P1-P9 on the card against their
 plain PyTorch versions.
 
 These tests need a CUDA card (marked ``cuda``; without one they skip: the
@@ -17,6 +17,7 @@ from pathtracer_tpu_torch.accel.bvhw import bvhw_intersect as bvhw_plain
 from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
 from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
 from pathtracer_tpu_torch.probes import gather as pg
+from pathtracer_tpu_torch.probes import gather2 as pg2
 
 
 @pytest.fixture
@@ -158,3 +159,43 @@ def test_gather_probe_matches_plain(dev, pid):
     got = pg.PROBES[pid](x)
     torch.cuda.synchronize()
     assert torch.equal(got, pg.PLAIN[pid](x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pid", ["P6", "P7", "P8", "P9"])
+def test_gather_probe2_matches_plain(dev, pid):
+    """Bit for bit: the probes move words (P9 adds exact zeros)."""
+    x = pg2.probe_inputs(dev)
+    before = sum(pg2.LAUNCHES.values())
+    got = pg2.PROBES[pid](x)
+    torch.cuda.synchronize()
+    assert sum(pg2.LAUNCHES.values()) == before + 1
+    assert torch.equal(got, pg2.PLAIN[pid](x))
+
+
+@pytest.mark.cuda
+def test_gather_probe2_other_shapes_and_rejects(dev):
+    rng = np.random.default_rng(7)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    data = t(rng.random((7, 128), np.float32))
+    idx = t(rng.integers(0, 7, (5, 128)).astype(np.int32))
+    assert torch.equal(pg2.gather_sublane(data, idx),
+                       pg2.gather_sublane_plain(data, idx))
+    idx2 = t(rng.integers(0, 7 * 128, (3, 128)).astype(np.int32))
+    assert torch.equal(pg2.gather_two_step(data, idx2),
+                       pg2.gather_two_step_plain(data, idx2))
+    tbl = t(rng.normal(size=(128, 128)).astype(np.float32))
+    idx3 = t(rng.integers(0, 128, (1, 128)).astype(np.int32))
+    out = torch.full((1, 128, 128), float("nan"), device=dev)
+    assert pg2.onehot_matmul(tbl, idx3, out=out) is out
+    assert torch.equal(out, pg2.onehot_matmul_plain(tbl, idx3))
+    before = dict(pg2.LAUNCHES)
+    with pytest.raises(ValueError, match="contiguous"):
+        pg2.gather_lane(data[:5].t().contiguous().t(), idx)
+    with pytest.raises(ValueError, match="out"):
+        pg2.onehot_matmul(tbl, idx3, out=out[:, :64])
+    with pytest.raises(ValueError, match="on"):
+        pg2.gather_sublane(data.cpu(), idx)
+    assert pg2.LAUNCHES == before

@@ -1,0 +1,137 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, reads
+no file of it, and runs from a copy of its own directory.
+
+Its copies of the JAX package's data (the Sobol tables, the native BVH
+builder's source) must stay byte-equal to the originals, and its entry
+points build on the card unless the caller asks for the CPU.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import pathtracer_tpu_torch
+from pathtracer_tpu_torch.accel import cpp
+from pathtracer_tpu_torch.ops import sobol
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.dirname(os.path.abspath(pathtracer_tpu_torch.__file__))
+JAX_PKG = os.path.join(ROOT, "pathtracer_tpu")
+
+
+def _modules():
+    for dirpath, dirnames, filenames in os.walk(PORT):
+        dirnames[:] = [d for d in dirnames if d not in ("build",
+                                                         "__pycache__")]
+        for name in filenames:
+            if name.endswith(".py"):
+                yield os.path.join(dirpath, name)
+
+
+def _imported(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    paths = list(_modules())
+    assert len(paths) > 20
+    bad = [(os.path.relpath(p, ROOT), name) for p in paths
+           for name in _imported(p)
+           if name.split(".")[0] in ("jax", "jaxlib", "pathtracer_tpu")]
+    assert not bad, bad
+
+
+def test_no_module_names_a_jax_package_path():
+    """No code path reaches into pathtracer_tpu/ (docstrings may name the
+    reference; string constants that build paths may not)."""
+    for path in _modules():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+                and n.body and isinstance(n.body[0], ast.Expr)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and id(node) not in docs:
+                assert node.value != "pathtracer_tpu", path
+
+
+_BLOCKED_RUN = r"""
+import importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "pathtracer_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import torch
+torch.set_num_threads(1)
+from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+from pathtracer_tpu_torch.scene.procedural import box_field_scene
+cam, sd, _ = load_mitsuba("data/cornell-box.xml", resolution=(8, 8),
+                          device="cpu")
+film = PathIntegrator(PathConfig(max_depth=2), spp=1).render(cam, sd)
+assert torch.isfinite(film).all() and (film[..., 3] > 0).all()
+cam, sd = box_field_scene((8, 6), n_boxes=30, device="cpu")
+assert sd.p0.shape[0] > 128
+film = PathIntegrator(PathConfig(max_depth=2), spp=1).render(cam, sd)
+assert torch.isfinite(film).all() and (film[..., 3] > 0).all()
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "pathtracer_tpu")]
+print("ok")
+"""
+
+
+def test_copy_of_the_port_renders_without_the_jax_package(tmp_path):
+    shutil.copytree(PORT, tmp_path / "pathtracer_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    os.makedirs(tmp_path / "data")
+    shutil.copy(os.path.join(ROOT, "data", "cornell-box.xml"),
+                tmp_path / "data")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", ["sobol_32.npy", "sobol_vdc.npy",
+                                  "sobol_vdc_inv.npy", "bvh_builder.cpp"])
+def test_copies_lie_in_the_port_and_equal_the_originals(name):
+    if name.endswith(".cpp"):
+        path, orig = cpp.SOURCE, os.path.join(JAX_PKG, "accel", "cpp", name)
+        assert os.path.basename(path) == name
+    else:
+        path = os.path.join(sobol._ASSET_DIR, name)
+        orig = os.path.join(JAX_PKG, "assets", name)
+    path = os.path.realpath(path)
+    assert path.startswith(PORT + os.sep), path
+    with open(path, "rb") as a, open(orig, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_default_device_is_the_card():
+    """Without a CUDA card, a call that does not ask for the CPU raises
+    rather than quietly building CPU tensors."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default call succeeds")
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+    with pytest.raises((AssertionError, RuntimeError)):
+        load_mitsuba(os.path.join(ROOT, "data", "cornell-box.xml"),
+                     resolution=(8, 8))

@@ -25,7 +25,7 @@ def _numpy_draws():
 
 def test_probe_inputs_are_the_tools_draws():
     table, idx, sp, v = _numpy_draws()
-    x = pg.probe_inputs()
+    x = pg.probe_inputs("cpu")
     assert x["table"].shape == (65536, 8) and x["idx"].shape == (8192,)
     np.testing.assert_array_equal(x["table"].numpy(), table)
     np.testing.assert_array_equal(x["table_t"].numpy(), table.T)
@@ -38,7 +38,7 @@ def test_probe_inputs_are_the_tools_draws():
 def test_plain_probe_matches_numpy_reference(pid):
     table, idx, sp, v = _numpy_draws()
     before = dict(pg.LAUNCHES)
-    got = pg.run_probes()[pid].numpy()
+    got = pg.run_probes("cpu")[pid].numpy()
     assert pg.LAUNCHES == before  # CPU tensors: the plain versions
     want = {"P1": table[idx], "P2": table[idx], "P3": table.T[:, idx],
             "P4": table[idx], "P5": v}[pid]
@@ -49,7 +49,7 @@ def test_plain_probe_matches_numpy_reference(pid):
 
 
 def test_probe_wrappers_reject_bad_inputs():
-    x = pg.probe_inputs()
+    x = pg.probe_inputs("cpu")
     with pytest.raises(TypeError, match="int32"):
         pg.gather_rows(x["table"], x["idx"].long())
     with pytest.raises(TypeError, match="float32"):

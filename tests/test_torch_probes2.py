@@ -1,0 +1,153 @@
+"""Gather probes P6-P9 (``probes/gather2.py``) on the CPU.
+
+The plain versions (what the wrappers run for CPU tensors) are held
+exactly to the TPU kernel bodies of ``tools/probe_pallas_gather2.py``,
+copied here and run through ``pl.pallas_call(..., interpret=True)`` on
+the probe's own inputs. The card kernels are held to the plain versions
+in ``tests/test_torch_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from pathtracer_tpu_torch.probes import gather2 as pg
+
+S, L = pg.S, pg.L
+
+
+# --- the tool's kernel bodies, as written there
+
+
+def k_sub(d_ref, i_ref, o_ref):
+    o_ref[:] = jnp.take_along_axis(d_ref[:], i_ref[:], axis=0)
+
+
+def k_lane(d_ref, i_ref, o_ref):
+    o_ref[:] = jnp.take_along_axis(d_ref[:], i_ref[:], axis=1)
+
+
+def k_two(d_ref, i_ref, o_ref):
+    idx = i_ref[:]
+    chunk = idx >> 7
+    lanepos = idx & 127
+    chunk_at_src = jnp.take_along_axis(chunk, lanepos, axis=1)
+    t2 = jnp.take_along_axis(d_ref[:], chunk_at_src, axis=0)
+    o_ref[:] = jnp.take_along_axis(t2, lanepos, axis=1)
+
+
+def k_mxu(t_ref, i_ref, o_ref):
+    idx = i_ref[:].reshape(S * 128, 1)
+    cols = jax.lax.broadcasted_iota(jnp.int32, (S * 128, 128), 1)
+    onehot = (cols == idx).astype(jnp.float32)
+    o_ref[:] = jnp.dot(onehot, t_ref[:],
+                       preferred_element_type=jnp.float32
+                       ).reshape(S, 128, 128)
+
+
+_TPU = {"P6": (k_sub, "data_g", "idx_g", (S, L)),
+        "P7": (k_lane, "data_h", "idx_h", (S, L)),
+        "P8": (k_two, "flat2", "idx_i", (S, L)),
+        "P9": (k_mxu, "tbl_j", "idx_j", (S, L, L))}
+
+
+def _interpret(pid, x):
+    kernel, a, b, shape = _TPU[pid]
+    return np.asarray(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct(shape, jnp.float32),
+        interpret=True)(jnp.asarray(x[a].numpy()), jnp.asarray(x[b].numpy())))
+
+
+@pytest.fixture(scope="module")
+def x():
+    return pg.probe_inputs("cpu")
+
+
+def test_probe_inputs_are_the_tools_draws(x):
+    rng = np.random.default_rng(0)
+    want = dict(
+        data_g=rng.random((548, 128), np.float32),
+        idx_g=rng.integers(0, 548, (64, 128)).astype(np.int32),
+        data_h=rng.random((64, 128), np.float32),
+        idx_h=rng.integers(0, 128, (64, 128)).astype(np.int32),
+        flat=rng.random(548 * 128, np.float32),
+        idx_i=rng.integers(0, 548 * 128, (64, 128)).astype(np.int32),
+        tbl_j=rng.random((128, 128), np.float32),
+        idx_j=rng.integers(0, 128, (64, 128)).astype(np.int32))
+    want["flat2"] = want["flat"].reshape(548, 128)
+    assert set(x) == set(want)
+    for key, arr in want.items():
+        assert x[key].dtype == torch.from_numpy(arr).dtype, key
+        np.testing.assert_array_equal(x[key].numpy(), arr, err_msg=key)
+
+
+@pytest.mark.parametrize("pid", ["P6", "P7", "P8", "P9"])
+def test_plain_probe_matches_tpu_body_in_interpret_mode(x, pid):
+    before = dict(pg.LAUNCHES)
+    got = pg.run_probes("cpu", x)[pid].numpy()
+    assert pg.LAUNCHES == before  # CPU tensors: the plain versions
+    want = _interpret(pid, x)
+    assert got.dtype == want.dtype == np.float32
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_numpy_references_of_p6_p7_p9(x):
+    """P6, P7 and P9 compute the tool's numpy references exactly."""
+    out = pg.run_probes("cpu", x)
+    n = {k: v.numpy() for k, v in x.items()}
+    np.testing.assert_array_equal(
+        out["P6"].numpy(), np.take_along_axis(n["data_g"], n["idx_g"], 0))
+    np.testing.assert_array_equal(
+        out["P7"].numpy(), np.take_along_axis(n["data_h"], n["idx_h"], 1))
+    np.testing.assert_array_equal(
+        out["P9"].numpy(), n["tbl_j"][n["idx_j"].ravel()].reshape(64, 128,
+                                                                  128))
+
+
+def test_p8_is_not_the_tools_flat_gather(x):
+    """The TPU body of P8 does not compute its tool's reference flat[idx]:
+    out[s, l] = flat2[chunk[s, lp[s, lp[s, l]]], lp[s, l]], which is
+    flat[idx[s, l]] only where that chunk is lane l's own."""
+    got = pg.run_probes("cpu", x)["P8"].numpy()
+    idx = x["idx_i"].numpy()
+    flat_ref = x["flat"].numpy()[idx]
+    agree = got == flat_ref
+    assert 0.0 < agree.mean() < 0.05
+    chunk, lp = idx >> 7, idx & 127
+    read = np.take_along_axis(chunk, np.take_along_axis(lp, lp, 1), 1)
+    assert agree[read == chunk].all()
+    assert not agree[read != chunk].any()
+
+
+def test_p8_equals_flat_gather_when_rows_share_a_chunk():
+    rng = np.random.default_rng(5)
+    flat2 = torch.as_tensor(rng.random((8, 128), np.float32))
+    rows = rng.integers(0, 8, (4, 1))
+    idx = torch.as_tensor((rows * 128 + rng.integers(0, 128, (4, 128)))
+                          .astype(np.int32))
+    got = pg.gather_two_step(flat2, idx)
+    assert torch.equal(got, flat2.reshape(-1)[idx.long()])
+
+
+def test_probe_wrappers_reject_bad_inputs(x):
+    with pytest.raises(TypeError, match="int32"):
+        pg.gather_sublane(x["data_g"], x["idx_g"].long())
+    with pytest.raises(TypeError, match="float32"):
+        pg.gather_lane(x["data_h"].double(), x["idx_h"])
+    with pytest.raises(ValueError, match="128"):
+        pg.gather_two_step(x["flat2"], x["idx_i"][:, :64])
+    with pytest.raises(ValueError, match="rows"):
+        pg.gather_lane(x["data_h"][:8], x["idx_h"])
+    with pytest.raises(ValueError, match="rows"):
+        pg.onehot_matmul(x["data_g"], x["idx_j"])
+    with pytest.raises(ValueError, match="expected"):
+        pg.gather_sublane(x["data_g"], torch.zeros((64, 128),
+                                                   dtype=torch.int32,
+                                                   device="meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        pg.gather_sublane(x["data_g"].to("meta"),
+                          x["idx_g"].to("meta"))

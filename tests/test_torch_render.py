@@ -38,7 +38,8 @@ def _assert_film_close(got, want):
 
 
 def test_load_mitsuba_matches_reference():
-    cam, sd, settings = load_mitsuba(CORNELL, resolution=(64, 48))
+    cam, sd, settings = load_mitsuba(CORNELL, resolution=(64, 48),
+                                     device="cpu")
     jcam, jsd, jsettings = jload_mitsuba(CORNELL, resolution=(64, 48))
     assert settings == jsettings
     for f in dataclasses.fields(SceneData):
@@ -51,13 +52,13 @@ def test_load_mitsuba_matches_reference():
                                       np.asarray(getattr(jcam, f.name)),
                                       err_msg=f.name)
     # interop gives the same SceneData from the reference's own
-    sd2 = scene_from_reference(jsd)
+    sd2 = scene_from_reference(jsd, device="cpu")
     for f in dataclasses.fields(SceneData):
         assert torch.equal(getattr(sd2, f.name), getattr(sd, f.name)), f.name
 
 
 def test_cornell_32_matches_golden_and_jax_film():
-    cam, sd, _ = load_mitsuba(CORNELL, resolution=(32, 32))
+    cam, sd, _ = load_mitsuba(CORNELL, resolution=(32, 32), device="cpu")
     integ = PathIntegrator(PathConfig(max_depth=3), spp=2)
     film = integ.render(cam, sd).numpy()
     assert film.shape == (32, 32, 4)
@@ -81,7 +82,8 @@ def test_cornell_onesample_matches_jax_film():
                        .render(jcam, jsd))
     # the JAX scene through interop: both packages render identical data
     film = PathIntegrator(PathConfig(**cfg), spp=1).render(
-        camera_from_reference(jcam), scene_from_reference(jsd)).numpy()
+        camera_from_reference(jcam),
+        scene_from_reference(jsd, device="cpu")).numpy()
     _assert_film_close(film, jfilm)
     assert np.isfinite(film).all() and (film[..., 3] > 0).all()
 
@@ -102,7 +104,7 @@ def test_depth5_wave_matches_jax_bounce_loop(mis_mode):
     res = 12
     jcam, jsd, _ = jload_mitsuba(CORNELL, resolution=(res, res))
     jts = ji.TracedScene.create(jsd, use_pallas=False)
-    pts = pi.TracedScene.create(scene_from_reference(jsd))
+    pts = pi.TracedScene.create(scene_from_reference(jsd, device="cpu"))
     jcfg = ji.PathConfig(max_depth=5, mis_mode=mis_mode)
     pcfg = pi.PathConfig(max_depth=5, mis_mode=mis_mode)
     dom = jsb.SobolDomain.create((-2, -2), (res + 2, res + 2), 1)
@@ -156,12 +158,13 @@ def test_port_render_imports_no_jax():
         "from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba\n"
         "from pathtracer_tpu_torch.integrator import PathConfig, "
         "PathIntegrator\n"
-        f"cam, sd, _ = load_mitsuba({CORNELL!r}, resolution=(8, 8))\n"
+        f"cam, sd, _ = load_mitsuba({CORNELL!r}, resolution=(8, 8), "
+        "device='cpu')\n"
         "film = PathIntegrator(PathConfig(max_depth=2), spp=1)"
         ".render(cam, sd)\n"
         "assert torch.isfinite(film).all()\n"
         "from pathtracer_tpu_torch.scene.procedural import box_field_scene\n"
-        "cam, sd = box_field_scene((8, 6), n_boxes=30)\n"
+        "cam, sd = box_field_scene((8, 6), n_boxes=30, device='cpu')\n"
         "film = PathIntegrator(PathConfig(max_depth=2), spp=1)"
         ".render(cam, sd)\n"
         "assert torch.isfinite(film).all()\n"

@@ -50,7 +50,7 @@ def cornell():
     jittered camera rays, the JAX interaction at them and uniforms."""
     cam, sd, _ = jload_mitsuba("data/cornell-box.xml", resolution=(32, 32))
     jts = ji.TracedScene.create(sd, use_pallas=False)
-    pts = pi.TracedScene.create(scene_from_reference(sd))
+    pts = pi.TracedScene.create(scene_from_reference(sd, device="cpu"))
     rng = np.random.default_rng(11)
     ys, xs = np.mgrid[0:32, 0:32]
     pf = np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32)
@@ -107,13 +107,17 @@ def test_matte_bsdf_matches(cornell):
     _close(ppdf, jpdf)
     jbs = jbx.sample_f(jmp, wo, jnp.asarray(c["u"][2]), lambda w: True,
                        present=c["jts"].mat_set)
-    pbs = pbx.sample_f(pmp, _t(wo), _t(c["u"][2]), present=c["pts"].mat_set)
+    pbs = pbx.sample_f(pmp, _t(wo), _t(c["u"][2]), lambda w: True,
+                       present=c["pts"].mat_set)
     for key in ("wi", "f", "pdf", "specular", "transmission"):
         _close(pbs[key], jbs[key])
     _close(pbx.has_nonspecular(pmp["mtype"]),
            jbx.has_nonspecular(jmp["mtype"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pbx.sample_f(pmp, _t(wo), _t(c["u"][2]), present=(0, 2))
+    # a material type present in the scene but on no lane changes nothing
+    pbs2 = pbx.sample_f(pmp, _t(wo), _t(c["u"][2]), lambda w: True,
+                        present=(0, 2))
+    for key in ("wi", "f", "pdf", "specular", "transmission"):
+        assert torch.equal(pbs2[key], pbs[key]), key
 
 
 def test_area_light_sampling_matches(cornell):
