@@ -26,7 +26,8 @@ printing one JSON line:
              of the first 1920x1080 band and random directions from inside
              the room): closest and any-hit, both timed; and against K1
              (brute force) on the same rays; the plain traversal counts
-             the rows these rays visit, for K2's bound;
+             the work these rays need (occupied children slab-tested, real
+             triangles tested), for K2's bound;
 7. box_golden - box field 64x36, 2 spp, depth 3, "ref" MIS on the card
              against the port's own CPU film (the plain traversal) at
              RMSE < 1e-3 and alpha rtol 1e-5, exact K2 launch count, no K1;
@@ -52,14 +53,18 @@ printing one JSON line:
              then one timed render with the launch counts set to 0 just
              before it: Mrays/s, set-up seconds, peak device memory,
              exact K2 launch count, no K1, finite film with positive
-             weight everywhere;
+             weight everywhere; then K2 against its plain version on the
+             config's own table, on 131,072 camera rays drawn over the
+             whole image (valid, tri, t and b identical, closest and any
+             hit);
 13. profile - K1's and K2's own device times from a torch.profiler trace
              (last, as tracing slows later launches).
 
 Then one JSON line listing the kernels, each with its time, its plain
 version's, its library call's where one exists, and its bound (the least
 time an H100 could take: the larger of the bytes it must move over
-3.35 TB/s and its FP32 operations over 67 TFLOP/s), and last the status
+3.35 TB/s and the FP32 operations it needs on this run's inputs over
+67 TFLOP/s), and last the status
 line. Any failure raises (non-zero exit). Without a CUDA card it exits
 non-zero and prints no result.
 """
@@ -98,9 +103,9 @@ PEAK_FP32_PER_S = 67e12
 # before its early exit: 9 translations, 6 shear multiply-adds (12) and
 # 3 edge functions of two products and a difference (9)
 PAIR_OPS = 30
-# per child slab test of a BVH32 interior row: per axis 2 subtractions,
-# 2 multiplies, a min, a max and the gamma scaling (21), the entry / exit
-# reduction (4) and the two range compares (2)
+# per occupied child slab test of a BVH32 interior row: per axis 2
+# subtractions, 2 multiplies, a min, a max and the gamma scaling (21), the
+# entry / exit reduction (4) and the two range compares (2)
 SLAB_OPS = 27
 
 
@@ -487,11 +492,12 @@ def phase_k2(dev):
     plain_ms_any = time_ms(lambda: plain(t_any, True), reps=PLAIN_K2_REPS)
     n = o.shape[0]
     # rays in and out (49 B a ray) and the table; the closest-hit query's
-    # visited rows: 32 slab tests an interior row, 25 triangle tests a leaf
+    # work: a slab test per occupied child of each interior row visited, a
+    # pair test per real triangle of each leaf row visited
     out = dict(phase="k2", rays=n, rows_visited=rows,
                **bound(49.0 * n + table.numel() * 4.0,
-                       SLAB_OPS * 32.0 * rows["interior"]
-                       + PAIR_OPS * 25.0 * rows["leaf"]),
+                       SLAB_OPS * float(rows["slabs"])
+                       + PAIR_OPS * float(rows["triangles"])),
                triangles=int(scene.tri_pack.shape[0]),
                table_rows=int(table.shape[0]), depth=stackw,
                hit_lanes=int(hit.sum()), anyhit_lanes=int(want_any.sum()),
@@ -662,7 +668,8 @@ def phase_probes2(dev):
         raise AssertionError(f"probe2 launches {launches}")
 
     # bytes each must move: indices, the distinct table words they read,
-    # output; P9 also 2 FP32 operations per one-hot term
+    # output. P9's output is exactly tbl[idx] (checked below), so it
+    # needs no arithmetic: the table, the indices and the 4 MiB output
     n_idx = float(pg.S * pg.L)
     lane = torch.arange(pg.L, device=dev)
     idx_i = x["idx_i"].long()
@@ -675,8 +682,7 @@ def phase_probes2(dev):
         P8=torch.unique(cas * pg.L + lane).numel())
     bounds = {pid: bound(4.0 * (2 * n_idx + w), 0.0)
               for pid, w in words.items()}
-    bounds["P9"] = bound(4.0 * (pg.L * pg.L + n_idx + n_idx * pg.L),
-                         2.0 * n_idx * pg.L * pg.L)
+    bounds["P9"] = bound(4.0 * (pg.L * pg.L + n_idx + n_idx * pg.L), 0.0)
 
     tbl, idx_j = x["tbl_j"], x["idx_j"]
     onehot = F.one_hot(idx_j.long().reshape(-1), pg.L).float()
@@ -791,6 +797,54 @@ def phase_materials_golden(dev):
     return out
 
 
+def k2_config_check(cam, scene, dev, depth: int) -> dict:
+    """K2 against the plain traversal on a config's own table, on one
+    wave of K2_RAYS camera rays drawn over the whole image (sample frame
+    0, torch seed 0; a top band alone can be all sky): closest hit (t_max
+    inf) and any hit (bounds of 0.5-1.5x the closest t, numpy seed 0)
+    must agree bit for bit."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.accel.bvhw import bvhw_intersect as bvhw_plain
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+
+    integ = PathIntegrator(PathConfig(max_depth=depth, mis_mode="onesample"),
+                           spp=MAT_SPP, band_rows=1 << 20)  # one band
+    o, d = first_band_rays(cam, integ, dev)[:2]
+    gen = torch.Generator().manual_seed(0)
+    pick = torch.randperm(d.shape[0], generator=gen)[:K2_RAYS].to(dev)
+    o, d = o[pick].contiguous(), d[pick].contiguous()
+    table, stackw = scene.bw_rows, scene.bw_depth
+    t_inf = torch.full((o.shape[0],), torch.inf, device=dev)
+    got = k2.bvhw_intersect(table, o, d, t_inf, stackw=stackw)
+    want = bvhw_plain(table, o, d, t_inf, stackw=stackw)
+    scale = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.5, 1.5, o.shape[0]).astype(np.float32), device=dev)
+    t_any = torch.where(want["valid"], want["t"] * scale, 1.0)
+    got_any = k2.bvhw_intersect(table, o, d, t_any, any_hit=True,
+                                stackw=stackw)
+    want_any = bvhw_plain(table, o, d, t_any, any_hit=True, stackw=stackw)
+    torch.cuda.synchronize()
+    for key in ("valid", "tri", "t", "b"):
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"K2 {key} differs from the plain version "
+                                 "on this config's table")
+    if not torch.equal(got_any, want_any):
+        raise AssertionError("K2 any-hit differs from the plain version on "
+                             "this config's table")
+    # a closed room (config C) has no closest-hit misses; the any-hit
+    # bounds give both outcomes in every config
+    hit = want["valid"]
+    if not bool(hit.any()) or bool(want_any.all()) \
+            or not bool(want_any.any()):
+        raise AssertionError("K2 check needs hits, and any-hit lanes of "
+                             "both outcomes")
+    return dict(rays=int(o.shape[0]), hit_lanes=int(hit.sum()),
+                anyhit_lanes=int(want_any.sum()))
+
+
 def phase_materials_main(dev, smi: str):
     import torch
 
@@ -834,6 +888,10 @@ def phase_materials_main(dev, smi: str):
             raise AssertionError(f"config {config}: film weight must be "
                                  "positive everywhere")
         total += launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        # after the render's figures: the plain traversal's memory is not
+        # the render's
+        k2_check = k2_config_check(cam, scene, dev, depth)
         out[config] = dict(
             scene=name, max_depth=depth,
             triangles=int(scene.tri_pack.shape[0]),
@@ -844,8 +902,8 @@ def phase_materials_main(dev, smi: str):
             mrays_per_s=integ.last_ray_count / dt / 1e6,
             launches=launches, expected_launches=expect,
             k1_launches=k1_launches,
-            peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
-            bad_samples=integ.bad_sample_count,
+            peak_mem_bytes=peak,
+            bad_samples=integ.bad_sample_count, k2_check=k2_check,
             film_mean_rgb=[float(v) for v in
                            film[..., :3].mean(dim=(0, 1)).cpu()])
     out["launches"] = total

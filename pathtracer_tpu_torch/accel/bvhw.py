@@ -304,9 +304,10 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
     depth suffices; a deeper descent drops the oldest entry, as in the
     reference). Returns dict(valid, t (0 on a miss), tri (0 on a miss),
     b (0 on a miss)) or, with any_hit, an (N,) bool tensor. Where
-    ``row_counts`` is given, the rows the rays visit are added to its
-    "interior" (the root's slab test included) and "leaf" counts: the
-    work the traversal does on these inputs.
+    ``row_counts`` is given, the work the rays need on these inputs is
+    added to it: "interior" and "leaf" rows visited (the root's slab test
+    included), "slabs", the occupied children of those interior rows, and
+    "triangles", the real (not pad) triangles of those leaf rows.
     """
     if not 1 <= stackw <= STACKW:
         raise ValueError(f"stackw must be in [1, {STACKW}], got {stackw}")
@@ -327,9 +328,11 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
     root = table[0:1]
     cur_mask = _hit_mask(_slab32(root, oc96, ic96, t_max), bitvals)
     cur_mask = torch.where(t_max > 0.0, cur_mask, 0)  # dead on entry
-    if row_counts is not None:  # (interior, leaf) rows visited
-        visits = [(t_max > 0.0).sum(), torch.zeros((), dtype=torch.int64,
-                                                   device=dev)]
+    if row_counts is not None:  # interior, leaf rows; slabs, triangles
+        live0 = (t_max > 0.0).sum()
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        visits = [live0, zero, live0 * _popcount32(_occupancy(root))[0],
+                  zero]
     cur_base = root[:, 192].long().expand(n)
     cur_occ = _occupancy(root).expand(n)
     zeros_i = torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -377,7 +380,10 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
         # interior: slab-test the 32 grandchildren, descend
         iact = act & ~is_leaf
         if row_counts is not None:
-            visits = [visits[0] + iact.sum(), visits[1] + lact.sum()]
+            real = (row[:, 9 * LEAFW:10 * LEAFW] >= 0).sum(dim=1)
+            visits = [visits[0] + iact.sum(), visits[1] + lact.sum(),
+                      visits[2] + (_popcount32(_occupancy(row)) * iact).sum(),
+                      visits[3] + (real * lact).sum()]
         new_mask = _hit_mask(_slab32(row, oc96, ic96, t_best)
                              & iact[:, None], bitvals)
         descend = iact & (new_mask != 0)
@@ -391,7 +397,8 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
         cur_occ = torch.where(descend, _occupancy(row), cur_occ)
 
     if row_counts is not None:
-        for key, v in zip(("interior", "leaf"), visits):
+        for key, v in zip(("interior", "leaf", "slabs", "triangles"),
+                          visits):
             row_counts[key] = row_counts.get(key, 0) + int(v)
     if any_hit:
         return st["found"]

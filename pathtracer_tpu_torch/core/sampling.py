@@ -102,7 +102,7 @@ class Distribution1D:
     func_int: torch.Tensor
 
     @staticmethod
-    def build(f: np.ndarray, device="cpu") -> "Distribution1D":
+    def build(f: np.ndarray, device="cuda") -> "Distribution1D":
         return Distribution1D(*(torch.as_tensor(np.asarray(a), device=device)
                                 for a in _build_1d(f)))
 
@@ -155,7 +155,7 @@ class Distribution2D:
                     marg_func=marg[0], marg_cdf=marg[1], marg_int=marg[2])
 
     @staticmethod
-    def build(func: np.ndarray, device="cpu") -> "Distribution2D":
+    def build(func: np.ndarray, device="cuda") -> "Distribution2D":
         return Distribution2D(**{
             k: torch.as_tensor(np.asarray(v), device=device)
             for k, v in Distribution2D.build_host(func).items()})
@@ -168,10 +168,16 @@ class Distribution2D:
 
     def pdf(self, p):
         """Density at uv p (..., 2)."""
-        nv, nu = self.cond_func.shape
-        iu = torch.clamp((p[..., 0] * nu).to(torch.int64), 0, nu - 1)
-        iv = torch.clamp((p[..., 1] * nv).to(torch.int64), 0, nv - 1)
-        return self.cond_func[iv, iu] / torch.clamp_min(self.marg_int, 1e-30)
+        return pdf_distribution_2d(self.cond_func, self.marg_int, p)
+
+
+def pdf_distribution_2d(cond_func, marg_int, p):
+    """Density of the 2D tables at uv p (..., 2): the table cell's value
+    over the whole integral."""
+    nv, nu = cond_func.shape
+    iu = torch.clamp((p[..., 0] * nu).to(torch.int64), 0, nu - 1)
+    iv = torch.clamp((p[..., 1] * nv).to(torch.int64), 0, nv - 1)
+    return cond_func[iv, iu] / torch.clamp_min(marg_int, 1e-30)
 
 
 def sample_distribution_2d(cond_func, cond_cdf, cond_int, marg_func,
@@ -181,18 +187,17 @@ def sample_distribution_2d(cond_func, cond_cdf, cond_int, marg_func,
     d1, pdf1, v = sample_distribution_1d(marg_func, marg_cdf, marg_int,
                                          u[..., 1])
     nu = cond_func.shape[-1]
-    cdf_v = cond_cdf[v]
-    func_v = cond_func[v]
     int_v = cond_int[v]
     u0 = u[..., 0]
-    off = torch.clamp(searchsorted_batched(cdf_v, u0), 0, nu - 1)
-    c0 = torch.gather(cdf_v, -1, off[..., None])[..., 0]
-    c1 = torch.gather(cdf_v, -1, off[..., None] + 1)[..., 0]
+    # only the search needs row v whole; the rest reads single cells
+    off = torch.clamp(searchsorted_batched(cond_cdf[v], u0), 0, nu - 1)
+    c0 = cond_cdf[v, off]
+    c1 = cond_cdf[v, off + 1]
     denom = c1 - c0
     du = torch.where(denom > 0.0,
                      (u0 - c0) / torch.where(denom > 0.0, denom, 1.0),
                      u0 - c0)
-    f = torch.gather(func_v, -1, off[..., None])[..., 0]
+    f = cond_func[v, off]
     pdf0 = torch.where(int_v > 0.0, f / torch.clamp_min(int_v, 1e-30), 0.0)
     d0 = (off.to(torch.float32) + du) / nu
     return torch.stack([d0, d1], dim=-1), pdf0 * pdf1

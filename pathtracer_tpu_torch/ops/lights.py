@@ -16,7 +16,8 @@ import torch
 
 from ..core import math as pm
 from ..core.math import gamma
-from ..core.sampling import sample_distribution_2d, uniform_sample_triangle
+from ..core.sampling import (pdf_distribution_2d, sample_distribution_2d,
+                             uniform_sample_triangle)
 from ..scene.scene import (LA_EMIT, LA_HASN, LA_N0, LA_N1, LA_N2, LA_P0,
                            LA_P1, LA_P2, LA_TYPE, LA_VEC, LIGHT_AREA,
                            LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_POINT)
@@ -115,11 +116,9 @@ def env_pdf_li(scene, w_world):
     theta = pm.spherical_theta(w)
     phi = pm.spherical_phi(w)
     sin_t = torch.sin(theta)
-    nv, nu = scene.env_cond_func.shape
-    iu = torch.clamp((phi * pm.INV_2_PI * nu).to(torch.int64), 0, nu - 1)
-    iv = torch.clamp((theta * pm.INV_PI * nv).to(torch.int64), 0, nv - 1)
-    d2 = scene.env_cond_func[iv, iu] / torch.clamp_min(scene.env_marg_int,
-                                                        1e-30)
+    d2 = pdf_distribution_2d(
+        scene.env_cond_func, scene.env_marg_int,
+        torch.stack([phi * pm.INV_2_PI, theta * pm.INV_PI], dim=-1))
     pdf = d2 / (2.0 * np.pi * np.pi * torch.clamp_min(sin_t, 1e-20))
     return torch.where((sin_t == 0.0) | ~scene.has_env, 0.0, pdf)
 

@@ -195,6 +195,38 @@ def test_plain_bvhw_short_stack_matches_jax(stackw):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
 
 
+@pytest.mark.parametrize("f", [26, 600])
+def test_plain_bvhw_row_counts(f):
+    """The work counts are per ray: the lockstep batch counts what the
+    rays one at a time count. Slabs are the occupied children only, and
+    triangles the real ids of the leaves visited, not their 25 columns."""
+    p, table, depth, o, d = _case(f, n=48)
+    table_t = _t(table)
+    ids = table[:, 9 * pbvhw.LEAFW:10 * pbvhw.LEAFW]
+    real = (ids >= 0).sum(axis=1)[table[:, 255] > 0.5]
+    assert real.min() < pbvhw.LEAFW  # some leaf has pad columns
+
+    def counts(sl):
+        rc = {}
+        pbvhw.bvhw_intersect(table_t, _t(o[sl]), _t(d[sl]),
+                             torch.full((len(o[sl]),), torch.inf),
+                             stackw=depth, row_counts=rc)
+        return rc
+    batch, one_by_one = counts(slice(None)), {}
+    for i in range(len(o)):
+        for key, v in counts(slice(i, i + 1)).items():
+            one_by_one[key] = one_by_one.get(key, 0) + v
+    assert batch == one_by_one
+    assert batch["interior"] >= len(o) and batch["leaf"] > 0
+    assert batch["interior"] <= batch["slabs"] <= pbvhw.BW * batch["interior"]
+    assert batch["leaf"] <= batch["triangles"] <= real.max() * batch["leaf"]
+    # dead lanes do no work
+    dead = {}
+    pbvhw.bvhw_intersect(table_t, _t(o), _t(d), torch.zeros(len(o)),
+                         stackw=depth, row_counts=dead)
+    assert dead == dict(interior=0, leaf=0, slabs=0, triangles=0)
+
+
 def test_plain_bvhw_dead_lanes_and_wrapper():
     """t_max <= 0 lanes report no hit; on CPU tensors the K2 wrapper is
     the plain version and launches nothing; bad inputs raise."""

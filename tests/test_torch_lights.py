@@ -206,7 +206,8 @@ def test_distributions_sample_exactly():
     func = rng.uniform(0, 1, (12, 20)).astype(np.float32)
     func[2] = 0.0
     func[5, 3:11] = 0.0
-    jd, pd = jsm.Distribution2D.build(func), psm.Distribution2D.build(func)
+    jd, pd = jsm.Distribution2D.build(func), psm.Distribution2D.build(
+        func, device="cpu")
     for name in ("cond_func", "cond_cdf", "cond_int", "marg_func",
                  "marg_cdf", "marg_int"):
         np.testing.assert_array_equal(getattr(pd, name).numpy(),
@@ -219,7 +220,7 @@ def test_distributions_sample_exactly():
     np.testing.assert_array_equal(ppdf.numpy(), np.asarray(jpdf))
     np.testing.assert_array_equal(pd.pdf(puv).numpy(),
                                   np.asarray(jd.pdf(juv)))
-    d1 = psm.Distribution1D.build(func[5])
+    d1 = psm.Distribution1D.build(func[5], device="cpu")
     j1 = jsm.Distribution1D.build(func[5])
     u1 = np.concatenate([u[:, 0], np.asarray(j1.cdf)[:-1]])
     for got, want in zip(
