@@ -13,8 +13,7 @@ printing one JSON line:
 3. k1      - K1 against its plain PyTorch version on the card, at the main
              path's shapes (131,072 rays x cornell's 36 triangles): hit
              flags, triangle ids and any-hit identical, t and b to
-             rtol 1e-6 / atol 1e-7; both timed per call (median of
-             CUDA-event runs);
+             rtol 1e-6 / atol 1e-7; both timed (below);
 4. golden  - cornell 32x32, 2 spp, depth 3 ("ref" MIS) against
              tests/golden_cornell_32.npz (the JAX film) at RMSE < 1e-3 and
              alpha rtol 1e-5, with the exact K1 launch count;
@@ -27,7 +26,7 @@ printing one JSON line:
              the room): closest and any-hit, both timed; and against K1
              (brute force) on the same rays; the plain traversal counts
              the work these rays need (occupied children slab-tested, real
-             triangles tested), for K2's bound;
+             triangles tested), for K2's bound (plain: 5 calls timed);
 7. box_golden - box field 64x36, 2 spp, depth 3, "ref" MIS on the card
              against the port's own CPU film (the plain traversal) at
              RMSE < 1e-3 and alpha rtol 1e-5, exact K2 launch count, no K1;
@@ -37,11 +36,15 @@ printing one JSON line:
              exact K2 launch count, no K1, finite film with positive
              weight everywhere;
 9. probes  - the gather probes P1-P5 once through ``run_probes`` (their
-             path), then each against its plain version (exact) and both
-             timed;
-10. probes2 - the gather probes P6-P9 likewise (exact), each also beside
-             its library call (P9: ``tbl[idx]`` and ``torch.matmul`` of
-             the one-hot operands);
+             path), then each against its plain version and its library
+             call (one PyTorch call on the same int32 indices:
+             ``table[idx]``, ``table_t[:, idx]``), exact, all timed;
+10. probes2 - the gather probes P6-P9 likewise (library: ``torch.gather``;
+             P9 ``tbl[idx]``, and ``torch.matmul`` of the one-hot
+             operands beside it); then P9 against its plain version on a
+             table of -0, +inf, -inf, NaN and all-negative columns, at
+             S = 64, 1, 3 and 65 index rows (NaN in the same places, equal
+             values and sign bits elsewhere);
 11. materials_golden - configs B, C and D at 64x64, band_rows 16, 2 spp,
              depths 4, 6 and 4 ("ref" MIS) on the card, against the
              committed goldens at tests/test_golden.py's _golden_check bar
@@ -57,16 +60,23 @@ printing one JSON line:
              config's own table, on 131,072 camera rays drawn over the
              whole image (valid, tri, t and b identical, closest and any
              hit);
-13. profile - K1's and K2's own device times from a torch.profiler trace
-             (last, as tracing slows later launches).
+13. profile - device times from a torch.profiler trace: K1's and K2's,
+             P1-P9's and their library calls' (last, as tracing slows later
+             launches).
 
-Then one JSON line listing the kernels, each with its time, its plain
-version's, its library call's where one exists, and its bound (the least
-time an H100 could take: the larger of the bytes it must move over
-3.35 TB/s and the FP32 operations it needs on this run's inputs over
-67 TFLOP/s), and last the status
-line. Any failure raises (non-zero exit). Without a CUDA card it exits
-non-zero and prints no result.
+"Timed" is three figures on CUDA events and the host clock: ``ms``, per
+call over 100 back-to-back calls (the median of 5 such runs);
+``ms_single``, the median of 30 single calls (the figure of earlier
+runs); and, for a kernel wrapper, ``host_us``, the host's enqueue time per
+call over 10,000 calls.
+
+Then one JSON line listing the kernels, each with those times, its device
+time, its plain version's and its library call's times where one exists
+(with the library call's device time), and its bound (the least time an
+H100 could take: the larger of the bytes it must move over 3.35 TB/s and
+the FP32 operations it needs on this run's inputs over 67 TFLOP/s), and
+last the status line. Any failure raises (non-zero exit). Without a CUDA
+card it exits non-zero and prints no result.
 """
 
 import json
@@ -82,6 +92,13 @@ CORNELL = os.path.join(ROOT, "data", "cornell-box.xml")
 GOLDEN = os.path.join(ROOT, "tests", "golden_cornell_32.npz")
 K1_RAYS = 1 << 17
 K1_REPS = 30
+# back-to-back calls of a per-call time, and the runs of them it is the
+# median of; calls of a host enqueue time, synchronised every HOST_CHUNK
+# calls (outside the clock)
+PER_CALL = 100
+PER_CALL_RUNS = 5
+HOST_CALLS = 10_000
+HOST_CHUNK = 100
 K2_RAYS = 1 << 17
 # the plain traversal runs a Python loop of ~100 tensor ops per step
 PLAIN_K2_REPS = 5
@@ -142,11 +159,73 @@ def time_ms(fn, reps: int = K1_REPS) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, name: str, reps: int = K1_REPS) -> float:
-    """Mean device time (ms) of the CUDA kernels whose name contains
-    ``name`` per call of ``fn``, from torch.profiler's CUPTI trace: the
-    kernel alone, without the host's per-call dispatch gaps that a pair
-    of CUDA events around a ~20 us launch also counts."""
+def per_call_ms(fn, calls: int = PER_CALL,
+                runs: int = PER_CALL_RUNS) -> float:
+    """Milliseconds per call of ``fn``: a pair of CUDA events around
+    ``calls`` back-to-back calls, divided by ``calls``, the median of
+    ``runs`` such runs after one warm-up call. The device's time where the
+    host enqueues faster than the device runs, the host's where it does
+    not; the median drops a run that a host stall lengthened."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / calls)
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = HOST_CALLS, chunk: int = HOST_CHUNK) -> float:
+    """Microseconds of host time per call of ``fn``: a host clock over
+    ``calls`` calls with no synchronise inside the clocked spans. The
+    calls run in spans of ``chunk``, synchronised between spans outside
+    the clock, so that a kernel slower than its enqueue never fills the
+    launch queue and makes the host wait for the device."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // chunk):
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / (calls // chunk * chunk) * 1e6
+
+
+def timings(kernel, plain=None, library=None, plain_calls: int = PER_CALL,
+            plain_reps: int = K1_REPS) -> dict:
+    """A kernel wrapper's times beside its plain version's and its library
+    call's: ``ms`` per call over PER_CALL back-to-back calls (the median
+    of PER_CALL_RUNS runs), ``ms_single`` the median of K1_REPS single
+    calls (the figure of earlier runs), the wrapper's ``host_us``;
+    ``plain_ms`` / ``library_ms`` likewise (None where there is none)."""
+    out = dict(ms=per_call_ms(kernel), ms_single=time_ms(kernel),
+               host_us=host_us(kernel), plain_ms=None, plain_ms_single=None,
+               library_ms=None, library_ms_single=None)
+    if plain is not None:
+        out.update(plain_ms=per_call_ms(plain, plain_calls),
+                   plain_ms_single=time_ms(plain, plain_reps))
+    if library is not None:
+        out.update(library_ms=per_call_ms(library),
+                   library_ms_single=time_ms(library))
+    return out
+
+
+def kernel_device_ms(fn, name: str | None = None,
+                     reps: int = K1_REPS) -> float:
+    """Mean device time (ms) per call of ``fn`` from torch.profiler's
+    CUPTI trace: of the CUDA kernels whose name contains ``name``, or of
+    all its device work with no name. The kernel alone, without the
+    host's per-call dispatch gaps that CUDA events around a call count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -154,7 +233,7 @@ def kernel_device_ms(fn, name: str, reps: int = K1_REPS) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if name in e.key)
+             if name is None or name in e.key)
     if us <= 0:
         raise AssertionError(f"profiler saw no device time for {name}")
     return us / reps / 1e3
@@ -272,9 +351,8 @@ def phase_k1(dev):
         errs[key] = float((a[hit] - b[hit]).abs().max())
     t_bits_equal = float((got["t"] == want["t"]).float().mean())
 
-    ms = time_ms(lambda: k1.intersect(o, d, t_max, scene.tri_pack))
-    plain_ms = time_ms(lambda: k1.intersect_plain(o, d, t_max,
-                                                  scene.tri_pack))
+    times = timings(lambda: k1.intersect(o, d, t_max, scene.tri_pack),
+                    lambda: k1.intersect_plain(o, d, t_max, scene.tri_pack))
     ms_any = time_ms(lambda: k1.intersect(o, d, t_max, scene.tri_pack,
                                           any_hit=True))
     plain_ms_any = time_ms(lambda: k1.intersect_plain(
@@ -285,9 +363,9 @@ def phase_k1(dev):
                **bound(49.0 * n + 48.0 * f, PAIR_OPS * float(n) * f),
                anyhit_lanes=int(want_any.sum()), max_abs_err_t=errs["t"],
                max_abs_err_b=errs["b"], t_bit_equal_frac=t_bits_equal,
-               ms=ms, plain_ms=plain_ms, ms_anyhit=ms_any,
-               plain_ms_anyhit=plain_ms_any, reps=K1_REPS,
-               mrays_per_s=n / ms / 1e3)
+               **times, ms_anyhit=ms_any, plain_ms_anyhit=plain_ms_any,
+               reps=K1_REPS, per_call=PER_CALL,
+               mrays_per_s=n / times["ms"] / 1e3)
     emit(out)
     return out
 
@@ -486,9 +564,9 @@ def phase_k2(dev):
         raise AssertionError("K2 and K1 pick different triangles at "
                              "different t")
 
-    ms = time_ms(lambda: kernel(t_inf))
+    times = timings(lambda: kernel(t_inf), lambda: plain(t_inf),
+                    plain_calls=PLAIN_K2_REPS, plain_reps=PLAIN_K2_REPS)
     ms_any = time_ms(lambda: kernel(t_any, True))
-    plain_ms = time_ms(lambda: plain(t_inf), reps=PLAIN_K2_REPS)
     plain_ms_any = time_ms(lambda: plain(t_any, True), reps=PLAIN_K2_REPS)
     n = o.shape[0]
     # rays in and out (49 B a ray) and the table; the closest-hit query's
@@ -506,9 +584,9 @@ def phase_k2(dev):
                k1_tri_ties=int(tri_differ.sum()),
                k1_max_rel_err_t=float(((got["t"][hit] - brute["t"][hit]).abs()
                                        / brute["t"][hit]).max()),
-               ms=ms, plain_ms=plain_ms, ms_anyhit=ms_any,
-               plain_ms_anyhit=plain_ms_any, reps=K1_REPS,
-               plain_reps=PLAIN_K2_REPS, mrays_per_s=o.shape[0] / ms / 1e3)
+               **times, ms_anyhit=ms_any, plain_ms_anyhit=plain_ms_any,
+               reps=K1_REPS, per_call=PER_CALL, plain_reps=PLAIN_K2_REPS,
+               mrays_per_s=o.shape[0] / times["ms"] / 1e3)
     emit(out)
     return out
 
@@ -616,6 +694,29 @@ def phase_box_main(dev, smi: str):
     return out
 
 
+def probe_library(x) -> dict:
+    """One PyTorch call computing each of P1-P5's functions on the probe's
+    own int32 indices (P5 has none)."""
+    def rows():
+        return x["table"][x["idx"]]
+    return dict(P1=rows, P2=rows, P3=lambda: x["table_t"][:, x["idx"]],
+                P4=rows, P5=None)
+
+
+def probe2_library(x) -> dict:
+    """As ``probe_library`` for P6-P9 (P8 has none). P9's is ``tbl[idx]``
+    (its function on finite tables); "P9 matmul" is the one-hot product
+    ``torch.matmul`` on the one-hot operand, made here."""
+    import torch
+    import torch.nn.functional as F
+    tbl, idx = x["tbl_j"], x["idx_j"]
+    onehot = F.one_hot(idx.long().reshape(-1), tbl.shape[1]).float()
+    return {"P6": lambda: torch.gather(x["data_g"], 0, x["idx_g"]),
+            "P7": lambda: torch.gather(x["data_h"], 1, x["idx_h"]),
+            "P8": None, "P9": lambda: tbl[idx],
+            "P9 matmul": lambda: torch.matmul(onehot, tbl)}
+
+
 def phase_probes(dev):
     import torch
 
@@ -636,25 +737,26 @@ def phase_probes(dev):
     gather = bound(4.0 * pg.N + 4.0 * pg.W * (rows + pg.N), 0.0)
     bounds = dict(P1=gather, P2=gather, P3=gather, P4=gather,
                   P5=bound(12.0 * pg.N, 0.0))
+    library = probe_library(x)
     probes = {}
     for pid, fn in pg.PROBES.items():
         want = pg.PLAIN[pid](x)
         if not torch.equal(outs[pid], want):
             raise AssertionError(f"{pid} differs from its plain version")
-        plain_ms = time_ms(lambda: pg.PLAIN[pid](x))
-        probes[pid] = dict(
-            ms=time_ms(lambda: fn(x)), plain_ms=plain_ms,
-            # P1-P4's plain version is the library's indexed load itself
-            library_ms=None if pid == "P5" else plain_ms, **bounds[pid])
+        if library[pid] is not None and not torch.equal(library[pid](),
+                                                        want):
+            raise AssertionError(f"{pid}'s library call differs")
+        probes[pid] = dict(**timings(lambda: fn(x), lambda: pg.PLAIN[pid](x),
+                                     library[pid]), **bounds[pid])
     out = dict(phase="probes", M=pg.M, W=pg.W, N=pg.N, D=pg.D,
-               launches=launches, reps=K1_REPS, probes=probes)
+               launches=launches, reps=K1_REPS, per_call=PER_CALL,
+               probes=probes)
     emit(out)
     return out
 
 
 def phase_probes2(dev):
     import torch
-    import torch.nn.functional as F
 
     from pathtracer_tpu_torch.probes import gather2 as pg
 
@@ -668,8 +770,9 @@ def phase_probes2(dev):
         raise AssertionError(f"probe2 launches {launches}")
 
     # bytes each must move: indices, the distinct table words they read,
-    # output. P9's output is exactly tbl[idx] (checked below), so it
-    # needs no arithmetic: the table, the indices and the 4 MiB output
+    # output. P9's output is tbl[idx] on these finite inputs (checked
+    # below), so it needs no arithmetic: the table, the indices and the
+    # 4 MiB output
     n_idx = float(pg.S * pg.L)
     lane = torch.arange(pg.L, device=dev)
     idx_i = x["idx_i"].long()
@@ -684,30 +787,44 @@ def phase_probes2(dev):
               for pid, w in words.items()}
     bounds["P9"] = bound(4.0 * (pg.L * pg.L + n_idx + n_idx * pg.L), 0.0)
 
-    tbl, idx_j = x["tbl_j"], x["idx_j"]
-    onehot = F.one_hot(idx_j.long().reshape(-1), pg.L).float()
     p9_out = torch.empty((pg.S, pg.L, pg.L), device=dev)
     kernels = dict(pg.PROBES, P9=lambda x: pg.onehot_matmul(
-        tbl, idx_j, out=p9_out))  # one output buffer, reused
+        x["tbl_j"], x["idx_j"], out=p9_out))  # one output buffer, reused
+    library = probe2_library(x)
     probes = {}
     for pid, fn in kernels.items():
         want = pg.PLAIN[pid](x)
         if not torch.equal(outs[pid], want):
             raise AssertionError(f"{pid} differs from its plain version")
-        plain_ms = time_ms(lambda: pg.PLAIN[pid](x))
-        probes[pid] = dict(ms=time_ms(lambda: fn(x)), plain_ms=plain_ms,
+        if library[pid] is not None and not torch.equal(library[pid](),
+                                                        want):
+            raise AssertionError(f"{pid}'s library call differs")
+        probes[pid] = dict(**timings(lambda: fn(x), lambda: pg.PLAIN[pid](x),
+                                     library[pid]),
                            max_abs_err=0.0, **bounds[pid])
-    # library calls: P6 / P7's plain gather is one; P8 has none
-    probes["P6"]["library_ms"] = probes["P6"]["plain_ms"]
-    probes["P7"]["library_ms"] = probes["P7"]["plain_ms"]
-    probes["P8"]["library_ms"] = None
-    if not torch.equal(tbl[idx_j].reshape(-1, pg.L),
-                       torch.matmul(onehot, tbl)):
-        raise AssertionError("P9's library calls disagree")
-    probes["P9"]["library_ms"] = time_ms(lambda: tbl[idx_j])
-    probes["P9"]["matmul_ms"] = time_ms(lambda: torch.matmul(onehot, tbl))
+    matmul = library["P9 matmul"]
+    if not torch.equal(matmul().reshape(outs["P9"].shape), outs["P9"]):
+        raise AssertionError("P9 differs from torch.matmul")
+    probes["P9"].update(matmul_ms=per_call_ms(matmul),
+                        matmul_ms_single=time_ms(matmul))
+
+    # P9 on a table of -0, +inf, -inf, NaN and an all-negative column, at
+    # the probe's and at ragged row counts: equal values, NaN where the
+    # plain version has NaN, equal sign bits off NaN
+    special = {}
+    for s in (pg.S, 1, 3, 65):
+        sv = pg.special_inputs(s, dev)
+        got = pg.onehot_matmul(sv["tbl"], sv["idx"])
+        want = pg.onehot_matmul_plain(sv["tbl"], sv["idx"])
+        torch.cuda.synchronize()
+        if not pg.equal_off_nan(got, want):
+            raise AssertionError(f"P9 differs from its plain version on "
+                                 f"the special-values table, S = {s}")
+        special[s] = dict(nan=int(want.isnan().sum()),
+                          inf=int(want.isinf().sum()))
     out = dict(phase="probes2", C=pg.C, S=pg.S, L=pg.L, launches=launches,
-               reps=K1_REPS, probes=probes)
+               reps=K1_REPS, per_call=PER_CALL, probes=probes,
+               p9_special=special)
     emit(out)
     return out
 
@@ -912,11 +1029,15 @@ def phase_materials_main(dev, smi: str):
 
 
 def phase_profile(dev):
-    """K1's and K2's own device times at the shapes of phases 3 and 6.
-    It runs last: an active CUPTI trace slows every later launch of the
-    host-bound render."""
+    """Device times from a torch.profiler trace: K1's and K2's at the
+    shapes of phases 3 and 6, P1-P9's and their library calls' at the
+    probes' shapes (all the device work of a call). It runs last: an
+    active CUPTI trace slows every later launch of the host-bound
+    render."""
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.probes import gather as pg
+    from pathtracer_tpu_torch.probes import gather2 as pg2
 
     scene, o, d, t_max = k1_inputs(dev)
     k1_ms = kernel_device_ms(
@@ -929,9 +1050,20 @@ def phase_profile(dev):
     k2_any_ms = kernel_device_ms(
         lambda: k2.bvhw_intersect(scene.bw_rows, o, d, t_any, any_hit=True,
                                   stackw=scene.bw_depth), "bvhw_kernel")
+    x, x2 = pg.probe_inputs(dev), pg2.probe_inputs(dev)
+    probe_ms, library_ms = {}, {}
+    for probes, inputs, library in ((pg.PROBES, x, probe_library(x)),
+                                    (pg2.PROBES, x2, probe2_library(x2))):
+        for pid, fn in probes.items():
+            probe_ms[pid] = kernel_device_ms(lambda: fn(inputs))
+        for pid, fn in library.items():
+            if fn is not None:
+                library_ms[pid] = kernel_device_ms(fn)
     out = dict(phase="profile", k1_kernel_device_ms=k1_ms,
                k2_kernel_device_ms=k2_ms,
-               k2_anyhit_kernel_device_ms=k2_any_ms, reps=K1_REPS)
+               k2_anyhit_kernel_device_ms=k2_any_ms,
+               probe_kernel_device_ms=probe_ms,
+               library_device_ms=library_ms, reps=K1_REPS)
     emit(out)
     return out
 
@@ -1005,9 +1137,20 @@ def main() -> int:
     mat_out = phase_materials_main(dev, smi)
     prof_out = phase_profile(dev)
 
-    def keys(d):
-        return {k: d[k] for k in ("bound_ms", "bound_by")}
+    def times(d, device_ms, library_device_ms=None):
+        """The kernels line's times of one kernel from its phase's
+        figures ``d`` and the profile's device times."""
+        return dict(ms=d["ms"], ms_single=d["ms_single"],
+                    kernel_device_ms=device_ms, host_us=d["host_us"],
+                    plain_ms=d["plain_ms"],
+                    plain_ms_single=d["plain_ms_single"],
+                    library_ms=d["library_ms"],
+                    library_ms_single=d["library_ms_single"],
+                    library_device_ms=library_device_ms,
+                    bound_ms=d["bound_ms"], bound_by=d["bound_by"])
 
+    probe_ms = prof_out["probe_kernel_device_ms"]
+    library_ms = prof_out["library_device_ms"]
     probe_src = "pathtracer_tpu_torch/csrc/gather_probe.cu"
     probe_tool = "tools/probe_pallas_gather.py"
     kernels = [
@@ -1017,9 +1160,7 @@ def main() -> int:
              launches=main_out["launches"],
              max_abs_err=max(k1_out["max_abs_err_t"],
                              k1_out["max_abs_err_b"]),
-             ms=k1_out["ms"], plain_ms=k1_out["plain_ms"],
-             kernel_device_ms=prof_out["k1_kernel_device_ms"],
-             library_ms=None, **keys(k1_out)),
+             **times(k1_out, prof_out["k1_kernel_device_ms"])),
         dict(name="bvhw", route="cuda",
              source="pathtracer_tpu_torch/csrc/bvhw.cu",
              replaces="pathtracer_tpu/accel/bvhw.py:596",
@@ -1028,9 +1169,7 @@ def main() -> int:
                              k2_out["max_abs_err_b"]),
              launches_by_path=dict(box_main=box_out["launches"],
                                    materials_main=mat_out["launches"]),
-             ms=k2_out["ms"], plain_ms=k2_out["plain_ms"],
-             kernel_device_ms=prof_out["k2_kernel_device_ms"],
-             library_ms=None, **keys(k2_out))]
+             **times(k2_out, prof_out["k2_kernel_device_ms"]))]
     for pid, kernel, line in (("P1", "gather_rows", 65),
                               ("P2", "gather_rows", 78),
                               ("P3", "gather_cols", 92),
@@ -1040,23 +1179,23 @@ def main() -> int:
             name=f"{kernel} ({pid})", route="cuda", source=probe_src,
             replaces=f"{probe_tool}:{line}",
             launches=probe_out["launches"][kernel], max_abs_err=0.0,
-            ms=probe_out["probes"][pid]["ms"],
-            plain_ms=probe_out["probes"][pid]["plain_ms"],
-            library_ms=probe_out["probes"][pid]["library_ms"],
-            **keys(probe_out["probes"][pid])))
+            **times(probe_out["probes"][pid], probe_ms[pid],
+                    library_ms.get(pid))))
     probe2_tool = "tools/probe_pallas_gather2.py"
     for pid, kernel, line in (("P6", "gather_sublane", 62),
                               ("P7", "gather_lane", 81),
                               ("P8", "gather_two_step", 102),
                               ("P9", "onehot_matmul", 145)):
-        p = probe2_out["probes"][pid]
         kernels.append(dict(
             name=f"{kernel} ({pid})", route="cuda",
             source="pathtracer_tpu_torch/csrc/gather_probe2.cu",
             replaces=f"{probe2_tool}:{line}",
             launches=probe2_out["launches"][kernel], max_abs_err=0.0,
-            ms=p["ms"], plain_ms=p["plain_ms"], library_ms=p["library_ms"],
-            **keys(p)))
+            **times(probe2_out["probes"][pid], probe_ms[pid],
+                    library_ms.get(pid))))
+    p9 = probe2_out["probes"]["P9"]
+    kernels[-1].update(matmul_ms=p9["matmul_ms"],
+                       matmul_device_ms=library_ms["P9 matmul"])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

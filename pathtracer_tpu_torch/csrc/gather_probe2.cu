@@ -5,8 +5,8 @@
 // (P6, :62), k_lane (P7, :81), k_two (P8, :102) and k_mxu (P9, :145). Each
 // computes what its plain PyTorch version in
 // pathtracer_tpu_torch/probes/gather2.py computes, bit for bit (they move
-// words, and P9 adds exact zeros). Rows are kLanes = 128 wide, the TPU's
-// lane width, as in the tool.
+// words; P9's closed form is the FP32 product's value). Rows are kLanes =
+// 128 wide, the TPU's lane width, as in the tool.
 //
 //   gather_sublane (P6) out[s, l] = data[idx[s, l], l]: one thread per
 //                  output. The (548, 128) table is 280,576 bytes, more
@@ -25,20 +25,42 @@
 //                  memory, so the three gathers are one kernel. (This is
 //                  not flat[idx]: the tool's decomposition is only right
 //                  where a row's lanes share their chunk.)
-//   onehot_matmul  (P9) out = onehot(idx) @ tbl, (rows, 128) x (128, 128):
-//                  the product is computed here, in FP32 multiplies and
-//                  adds (kept apart by -fmad=false) over k in ascending
-//                  order, with the 64 KB table in shared memory and the
-//                  one-hot built in registers. No tensor cores, no cuBLAS.
-//                  Exact: every output sums one product 1 * x and 127
-//                  products 0 * x.
+//   onehot_matmul  (P9) out = onehot(idx) @ tbl, (rows, 128) x (128, 128),
+//                  computed without arithmetic. The FP32 product sums, per
+//                  output, one product 1 * tbl[idx[r], j] and 127 products
+//                  0 * tbl[k, j]: each of those is a signed zero, or NaN
+//                  where tbl[k, j] is inf or NaN. So, bit for bit off NaN
+//                  (the ascending-k sum from +0, cuBLAS's FP32 GEMM and
+//                  the TPU body's f32 jnp.dot all give it):
+//                    out[r, j] = NaN  if column j holds a non-finite entry
+//                                     in a row other than idx[r],
+//                              = tbl[idx[r], j] + 0.0f otherwise
+//                  (+ 0.0f turns -0 into +0 and keeps an inf or NaN of the
+//                  selected row). No tensor cores, no cuBLAS.
 //
 // What bounds them on an H100: P6-P8 move under 0.35 MB, far below the
-// launch overhead of a few microseconds. P9 writes 4 MiB (1.25 us at
-// 3.35 TB/s) and performs 2 * 8,192 * 128 * 128 = 268 MFLOP (4.0 us at
-// the 67 TFLOP/s FP32 rate): the FP32 arithmetic sets its bound. Each
-// thread keeps a column of 16 rows in registers per pass over the table,
-// so a shared-memory read feeds 16 multiply-adds.
+// launch overhead of a few microseconds. P9 is a row copy: it reads the 64
+// KB table and 32 KB of indices and writes 4 MiB (4,292,608 bytes, 1.28 us
+// at 3.35 TB/s), so bytes bound it. Its design: each block owns 256 output
+// rows and one group of 32 columns (a 16 KB slice of the table) with 1,024
+// threads. It stages that slice in shared memory with one 16-byte load a
+// thread, counts each column's non-finite entries there (a shared atomic
+// only for a non-finite entry), replaces every staged entry by the product's
+// value for its row, then writes its rows' 128-byte segments with one
+// 16-byte store a thread and row (eight threads a segment, so a warp writes
+// four whole cache lines). The slice holds every row the block copies and
+// every entry its column flags need, so the table is read 16 KB a block (2
+// MB of L2 reads at the probe's 8,192 rows, half the output), not 64 KB a
+// block: a block that staged the whole table to count its columns would read
+// 8.4 MB. Plain 16-byte loads stage it: a bulk (TMA) copy would save
+// registers, not time, and the counting reads the values anyway. 8,192 rows
+// make 32 x 4 = 128 blocks, one wave on the 132 SMs; the slice is static
+// shared memory under 48 KB, so the launch needs no opt-in on any device.
+// The loads of the slice and the indices must arrive before the first store,
+// so a block's start is latency that no store hides; 1,024 threads a block
+// measured faster on an H100 than 512 or 256, than 16- or 64-column groups,
+// and than reading each output row from the table in L2 instead of from the
+// staged slice.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,9 +69,12 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kThreads = 256;
-constexpr int kMxuRowsPerBlock = 64;
-constexpr int kMxuRowsPerPass = 16;
-constexpr int kMxuSmemBytes = kLanes * kLanes * 4 + kMxuRowsPerBlock * 4;
+constexpr int kP9Cols = 32;                     // columns a block owns
+constexpr int kP9Vec = kP9Cols / 4;             // float4s a row segment
+constexpr int kP9Rows = 256;                    // rows a block owns
+constexpr int kP9Threads = 1024;
+constexpr int kP9SliceIters = kLanes * kP9Vec / kP9Threads;   // 1
+constexpr int kP9RowIters = kP9Rows * kP9Vec / kP9Threads;    // 2
 
 __global__ void gather_sublane_kernel(const float* __restrict__ data,
                                       const int32_t* __restrict__ idx,
@@ -94,46 +119,67 @@ __global__ void gather_two_step_kernel(const float* __restrict__ flat2,
   out[base + l] = t2[lp];
 }
 
-__global__ void onehot_matmul_kernel(const float* __restrict__ tbl,
-                                     const int32_t* __restrict__ idx,
-                                     int n_rows, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* table = smem;                                 // (128, 128)
-  int32_t* rows = (int32_t*)(smem + kLanes * kLanes);  // this block's idx
-  const int col = threadIdx.x;
-  const int row0 = blockIdx.x * kMxuRowsPerBlock;
-  for (int k = col; k < kLanes * kLanes; k += kLanes) table[k] = tbl[k];
-  for (int r = col; r < kMxuRowsPerBlock; r += kLanes) {
-    const int g = row0 + r;
-    int v = 0;
-    if (g < n_rows) {
-      v = idx[g];
-      if ((unsigned)v >= (unsigned)kLanes) __trap();
-    }
-    rows[r] = v;
+// inf or NaN: every exponent bit set
+__device__ __forceinline__ int nonfinite(float x) {
+  return (__float_as_uint(x) & 0x7f800000u) == 0x7f800000u;
+}
+
+__global__ void __launch_bounds__(kP9Threads)
+onehot_matmul_kernel(const float* __restrict__ tbl,
+                     const int32_t* __restrict__ idx, int n_rows,
+                     float* __restrict__ out) {
+  __shared__ float4 slice[kLanes * kP9Vec];  // (128 rows, 32 columns)
+  __shared__ int bad[kP9Cols];  // non-finite entries of each column
+  const int t = threadIdx.x;
+  const int col0 = blockIdx.y * kP9Cols;
+  const int row0 = blockIdx.x * kP9Rows;
+  // issue every global load at once: this thread's indices, its slice
+  int k[kP9RowIters];
+#pragma unroll
+  for (int i = 0; i < kP9RowIters; ++i) {
+    const int r = row0 + (t + i * kP9Threads) / kP9Vec;
+    k[i] = r < n_rows ? __ldg(idx + r) : 0;
+  }
+  float4 v[kP9SliceIters];
+#pragma unroll
+  for (int i = 0; i < kP9SliceIters; ++i) {
+    const int e = t + i * kP9Threads;
+    v[i] = __ldg(reinterpret_cast<const float4*>(
+                     tbl + (e / kP9Vec) * kLanes + col0) + e % kP9Vec);
+  }
+  if (t < kP9Cols) bad[t] = 0;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kP9SliceIters; ++i) {
+    const int c = (t + i * kP9Threads) % kP9Vec * 4;
+    if (nonfinite(v[i].x)) atomicAdd(&bad[c + 0], 1);
+    if (nonfinite(v[i].y)) atomicAdd(&bad[c + 1], 1);
+    if (nonfinite(v[i].z)) atomicAdd(&bad[c + 2], 1);
+    if (nonfinite(v[i].w)) atomicAdd(&bad[c + 3], 1);
   }
   __syncthreads();
-  for (int r0 = 0; r0 < kMxuRowsPerBlock; r0 += kMxuRowsPerPass) {
-    float acc[kMxuRowsPerPass];
-    int hot[kMxuRowsPerPass];
+  // each staged entry becomes the product's value for a row selecting it
+  const float nan = __int_as_float(0x7fc00000);
 #pragma unroll
-    for (int r = 0; r < kMxuRowsPerPass; ++r) {
-      acc[r] = 0.f;
-      hot[r] = rows[r0 + r];
-    }
-    for (int k = 0; k < kLanes; ++k) {
-      const float t = table[k * kLanes + col];
+  for (int i = 0; i < kP9SliceIters; ++i) {
+    const int e = t + i * kP9Threads;
+    const int c = e % kP9Vec * 4;
+    float4 p = v[i];
+    p.x = bad[c + 0] > nonfinite(p.x) ? nan : __fadd_rn(p.x, 0.0f);
+    p.y = bad[c + 1] > nonfinite(p.y) ? nan : __fadd_rn(p.y, 0.0f);
+    p.z = bad[c + 2] > nonfinite(p.z) ? nan : __fadd_rn(p.z, 0.0f);
+    p.w = bad[c + 3] > nonfinite(p.w) ? nan : __fadd_rn(p.w, 0.0f);
+    slice[e] = p;
+  }
+  __syncthreads();
 #pragma unroll
-      for (int r = 0; r < kMxuRowsPerPass; ++r) {
-        const float onehot = hot[r] == k ? 1.f : 0.f;
-        acc[r] = acc[r] + onehot * t;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kMxuRowsPerPass; ++r) {
-      const int g = row0 + r0 + r;
-      if (g < n_rows) out[(long)g * kLanes + col] = acc[r];
-    }
+  for (int i = 0; i < kP9RowIters; ++i) {
+    const int e = t + i * kP9Threads;
+    const int r = row0 + e / kP9Vec;
+    if (r >= n_rows) break;
+    if ((unsigned)k[i] >= (unsigned)kLanes) __trap();
+    reinterpret_cast<float4*>(out + (long)r * kLanes + col0)[e % kP9Vec] =
+        slice[k[i] * kP9Vec + e % kP9Vec];
   }
 }
 
@@ -176,17 +222,9 @@ extern "C" int pt_gather_two_step_launch(const float* flat2,
 
 extern "C" int pt_onehot_matmul_launch(const float* tbl, const int32_t* idx,
                                        int n_rows, float* out, void* stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        onehot_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMxuSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
   if (n_rows == 0) return 0;
-  const int blocks = (n_rows + kMxuRowsPerBlock - 1) / kMxuRowsPerBlock;
-  onehot_matmul_kernel<<<blocks, kLanes, kMxuSmemBytes,
-                         (cudaStream_t)stream>>>(tbl, idx, n_rows, out);
+  const dim3 grid((n_rows + kP9Rows - 1) / kP9Rows, kLanes / kP9Cols);
+  onehot_matmul_kernel<<<grid, kP9Threads, 0, (cudaStream_t)stream>>>(
+      tbl, idx, n_rows, out);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,18 @@
-"""Build-and-load helper shared by the port's native sources.
+"""Build, load and launch helpers shared by the port's native sources.
 
 Each source is compiled at first use into a shared library with a plain C
 interface under the gitignored ``pathtracer_tpu_torch/build/``, named by a
 hash of the source and the flags, and loaded with ctypes. A library that
 is already there is reused; concurrent builds agree, as each writes a
 temporary file and renames it into place.
+
+Every kernel wrapper goes through ``check`` (its tensors, in one pass) and
+``launch`` (the C launcher on PyTorch's current stream). The launch path is
+the host's cost of every call, so it does the least it can: each C
+function is resolved once, at load; the stream's raw handle comes from
+``torch._C._cuda_getCurrentRawStream`` (what ``torch.compile``'s generated
+code calls), not from a ``torch.cuda.Stream`` built per call; a device
+guard is entered only for a tensor that is not on the current device.
 """
 
 from __future__ import annotations
@@ -15,6 +23,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -78,24 +88,53 @@ def build_cuda(name: str, verbose: bool = False) -> str:
                          verbose=verbose)
 
 
-def load_cuda(name: str, signatures: dict) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>``, declaring each C
-    function's argument types; every function returns an int error code
-    (0 = cudaSuccess)."""
+def load_cuda(name: str, signatures: dict) -> dict:
+    """Build (if needed) and load ``csrc/<name>``, and resolve each C
+    launcher of ``signatures`` ({name: argument types, the stream last})
+    once. Every launcher returns an int error code (0 = cudaSuccess).
+    Returns {name: ctypes function}."""
     lib = ctypes.CDLL(build_cuda(name))
+    fns = {}
     for fn_name, argtypes in signatures.items():
         fn = getattr(lib, fn_name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    return lib
+        fns[fn_name] = fn
+    return fns
 
 
-def stream_of(device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``."""
-    import torch
-    return torch.cuda.current_stream(device).cuda_stream
+def check(what: str, tensors: dict, dtypes) -> torch.device:
+    """One pass over ``tensors`` ({name: tensor}, the first one's device
+    the reference): each must be a torch.Tensor of its dtype (``dtypes``:
+    one dtype, or {name: dtype}) on that device, and contiguous on a CUDA
+    device; the device must be cpu or cuda. Returns the device."""
+    dev = None
+    for name, x in tensors.items():
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        want = dtypes if isinstance(dtypes, torch.dtype) else dtypes[name]
+        if x.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {x.dtype}")
+        # is_cuda / is_cpu: torch.device.type costs several times more
+        if dev is None:
+            dev, cuda = x.device, x.is_cuda
+            if not (cuda or x.is_cpu):
+                raise ValueError(f"{what} runs on cpu or cuda, not {dev}")
+        elif x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+        if cuda and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return dev
 
 
-def check_launch(err: int, what: str) -> None:
+def launch(fn, what: str, dev: torch.device, *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` on PyTorch's current
+    stream of CUDA device ``dev``; raise if the launch reports an error."""
+    index = dev.index
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

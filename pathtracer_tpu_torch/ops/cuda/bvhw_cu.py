@@ -24,7 +24,7 @@ SOURCE = "bvhw.cu"
 # kernel launches made by ``bvhw_intersect`` (CPU calls never count)
 LAUNCHES = 0
 
-_lib = None
+_fns = None
 
 
 def build(verbose: bool = False) -> str:
@@ -32,23 +32,18 @@ def build(verbose: bool = False) -> str:
     return _build.build_cuda(SOURCE, verbose=verbose)
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        _lib = _build.load_cuda(SOURCE, {"pt_bvhw_launch": (
+def _load() -> dict:
+    global _fns
+    if _fns is None:
+        _fns = _build.load_cuda(SOURCE, {"pt_bvhw_launch": (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
             + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)})
-    return _lib
+    return _fns
 
 
 def _check(table, o, d, t_max):
-    for name, x in dict(table=table, o=o, d=d, t_max=t_max).items():
-        if not isinstance(x, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if x.device != o.device:
-            raise ValueError(f"{name} is on {x.device}, o is on {o.device}")
+    dev = _build.check("bvhw_intersect", dict(table=table, o=o, d=d,
+                                              t_max=t_max), torch.float32)
     n = o.shape[0] if o.dim() == 2 else -1
     if o.dim() != 2 or o.shape[1] != 3 or tuple(d.shape) != (n, 3):
         raise ValueError(f"o, d must be (N, 3), got {tuple(o.shape)}, "
@@ -58,7 +53,7 @@ def _check(table, o, d, t_max):
     if table.dim() != 2 or table.shape[1] != WW or table.shape[0] < 2:
         raise ValueError(f"table must be (R >= 2, {WW}), got "
                          f"{tuple(table.shape)}")
-    return n
+    return dev, n
 
 
 def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
@@ -72,37 +67,25 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
     miss)) or, with any_hit, an (N,) bool tensor.
     """
     global LAUNCHES
-    n = _check(table, o, d, t_max)
+    dev, n = _check(table, o, d, t_max)
     if not 1 <= stackw <= STACKW:
         raise ValueError(f"stackw must be in [1, {STACKW}], got {stackw}")
-    if o.device.type == "cpu":
+    if not o.is_cuda:
         return plain.bvhw_intersect(table, o, d, t_max, any_hit, stackw)
-    if o.device.type != "cuda":
-        raise ValueError(f"bvhw_intersect runs on cpu or cuda, not "
-                         f"{o.device}")
-    for name, x in dict(table=table, o=o, d=d, t_max=t_max).items():
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    dev = o.device
-    valid = torch.empty((n,), dtype=torch.bool, device=dev)
+    valid = torch.empty(n, dtype=torch.bool, device=dev)
     t = tri = b = None
     if not any_hit:
-        t = torch.empty((n,), dtype=torch.float32, device=dev)
-        tri = torch.empty((n,), dtype=torch.int32, device=dev)
-        b = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        tri = torch.empty(n, dtype=torch.int32, device=dev)
+        b = torch.empty(n, 3, dtype=torch.float32, device=dev)
     if n > 0:
-        lib = _load()
-
-        def ptr(x):
-            return None if x is None else x.data_ptr()
-
-        with torch.cuda.device(dev):
-            err = lib.pt_bvhw_launch(
-                ptr(table), ptr(o), ptr(d), ptr(t_max), table.shape[0], n,
-                int(bool(any_hit)), int(stackw), G_SLAB, GAMMA2, GAMMA3,
-                GAMMA5, ptr(valid), ptr(t), ptr(tri), ptr(b),
-                _build.stream_of(dev))
-        _build.check_launch(err, "bvhw")
+        outs = [valid.data_ptr()] + ([None] * 3 if any_hit else [
+            t.data_ptr(), tri.data_ptr(), b.data_ptr()])
+        _build.launch(
+            _load()["pt_bvhw_launch"], "bvhw", dev, table.data_ptr(),
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), table.shape[0], n,
+            int(bool(any_hit)), int(stackw), G_SLAB, GAMMA2, GAMMA3, GAMMA5,
+            *outs)
         LAUNCHES += 1
     if any_hit:
         return valid

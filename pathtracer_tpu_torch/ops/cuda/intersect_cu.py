@@ -8,8 +8,8 @@ the plain PyTorch version built on ``ops/intersect.py``. There is no
 fallback between the two: a CUDA input that the kernel cannot take raises.
 
 The kernel is compiled with nvcc at first use (``ops/cuda/_build.py``:
-``build/``, keyed by a hash of the source and flags) and loaded with
-ctypes.
+``build/``, keyed by a hash of the source and flags), loaded with ctypes
+and launched through ``_build.launch``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ SOURCE = "intersect.cu"
 # kernel launches made by ``intersect`` (CPU calls never count)
 LAUNCHES = 0
 
-_lib = None
+_fns = None
 
 
 def build(verbose: bool = False) -> str:
@@ -35,13 +35,13 @@ def build(verbose: bool = False) -> str:
     return _build.build_cuda(SOURCE, verbose=verbose)
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        _lib = _build.load_cuda(SOURCE, {"pt_intersect_launch": (
+def _load() -> dict:
+    global _fns
+    if _fns is None:
+        _fns = _build.load_cuda(SOURCE, {"pt_intersect_launch": (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
             + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 5)})
-    return _lib
+    return _fns
 
 
 def intersect_plain(o, d, t_max, tri_pack, any_hit: bool = False):
@@ -57,14 +57,8 @@ def intersect_plain(o, d, t_max, tri_pack, any_hit: bool = False):
 
 
 def _check(o, d, t_max, tri_pack):
-    tensors = dict(o=o, d=d, t_max=t_max, tri_pack=tri_pack)
-    for name, x in tensors.items():
-        if not isinstance(x, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if x.device != o.device:
-            raise ValueError(f"{name} is on {x.device}, o is on {o.device}")
+    dev = _build.check("intersect", dict(o=o, d=d, t_max=t_max,
+                                         tri_pack=tri_pack), torch.float32)
     n = o.shape[0] if o.dim() == 2 else -1
     if o.dim() != 2 or o.shape[1] != 3 or tuple(d.shape) != (n, 3):
         raise ValueError(f"o, d must be (N, 3), got {tuple(o.shape)}, "
@@ -74,7 +68,7 @@ def _check(o, d, t_max, tri_pack):
     if tri_pack.dim() != 2 or tri_pack.shape[1] != 12:
         raise ValueError(f"tri_pack must be (F, 12), got "
                          f"{tuple(tri_pack.shape)}")
-    return n
+    return dev, n
 
 
 def intersect(o, d, t_max, tri_pack, any_hit: bool = False):
@@ -85,34 +79,23 @@ def intersect(o, d, t_max, tri_pack, any_hit: bool = False):
     b (N, 3)) or, with any_hit, an (N,) bool tensor.
     """
     global LAUNCHES
-    n = _check(o, d, t_max, tri_pack)
-    if o.device.type == "cpu":
+    dev, n = _check(o, d, t_max, tri_pack)
+    if not o.is_cuda:
         return intersect_plain(o, d, t_max, tri_pack, any_hit)
-    if o.device.type != "cuda":
-        raise ValueError(f"intersect runs on cpu or cuda, not {o.device}")
-    for name, x in dict(o=o, d=d, t_max=t_max, tri_pack=tri_pack).items():
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    dev = o.device
-    valid = torch.empty((n,), dtype=torch.bool, device=dev)
+    valid = torch.empty(n, dtype=torch.bool, device=dev)
     t = tri = b = None
     if not any_hit:
-        t = torch.empty((n,), dtype=torch.float32, device=dev)
-        tri = torch.empty((n,), dtype=torch.int32, device=dev)
-        b = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        tri = torch.empty(n, dtype=torch.int32, device=dev)
+        b = torch.empty(n, 3, dtype=torch.float32, device=dev)
     if n > 0:
-        lib = _load()
-
-        def ptr(x):
-            return None if x is None else x.data_ptr()
-
-        with torch.cuda.device(dev):
-            err = lib.pt_intersect_launch(
-                ptr(o), ptr(d), ptr(t_max), ptr(tri_pack), n,
-                tri_pack.shape[0], int(bool(any_hit)), GAMMA2, GAMMA3,
-                GAMMA5, ptr(valid), ptr(t),
-                ptr(tri), ptr(b), _build.stream_of(dev))
-        _build.check_launch(err, "intersect")
+        outs = [valid.data_ptr()] + ([None] * 3 if any_hit else [
+            t.data_ptr(), tri.data_ptr(), b.data_ptr()])
+        _build.launch(
+            _load()["pt_intersect_launch"], "intersect", dev, o.data_ptr(),
+            d.data_ptr(), t_max.data_ptr(), tri_pack.data_ptr(), n,
+            tri_pack.shape[0], int(bool(any_hit)), GAMMA2, GAMMA3, GAMMA5,
+            *outs)
         LAUNCHES += 1
     if any_hit:
         return valid

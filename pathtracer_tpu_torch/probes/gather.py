@@ -40,7 +40,7 @@ SOURCE = "gather_probe.cu"
 LAUNCHES = {"gather_rows": 0, "gather_cols": 0, "gather_rows_warp": 0,
             "stack_push_read": 0}
 
-_lib = None
+_fns = None
 
 
 def build(verbose: bool = False) -> str:
@@ -48,17 +48,17 @@ def build(verbose: bool = False) -> str:
     return _build.build_cuda(SOURCE, verbose=verbose)
 
 
-def _load():
-    global _lib
-    if _lib is None:
+def _load() -> dict:
+    global _fns
+    if _fns is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        _lib = _build.load_cuda(SOURCE, {
+        _fns = _build.load_cuda(SOURCE, {
             "pt_gather_rows_launch": (vp, vp, i, i, i, vp, vp),
             "pt_gather_cols_launch": (vp, vp, i, i, i, vp, vp),
             "pt_gather_rows_warp_launch": (vp, vp, i, i, i, vp, vp),
             "pt_stack_push_read_launch": (vp, vp, i, i, vp, vp),
         })
-    return _lib
+    return _fns
 
 
 # --- plain versions
@@ -81,85 +81,67 @@ def stack_push_read_plain(sp, v, depth: int = D):
 # --- wrappers
 
 
-def _check(tensors: dict, dtypes: dict, dev):
-    for name, x in tensors.items():
-        if not isinstance(x, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if x.dtype != dtypes[name]:
-            raise TypeError(f"{name} must be {dtypes[name]}, got {x.dtype}")
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, expected {dev}")
-    if dev.type == "cuda":
-        for name, x in tensors.items():
-            if not x.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-    elif dev.type != "cpu":
-        raise ValueError(f"the probes run on cpu or cuda, not {dev}")
-
-
-def _launch(kernel: str, fn_name: str, out, *args):
-    dev = out.device
-    with torch.cuda.device(dev):
-        err = getattr(_load(), fn_name)(*args, out.data_ptr(),
-                                        _build.stream_of(dev))
-    _build.check_launch(err, kernel)
+def _launch(kernel: str, dev, out, *args):
+    """Launch ``pt_<kernel>_launch(*args, out)`` on ``dev`` and count it."""
+    _build.launch(_load()[f"pt_{kernel}_launch"], kernel, dev, *args,
+                  out.data_ptr())
     LAUNCHES[kernel] += 1
     return out
 
 
-def _rows_args(table, idx):
-    _check(dict(table=table, idx=idx),
-           dict(table=torch.float32, idx=torch.int32), table.device)
+def _rows_args(what: str, table, idx):
+    dev = _build.check(what, dict(table=table, idx=idx),
+                       dict(table=torch.float32, idx=torch.int32))
     if table.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"table must be (M, W) and idx (N,), got "
                          f"{tuple(table.shape)}, {tuple(idx.shape)}")
-    return idx.shape[0], table.shape[0], table.shape[1]
+    return dev, idx.shape[0], table.shape[0], table.shape[1]
 
 
 def gather_rows(table, idx):
     """P1 / P2: (M, W) f32 table, (N,) i32 idx -> (N, W)."""
-    n, m, w = _rows_args(table, idx)
-    if table.device.type == "cpu":
+    dev, n, m, w = _rows_args("gather_rows", table, idx)
+    if not table.is_cuda:
         return gather_rows_plain(table, idx)
-    out = torch.empty((n, w), dtype=table.dtype, device=table.device)
-    return _launch("gather_rows", "pt_gather_rows_launch", out,
+    out = torch.empty(n, w, dtype=torch.float32, device=dev)
+    return _launch("gather_rows", dev, out,
                    table.data_ptr(), idx.data_ptr(), n, m, w)
 
 
 def gather_rows_warp(table, idx):
     """P4: as gather_rows, one warp per output row."""
-    n, m, w = _rows_args(table, idx)
-    if table.device.type == "cpu":
+    dev, n, m, w = _rows_args("gather_rows_warp", table, idx)
+    if not table.is_cuda:
         return gather_rows_plain(table, idx)
-    out = torch.empty((n, w), dtype=table.dtype, device=table.device)
-    return _launch("gather_rows_warp", "pt_gather_rows_warp_launch", out,
+    out = torch.empty(n, w, dtype=torch.float32, device=dev)
+    return _launch("gather_rows_warp", dev, out,
                    table.data_ptr(), idx.data_ptr(), n, m, w)
 
 
 def gather_cols(table_t, idx):
     """P3: (W, M) f32 column-major table, (N,) i32 idx -> (W, N)."""
-    n, w, m = _rows_args(table_t, idx)
-    if table_t.device.type == "cpu":
+    dev, n, w, m = _rows_args("gather_cols", table_t, idx)
+    if not table_t.is_cuda:
         return gather_cols_plain(table_t, idx)
-    out = torch.empty((w, n), dtype=table_t.dtype, device=table_t.device)
-    return _launch("gather_cols", "pt_gather_cols_launch", out,
+    out = torch.empty(w, n, dtype=torch.float32, device=dev)
+    return _launch("gather_cols", dev, out,
                    table_t.data_ptr(), idx.data_ptr(), n, m, w)
 
 
 def stack_push_read(sp, v, depth: int = D):
     """P5: (N,) i32 stack pointers in [0, depth), (N,) f32 values ->
     (N,) f32, each value read back from where it was pushed."""
-    _check(dict(sp=sp, v=v), dict(sp=torch.int32, v=torch.float32),
-           v.device)
+    dev = _build.check("stack_push_read", dict(sp=sp, v=v),
+                       dict(sp=torch.int32, v=torch.float32))
     if sp.dim() != 1 or tuple(v.shape) != tuple(sp.shape):
         raise ValueError(f"sp and v must be (N,), got {tuple(sp.shape)}, "
                          f"{tuple(v.shape)}")
     if not 1 <= depth <= D:
         raise ValueError(f"depth must be in [1, {D}], got {depth}")
-    if v.device.type == "cpu":
+    if not sp.is_cuda:
         return stack_push_read_plain(sp, v, depth)
-    out = torch.empty_like(v)
-    return _launch("stack_push_read", "pt_stack_push_read_launch", out,
+    out = torch.empty(v.shape[0], dtype=torch.float32, device=dev)
+    return _launch("stack_push_read", dev, out,
                    sp.data_ptr(), v.data_ptr(), v.shape[0], depth)
 
 

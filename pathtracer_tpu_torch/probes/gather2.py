@@ -12,7 +12,9 @@ table, and a (128, 128) table for the one-hot product.
       is not the tool's own reference ``flat[idx]`` (it agrees only where
       a row's lanes share their chunk); the port computes what the TPU
       kernel computes.
-  P9  onehot_matmul(tbl, idx)    onehot(idx) @ tbl, as (S, 128, 128)
+  P9  onehot_matmul(tbl, idx)    onehot(idx) @ tbl, as (S, 128, 128); the
+      kernel writes the FP32 product's closed form (a row copy, NaN in a
+      column with an inf or NaN elsewhere; csrc/gather_probe2.cu)
 
 Each wrapper launches its CUDA kernel (``csrc/gather_probe2.cu``) for
 CUDA tensors and runs its plain PyTorch version for CPU tensors; a CUDA
@@ -30,7 +32,6 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.cuda import _build
-from .gather import _check
 
 C, S, L = 548, 64, 128  # table rows (chunks), index rows, lane width
 
@@ -40,7 +41,7 @@ SOURCE = "gather_probe2.cu"
 LAUNCHES = {"gather_sublane": 0, "gather_lane": 0, "gather_two_step": 0,
             "onehot_matmul": 0}
 
-_lib = None
+_fns = None
 
 
 def build(verbose: bool = False) -> str:
@@ -48,17 +49,17 @@ def build(verbose: bool = False) -> str:
     return _build.build_cuda(SOURCE, verbose=verbose)
 
 
-def _load():
-    global _lib
-    if _lib is None:
+def _load() -> dict:
+    global _fns
+    if _fns is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        _lib = _build.load_cuda(SOURCE, {
+        _fns = _build.load_cuda(SOURCE, {
             "pt_gather_sublane_launch": (vp, vp, i, i, vp, vp),
             "pt_gather_lane_launch": (vp, vp, i, vp, vp),
             "pt_gather_two_step_launch": (vp, vp, i, i, vp, vp),
             "pt_onehot_matmul_launch": (vp, vp, i, vp, vp),
         })
-    return _lib
+    return _fns
 
 
 # --- plain versions
@@ -88,10 +89,11 @@ def onehot_matmul_plain(tbl, idx):
 # --- wrappers
 
 
-def _lane_args(table, idx, table_rows=None):
-    """Check a (rows, 128) f32 table and (S, 128) i32 indices."""
-    _check(dict(table=table, idx=idx),
-           dict(table=torch.float32, idx=torch.int32), table.device)
+def _lane_args(what: str, table, idx, table_rows=None):
+    """Check a (rows, 128) f32 table and (S, 128) i32 indices. Returns
+    their device and S."""
+    dev = _build.check(what, dict(table=table, idx=idx),
+                       dict(table=torch.float32, idx=torch.int32))
     if table.dim() != 2 or table.shape[1] != L or idx.dim() != 2 \
             or idx.shape[1] != L:
         raise ValueError(f"table must be (rows, {L}) and idx (S, {L}), got "
@@ -99,67 +101,67 @@ def _lane_args(table, idx, table_rows=None):
     if table_rows is not None and table.shape[0] != table_rows:
         raise ValueError(f"table must have {table_rows} rows, got "
                          f"{table.shape[0]}")
+    return dev, idx.shape[0]
 
 
-def _launch(kernel: str, fn_name: str, out, *args):
-    dev = out.device
-    with torch.cuda.device(dev):
-        err = getattr(_load(), fn_name)(*args, out.data_ptr(),
-                                        _build.stream_of(dev))
-    _build.check_launch(err, kernel)
+def _launch(kernel: str, dev, out, *args):
+    """Launch ``pt_<kernel>_launch(*args, out)`` on ``dev`` and count it."""
+    _build.launch(_load()[f"pt_{kernel}_launch"], kernel, dev, *args,
+                  out.data_ptr())
     LAUNCHES[kernel] += 1
     return out
 
 
 def gather_sublane(data, idx):
     """P6: (C, 128) f32 data, (S, 128) i32 idx in [0, C) -> (S, 128)."""
-    _lane_args(data, idx)
-    if data.device.type == "cpu":
+    dev, s = _lane_args("gather_sublane", data, idx)
+    if not data.is_cuda:
         return gather_sublane_plain(data, idx)
-    out = torch.empty(idx.shape, dtype=data.dtype, device=data.device)
-    return _launch("gather_sublane", "pt_gather_sublane_launch", out,
-                   data.data_ptr(), idx.data_ptr(), idx.shape[0],
-                   data.shape[0])
+    out = torch.empty(s, L, dtype=torch.float32, device=dev)
+    return _launch("gather_sublane", dev, out, data.data_ptr(),
+                   idx.data_ptr(), s, data.shape[0])
 
 
 def gather_lane(data, idx):
     """P7: (S, 128) f32 data, (S, 128) i32 idx in [0, 128) -> (S, 128)."""
-    _lane_args(data, idx, table_rows=idx.shape[0])
-    if data.device.type == "cpu":
+    dev, s = _lane_args("gather_lane", data, idx, table_rows=idx.shape[0])
+    if not data.is_cuda:
         return gather_lane_plain(data, idx)
-    out = torch.empty_like(data)
-    return _launch("gather_lane", "pt_gather_lane_launch", out,
-                   data.data_ptr(), idx.data_ptr(), idx.shape[0])
+    out = torch.empty(s, L, dtype=torch.float32, device=dev)
+    return _launch("gather_lane", dev, out, data.data_ptr(), idx.data_ptr(),
+                   s)
 
 
 def gather_two_step(flat2, idx):
     """P8: (C, 128) f32 flat2, (S, 128) i32 idx in [0, 128 C) -> (S, 128),
     the TPU kernel's composite (module docstring)."""
-    _lane_args(flat2, idx)
-    if flat2.device.type == "cpu":
+    dev, s = _lane_args("gather_two_step", flat2, idx)
+    if not flat2.is_cuda:
         return gather_two_step_plain(flat2, idx)
-    out = torch.empty(idx.shape, dtype=flat2.dtype, device=flat2.device)
-    return _launch("gather_two_step", "pt_gather_two_step_launch", out,
-                   flat2.data_ptr(), idx.data_ptr(), idx.shape[0],
-                   flat2.shape[0])
+    out = torch.empty(s, L, dtype=torch.float32, device=dev)
+    return _launch("gather_two_step", dev, out, flat2.data_ptr(),
+                   idx.data_ptr(), s, flat2.shape[0])
 
 
 def onehot_matmul(tbl, idx, out=None):
     """P9: (128, 128) f32 tbl, (S, 128) i32 idx in [0, 128) ->
     onehot(idx) @ tbl as (S, 128, 128). ``out``, where given, is the
-    CUDA output buffer to write (a timing loop reuses one)."""
-    _lane_args(tbl, idx, table_rows=L)
-    if tbl.device.type == "cpu":
+    CUDA output buffer to write (a timing loop reuses one). The kernel
+    reads and writes 16 bytes at a time, so a CUDA ``tbl`` and ``out``
+    must be 16-byte aligned."""
+    dev, s = _lane_args("onehot_matmul", tbl, idx, table_rows=L)
+    if not tbl.is_cuda:
         return onehot_matmul_plain(tbl, idx)
-    shape = (idx.shape[0], L, L)
     if out is None:
-        out = torch.empty(shape, dtype=tbl.dtype, device=tbl.device)
-    elif tuple(out.shape) != shape or out.dtype != tbl.dtype or \
-            out.device != tbl.device or not out.is_contiguous():
-        raise ValueError(f"out must be a contiguous {shape} float32 tensor "
-                         f"on {tbl.device}")
-    return _launch("onehot_matmul", "pt_onehot_matmul_launch", out,
-                   tbl.data_ptr(), idx.data_ptr(), idx.shape[0] * L)
+        out = torch.empty(s, L, L, dtype=torch.float32, device=dev)
+    elif out.shape != (s, L, L) or out.dtype != torch.float32 or \
+            out.device != dev or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {(s, L, L)} float32 "
+                         f"tensor on {dev}")
+    tbl_ptr = tbl.data_ptr()
+    if tbl_ptr % 16 or out.data_ptr() % 16:
+        raise ValueError("tbl and out must be 16-byte aligned")
+    return _launch("onehot_matmul", dev, out, tbl_ptr, idx.data_ptr(), s * L)
 
 
 # --- the probe
@@ -181,6 +183,39 @@ def probe_inputs(device="cuda") -> dict:
         idx_j=rng.integers(0, L, (S, L)).astype(np.int32))
     arrays["flat2"] = arrays["flat"].reshape(C, L)
     return {k: torch.as_tensor(a, device=device) for k, a in arrays.items()}
+
+
+def special_inputs(rows: int = S, device="cuda") -> dict:
+    """A P9 table of special values and (rows, 128) indices, from
+    ``default_rng(1)``: column 3 all negative; column 4 all negative but
+    -0 at row 9; -0 at row 7, column 5; +inf only at row 11, column 20;
+    -inf only at row 13, column 30; NaN only at row 17, column 40; +inf
+    at row 19 and NaN at row 23 in column 50; +0 at row 25, column 61;
+    row 27 -0 from column 64 on. The first lanes of the indices name
+    those rows, the rest are random. Returns dict(tbl, idx)."""
+    rng = np.random.default_rng(1)
+    tbl = rng.normal(size=(L, L)).astype(np.float32)
+    tbl[:, 3] = -np.abs(tbl[:, 3]) - 0.5
+    tbl[:, 4] = -np.abs(tbl[:, 4]) - 0.5
+    tbl[9, 4] = tbl[7, 5] = -0.0
+    tbl[11, 20], tbl[13, 30], tbl[17, 40] = np.inf, -np.inf, np.nan
+    tbl[19, 50], tbl[23, 50] = np.inf, np.nan
+    tbl[25, 61] = 0.0
+    tbl[27, 64:] = -0.0
+    idx = rng.integers(0, L, (rows, L)).astype(np.int32)
+    idx[0, :9] = (7, 9, 11, 13, 17, 19, 23, 25, 27)  # the special rows
+    return dict(tbl=torch.as_tensor(tbl, device=device),
+                idx=torch.as_tensor(idx, device=device))
+
+
+def equal_off_nan(a, b) -> bool:
+    """NaN in the same places, and equal values with equal sign bits
+    elsewhere (so -0 differs from +0)."""
+    nan = a.isnan()
+    if a.shape != b.shape or not torch.equal(nan, b.isnan()):
+        return False
+    a, b = a[~nan], b[~nan]
+    return torch.equal(a, b) and torch.equal(a.signbit(), b.signbit())
 
 
 PROBES = {

@@ -199,3 +199,60 @@ def test_gather_probe2_other_shapes_and_rejects(dev):
     with pytest.raises(ValueError, match="on"):
         pg2.gather_sublane(data.cpu(), idx)
     assert pg2.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 1, 3, 65])
+def test_onehot_matmul_special_values(dev, rows):
+    """P9 on the special-values table (-0, +inf, -inf, NaN, all-negative
+    columns) at the probe's and at ragged row counts, against its plain
+    version (the one-hot product): NaN in the same places, equal values
+    and sign bits elsewhere; one launch a call."""
+    sv = pg2.special_inputs(rows, dev)
+    before = pg2.LAUNCHES["onehot_matmul"]
+    got = pg2.onehot_matmul(sv["tbl"], sv["idx"])
+    torch.cuda.synchronize()
+    assert pg2.LAUNCHES["onehot_matmul"] == before + 1
+    assert pg2.equal_off_nan(got, pg2.onehot_matmul_plain(sv["tbl"],
+                                                          sv["idx"]))
+
+
+@pytest.mark.cuda
+def test_onehot_matmul_out_reuse(dev):
+    """``out=`` is written in place, each call with its own indices; an
+    out that is not 16-byte aligned raises before any launch."""
+    rng = np.random.default_rng(11)
+    tbl = torch.as_tensor(rng.normal(size=(128, 128)).astype(np.float32),
+                          device=dev)
+    idx_a, idx_b = (torch.as_tensor(rng.integers(0, 128, (2, 128))
+                                    .astype(np.int32), device=dev)
+                    for _ in range(2))
+    out = torch.full((2, 128, 128), float("nan"), device=dev)
+    for idx in (idx_a, idx_b, idx_a):
+        assert pg2.onehot_matmul(tbl, idx, out=out) is out
+        assert torch.equal(out, pg2.onehot_matmul_plain(tbl, idx))
+    before = pg2.LAUNCHES["onehot_matmul"]
+    shifted = torch.empty(2 * 128 * 128 + 1, device=dev)[1:].view(out.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        pg2.onehot_matmul(tbl, idx_a, out=shifted)
+    assert pg2.LAUNCHES["onehot_matmul"] == before
+
+
+@pytest.mark.cuda
+def test_onehot_matmul_one_inf_at_a_selected_row(dev):
+    """An inf at one row of one column: the rows that select it read inf
+    there and every other row NaN (0 * inf); other columns are copies."""
+    rng = np.random.default_rng(12)
+    tbl = rng.normal(size=(128, 128)).astype(np.float32)
+    tbl[5, 9] = np.inf
+    idx = rng.integers(0, 128, (3, 128)).astype(np.int32)
+    idx[:, ::16] = 5
+    tbl, idx = torch.as_tensor(tbl, device=dev), torch.as_tensor(idx,
+                                                                 device=dev)
+    got = pg2.onehot_matmul(tbl, idx)
+    assert pg2.equal_off_nan(got, pg2.onehot_matmul_plain(tbl, idx))
+    rows, sel = got.reshape(-1, 128), idx.reshape(-1) == 5
+    assert rows[sel, 9].isposinf().all() and rows[~sel, 9].isnan().all()
+    keep = torch.ones(128, dtype=torch.bool, device=dev)
+    keep[9] = False
+    assert torch.equal(rows[:, keep], tbl[idx.reshape(-1).long()][:, keep])

@@ -7,6 +7,8 @@ the probe's own inputs. The card kernels are held to the plain versions
 in ``tests/test_torch_cuda.py``.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -151,3 +153,77 @@ def test_probe_wrappers_reject_bad_inputs(x):
     with pytest.raises(ValueError, match="cpu or cuda"):
         pg.gather_sublane(x["data_g"].to("meta"),
                           x["idx_g"].to("meta"))
+
+
+def _closed_form(tbl, idx):
+    """P9's closed form in numpy: the selected row + 0.0 (so -0 becomes
+    +0), and NaN in a column that holds an inf or NaN in another row."""
+    bad = ~np.isfinite(tbl)
+    k = idx.ravel()
+    other = bad.sum(axis=0)[None] - bad[k] > 0
+    return np.where(other, np.float32(np.nan), tbl[k] + np.float32(0.0)
+                    ).reshape(idx.shape[0], L, L)
+
+
+def test_p9_special_values_match_tpu_body_and_closed_form():
+    """On a table of -0, +inf, -inf, NaN and all-negative columns, the
+    plain P9 equals the TPU body ``k_mxu`` in interpret mode and the
+    closed form the card kernel writes: NaN in the same places, equal
+    values and sign bits elsewhere."""
+    sv = pg.special_inputs(S, "cpu")
+    got = pg.onehot_matmul(sv["tbl"], sv["idx"])
+    body = _interpret("P9", dict(tbl_j=sv["tbl"], idx_j=sv["idx"]))
+    closed = _closed_form(sv["tbl"].numpy(), sv["idx"].numpy())
+    assert pg.equal_off_nan(got, torch.as_tensor(body.copy()))
+    assert pg.equal_off_nan(got, torch.as_tensor(closed))
+    rows = got.reshape(-1, L)
+    # lane 1 selects row 9, whose -0 in the all-negative column 4 sums to +0
+    assert rows[1, 4] == 0 and not rows[1, 4].signbit()
+    assert rows[:, 3].lt(0).all()
+    assert rows.isinf().any() and rows.isnan().any()
+
+
+@pytest.mark.parametrize("rows", [1, 3, 65])
+def test_p9_special_values_ragged_rows(rows):
+    sv = pg.special_inputs(rows, "cpu")
+    got = pg.onehot_matmul(sv["tbl"], sv["idx"])
+    assert got.shape == (rows, L, L)
+    assert pg.equal_off_nan(got, torch.as_tensor(_closed_form(
+        sv["tbl"].numpy(), sv["idx"].numpy())))
+
+
+def _misuse_cases():
+    """One wrapper of each module and its arguments, made on a device."""
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu, intersect_cu
+    from pathtracer_tpu_torch.probes import gather as pg1
+
+    def f32(*shape):
+        return lambda dev: torch.zeros(shape, device=dev)
+
+    def i32(*shape):
+        return lambda dev: torch.zeros(shape, dtype=torch.int32, device=dev)
+    return {
+        "intersect_cu": (intersect_cu, intersect_cu.intersect,
+                         [f32(8, 3), f32(8, 3), f32(8), f32(4, 12)]),
+        "bvhw_cu": (bvhw_cu, bvhw_cu.bvhw_intersect,
+                    [f32(2, 256), f32(8, 3), f32(8, 3), f32(8)]),
+        "gather": (pg1, pg1.gather_rows, [f32(16, 8), i32(4)]),
+        "gather2": (pg, pg.onehot_matmul, [f32(L, L), i32(1, L)]),
+    }
+
+
+@pytest.mark.parametrize("module", ["intersect_cu", "bvhw_cu", "gather",
+                                    "gather2"])
+def test_shared_launcher_rejects_misuse(module):
+    """Every wrapper module checks its tensors through the shared
+    launcher's one pass: tensors on a device that is neither cpu nor cuda
+    raise, as does a tensor on another device than the first; neither
+    counts a launch."""
+    mod, fn, makers = _misuse_cases()[module]
+    before = copy.deepcopy(mod.LAUNCHES)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fn(*[make("meta") for make in makers])
+    mixed = [make("cpu") for make in makers[:-1]] + [makers[-1]("meta")]
+    with pytest.raises(ValueError, match="expected"):
+        fn(*mixed)
+    assert mod.LAUNCHES == before
