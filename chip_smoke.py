@@ -27,6 +27,12 @@ printing one JSON line:
              (brute force) on the same rays; the plain traversal counts
              the work these rays need (occupied children slab-tested, real
              triangles tested), for K2's bound (plain: 5 calls timed);
+             then the same checks and times on a second ray set, "bounce":
+             origins at the closest hits of 131,072 camera rays drawn over
+             the whole image, backed off 1e-3 along -d, random unit
+             directions (numpy seed 1), the camera rays' misses left in as
+             dead lanes (t_max = 0); for both sets the interior and leaf
+             rows visited and the bytes of them the kernel reads;
 7. box_golden - box field 64x36, 2 spp, depth 3, "ref" MIS on the card
              against the port's own CPU film (the plain traversal) at
              RMSE < 1e-3 and alpha rtol 1e-5, exact K2 launch count, no K1;
@@ -60,9 +66,11 @@ printing one JSON line:
              config's own table, on 131,072 camera rays drawn over the
              whole image (valid, tri, t and b identical, closest and any
              hit);
-13. profile - device times from a torch.profiler trace: K1's and K2's,
-             P1-P9's and their library calls' (last, as tracing slows later
-             launches).
+13. profile - device times from a torch.profiler trace: K1's and K2's
+             (both ray sets, closest and any hit), P1-P9's and their library
+             calls'; then one box-field render (as phase 8) under the
+             profiler: its device time, K2's share of it and the launches
+             (last, as tracing slows later launches).
 
 "Timed" is three figures on CUDA events and the host clock: ``ms``, per
 call over 100 back-to-back calls (the median of 5 such runs);
@@ -510,83 +518,144 @@ def k2_inputs(dev, n_rays: int = K2_RAYS):
     return scene, o, d, t_inf, t_any
 
 
-def phase_k2(dev):
+def k2_bounce_inputs(dev, n_rays: int = K2_RAYS):
+    """K2's second ray set on the full box field, the rays of a later
+    bounce: ``n_rays`` camera rays drawn over the whole 1920x1080 image
+    (sample frame 0, torch seed 0) are traced to their closest hits (the
+    plain traversal); the set's origins are those hits backed off 1e-3
+    along -d, its directions random unit vectors (numpy seed 1), and the
+    camera rays that missed stay in as dead lanes (t_max = 0). Returns
+    (scene, o, d, t_max, t_any), t_any a random bound in [0.5, 40) on the
+    live lanes for the any-hit query."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.accel.bvhw import bvhw_intersect as bvhw_plain
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+
+    cam, scene, _ = box_scene(dev)
+    integ = PathIntegrator(PathConfig(max_depth=5, mis_mode="onesample"),
+                           spp=2, band_rows=1 << 20)  # one band
+    o_cam, d_cam = first_band_rays(cam, integ, dev)[:2]
+    gen = torch.Generator().manual_seed(0)
+    pick = torch.randperm(d_cam.shape[0], generator=gen)[:n_rays].to(dev)
+    o_cam, d_cam = o_cam[pick].contiguous(), d_cam[pick].contiguous()
+    hit = bvhw_plain(scene.bw_rows, o_cam, d_cam,
+                     torch.full((n_rays,), torch.inf, device=dev),
+                     stackw=scene.bw_depth)
+    rng = np.random.default_rng(1)
+    d_rnd = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    d_rnd /= np.linalg.norm(d_rnd, axis=-1, keepdims=True)
+    live = hit["valid"]
+    o = (o_cam + d_cam * hit["t"][:, None] - 1e-3 * d_cam).contiguous()
+    d = torch.as_tensor(d_rnd, device=dev)
+    t_any = torch.as_tensor(rng.uniform(0.5, 40.0, n_rays).astype(np.float32),
+                            device=dev)
+    zero = torch.zeros((), device=dev)
+    return (scene, o, d, torch.where(live, torch.inf, zero),
+            torch.where(live, t_any, zero))
+
+
+# bytes of a row the kernel reads on a visit: six 128-byte lines of slab
+# words and the sectors of the header and the kind word of an interior row;
+# every sector of a leaf row
+INTERIOR_ROW_BYTES = 6 * 128 + 2 * 32
+LEAF_ROW_BYTES = 1024
+
+
+def k2_ray_set(name, scene, o, d, t_max, t_any, check_k1: bool):
+    """K2 against its plain version on one ray set of the box field,
+    closest hit (bound ``t_max``) and any hit (bound ``t_any``), and its
+    times. The plain traversal counts the work these rays need."""
     import torch
 
     from pathtracer_tpu_torch.accel.bvhw import bvhw_intersect as bvhw_plain
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
 
-    scene, o, d, t_inf, t_any = k2_inputs(dev)
     table, stackw = scene.bw_rows, scene.bw_depth
 
-    def kernel(t_max, any_hit=False):
-        return k2.bvhw_intersect(table, o, d, t_max, any_hit=any_hit,
+    def kernel(bound, any_hit=False):
+        return k2.bvhw_intersect(table, o, d, bound, any_hit=any_hit,
                                  stackw=stackw)
 
-    def plain(t_max, any_hit=False):
-        return bvhw_plain(table, o, d, t_max, any_hit=any_hit,
-                                       stackw=stackw)
+    def plain(bound, any_hit=False, row_counts=None):
+        return bvhw_plain(table, o, d, bound, any_hit=any_hit, stackw=stackw,
+                          row_counts=row_counts)
 
-    got, got_any = kernel(t_inf), kernel(t_any, True)
-    rows = {}
-    want = bvhw_plain(table, o, d, t_inf, stackw=stackw, row_counts=rows)
-    want_any = plain(t_any, True)
+    got, got_any = kernel(t_max), kernel(t_any, True)
+    rows, rows_any = {}, {}
+    want = plain(t_max, row_counts=rows)
+    want_any = plain(t_any, True, row_counts=rows_any)
     torch.cuda.synchronize()
-    if not torch.equal(got["valid"], want["valid"]):
-        raise AssertionError("K2 valid differs from the plain version")
-    if not torch.equal(got["tri"], want["tri"]):
-        raise AssertionError("K2 tri differs from the plain version")
+    for key in ("valid", "tri", "t", "b"):
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"K2 {key} differs from the plain version "
+                                 f"({name} rays)")
     if not torch.equal(got_any, want_any):
-        raise AssertionError("K2 any-hit differs from the plain version")
+        raise AssertionError(f"K2 any-hit differs from the plain version "
+                             f"({name} rays)")
     hit = want["valid"]
     if int(hit.sum()) == 0 or bool(hit.all()) or bool(want_any.all()) \
             or not bool(want_any.any()):
-        raise AssertionError("K2 inputs need both hits and misses")
-    errs = {}
-    for key in ("t", "b"):
-        torch.testing.assert_close(got[key], want[key], rtol=1e-6,
-                                   atol=1e-7)
-        errs[key] = float((got[key] - want[key]).abs().max())
+        raise AssertionError(f"K2 inputs need both hits and misses ({name})")
+    errs = {key: float((got[key] - want[key]).abs().max())
+            for key in ("t", "b")}
+    out = {}
+    if check_k1:
+        # against brute force (K1, no triangle cap) on the same rays
+        brute = k1.intersect(o, d, t_max, scene.tri_pack)
+        brute_any = k1.intersect(o, d, t_any, scene.tri_pack, any_hit=True)
+        torch.cuda.synchronize()
+        if not torch.equal(got["valid"], brute["valid"]):
+            raise AssertionError("K2 valid differs from brute force (K1)")
+        if not torch.equal(got_any, brute_any):
+            raise AssertionError("K2 any-hit differs from brute force (K1)")
+        torch.testing.assert_close(got["t"][hit], brute["t"][hit], rtol=1e-5,
+                                   atol=0.0)
+        tri_differ = hit & (got["tri"] != brute["tri"])
+        if not torch.equal(got["t"][tri_differ], brute["t"][tri_differ]):
+            raise AssertionError("K2 and K1 pick different triangles at "
+                                 "different t")
+        out.update(k1_tri_ties=int(tri_differ.sum()),
+                   k1_max_rel_err_t=float(
+                       ((got["t"][hit] - brute["t"][hit]).abs()
+                        / brute["t"][hit]).max()))
 
-    # against brute force (K1, no triangle cap) on the same rays
-    brute = k1.intersect(o, d, t_inf, scene.tri_pack)
-    brute_any = k1.intersect(o, d, t_any, scene.tri_pack, any_hit=True)
-    torch.cuda.synchronize()
-    if not torch.equal(got["valid"], brute["valid"]):
-        raise AssertionError("K2 valid differs from brute force (K1)")
-    if not torch.equal(got_any, brute_any):
-        raise AssertionError("K2 any-hit differs from brute force (K1)")
-    torch.testing.assert_close(got["t"][hit], brute["t"][hit], rtol=1e-5,
-                               atol=0.0)
-    tri_differ = hit & (got["tri"] != brute["tri"])
-    if not torch.equal(got["t"][tri_differ], brute["t"][tri_differ]):
-        raise AssertionError("K2 and K1 pick different triangles at "
-                             "different t")
-
-    times = timings(lambda: kernel(t_inf), lambda: plain(t_inf),
+    times = timings(lambda: kernel(t_max), lambda: plain(t_max),
                     plain_calls=PLAIN_K2_REPS, plain_reps=PLAIN_K2_REPS)
     ms_any = time_ms(lambda: kernel(t_any, True))
     plain_ms_any = time_ms(lambda: plain(t_any, True), reps=PLAIN_K2_REPS)
     n = o.shape[0]
+    for r in (rows, rows_any):
+        r["row_bytes_read"] = (INTERIOR_ROW_BYTES * r["interior"]
+                               + LEAF_ROW_BYTES * r["leaf"])
     # rays in and out (49 B a ray) and the table; the closest-hit query's
     # work: a slab test per occupied child of each interior row visited, a
     # pair test per real triangle of each leaf row visited
-    out = dict(phase="k2", rays=n, rows_visited=rows,
+    out.update(rays=n, live_lanes=int((t_max > 0).sum()), rows_visited=rows,
+               rows_visited_anyhit=rows_any,
                **bound(49.0 * n + table.numel() * 4.0,
                        SLAB_OPS * float(rows["slabs"])
                        + PAIR_OPS * float(rows["triangles"])),
-               triangles=int(scene.tri_pack.shape[0]),
-               table_rows=int(table.shape[0]), depth=stackw,
                hit_lanes=int(hit.sum()), anyhit_lanes=int(want_any.sum()),
                max_abs_err_t=errs["t"], max_abs_err_b=errs["b"],
                t_bit_equal_frac=float((got["t"] == want["t"]).float().mean()),
-               k1_tri_ties=int(tri_differ.sum()),
-               k1_max_rel_err_t=float(((got["t"][hit] - brute["t"][hit]).abs()
-                                       / brute["t"][hit]).max()),
                **times, ms_anyhit=ms_any, plain_ms_anyhit=plain_ms_any,
-               reps=K1_REPS, per_call=PER_CALL, plain_reps=PLAIN_K2_REPS,
-               mrays_per_s=o.shape[0] / times["ms"] / 1e3)
+               mrays_per_s=n / times["ms"] / 1e3)
+    return out
+
+
+def phase_k2(dev):
+    scene, o, d, t_inf, t_any = k2_inputs(dev)
+    first = k2_ray_set("camera and room", scene, o, d, t_inf, t_any,
+                       check_k1=True)
+    bounce = k2_ray_set("bounce", *k2_bounce_inputs(dev), check_k1=False)
+    table = scene.bw_rows
+    out = dict(phase="k2", **first, bounce=bounce,
+               triangles=int(scene.tri_pack.shape[0]),
+               table_rows=int(table.shape[0]), depth=scene.bw_depth,
+               reps=K1_REPS, per_call=PER_CALL, plain_reps=PLAIN_K2_REPS)
     emit(out)
     return out
 
@@ -1028,12 +1097,48 @@ def phase_materials_main(dev, smi: str):
     return out
 
 
+def box_render_profile(dev) -> dict:
+    """One box-field render (phase 8's, after a warm-up render) under
+    torch.profiler: the device time of all its kernels, K2's share of it,
+    the launches, and the device's busy share of the traced render's wall
+    time (the trace slows the host, so the share is a lower bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+
+    cam, scene, _ = box_scene(dev)
+    integ = PathIntegrator(PathConfig(max_depth=5, mis_mode="onesample"),
+                           spp=2)
+    _, n_bands = integ.band_layout(cam)
+    integ.render(cam, scene)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        integ.render(cam, scene)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    k2_events = [e for e in events if "bvhw_kernel" in e.key]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    k2_ms = sum(e.self_device_time_total for e in k2_events) / 1e3
+    if device_ms <= 0 or not k2_events:
+        raise AssertionError("profiler saw no device time for the render")
+    launches = sum(e.count for e in events)
+    return dict(device_ms=device_ms, k2_device_ms=k2_ms,
+                k2_share=k2_ms / device_ms,
+                k2_launches=sum(e.count for e in k2_events),
+                launches=launches,
+                launches_per_band_frame=launches / (n_bands * integ.spp),
+                traced_wall_ms=wall_ms, device_busy_share=device_ms / wall_ms)
+
+
 def phase_profile(dev):
     """Device times from a torch.profiler trace: K1's and K2's at the
     shapes of phases 3 and 6, P1-P9's and their library calls' at the
-    probes' shapes (all the device work of a call). It runs last: an
-    active CUPTI trace slows every later launch of the host-bound
-    render."""
+    probes' shapes (all the device work of a call); then a whole box-field
+    render. It runs last: an active CUPTI trace slows every later launch
+    of the host-bound render."""
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
     from pathtracer_tpu_torch.probes import gather as pg
@@ -1050,6 +1155,13 @@ def phase_profile(dev):
     k2_any_ms = kernel_device_ms(
         lambda: k2.bvhw_intersect(scene.bw_rows, o, d, t_any, any_hit=True,
                                   stackw=scene.bw_depth), "bvhw_kernel")
+    scene, o, d, t_live, t_any = k2_bounce_inputs(dev)
+    k2_bounce_ms = kernel_device_ms(
+        lambda: k2.bvhw_intersect(scene.bw_rows, o, d, t_live,
+                                  stackw=scene.bw_depth), "bvhw_kernel")
+    k2_bounce_any_ms = kernel_device_ms(
+        lambda: k2.bvhw_intersect(scene.bw_rows, o, d, t_any, any_hit=True,
+                                  stackw=scene.bw_depth), "bvhw_kernel")
     x, x2 = pg.probe_inputs(dev), pg2.probe_inputs(dev)
     probe_ms, library_ms = {}, {}
     for probes, inputs, library in ((pg.PROBES, x, probe_library(x)),
@@ -1062,8 +1174,11 @@ def phase_profile(dev):
     out = dict(phase="profile", k1_kernel_device_ms=k1_ms,
                k2_kernel_device_ms=k2_ms,
                k2_anyhit_kernel_device_ms=k2_any_ms,
+               k2_bounce_kernel_device_ms=k2_bounce_ms,
+               k2_bounce_anyhit_kernel_device_ms=k2_bounce_any_ms,
                probe_kernel_device_ms=probe_ms,
-               library_device_ms=library_ms, reps=K1_REPS)
+               library_device_ms=library_ms, reps=K1_REPS,
+               box_render=box_render_profile(dev))
     emit(out)
     return out
 
@@ -1169,6 +1284,8 @@ def main() -> int:
                              k2_out["max_abs_err_b"]),
              launches_by_path=dict(box_main=box_out["launches"],
                                    materials_main=mat_out["launches"]),
+             bounce=times(k2_out["bounce"],
+                          prof_out["k2_bounce_kernel_device_ms"]),
              **times(k2_out, prof_out["k2_kernel_device_ms"]))]
     for pid, kernel, line in (("P1", "gather_rows", 65),
                               ("P2", "gather_rows", 78),

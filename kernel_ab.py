@@ -10,7 +10,8 @@ one process per turn, in the order parent, change, change, parent (the
 change is this script's own checkout). Each process imports the package
 from its checkout, builds its kernels, and measures every wrapper at
 ``chip_smoke.py``'s shapes: K1 (131,072 cornell rays x 36 triangles), K2
-(closest hit, 131,072 rays on the 4,000-box field) and the probes P1-P9:
+(131,072 rays on the 4,000-box field: closest and any hit, on the camera
+and room rays and on the bounce rays) and the probes P1-P9:
 
   host_us    host time per call over 10,000 calls (``chip_smoke.host_us``)
   ms         per call over 100 back-to-back calls on CUDA events (the
@@ -53,12 +54,20 @@ def measure(tree: str) -> dict:
     cs.phase_build()
     dev = torch.device("cuda", 0)
     scene, o, d, t_max = cs.k1_inputs(dev)
-    box, bo, bd, t_inf, _ = cs.k2_inputs(dev)
+    box, bo, bd, t_inf, t_any = cs.k2_inputs(dev)
+    _, co, cd, t_live, t_live_any = cs.k2_bounce_inputs(dev)
     x1, x2 = pg.probe_inputs(dev), pg2.probe_inputs(dev)
+
+    def k2_case(o, d, bound, any_hit=False):
+        return lambda: k2.bvhw_intersect(box.bw_rows, o, d, bound,
+                                         any_hit=any_hit,
+                                         stackw=box.bw_depth)
     cases = {
         "K1": lambda: k1.intersect(o, d, t_max, scene.tri_pack),
-        "K2": lambda: k2.bvhw_intersect(box.bw_rows, bo, bd, t_inf,
-                                        stackw=box.bw_depth)}
+        "K2": k2_case(bo, bd, t_inf),
+        "K2 any-hit": k2_case(bo, bd, t_any, True),
+        "K2 bounce": k2_case(co, cd, t_live),
+        "K2 bounce any-hit": k2_case(co, cd, t_live_any, True)}
     for probes, x in ((pg.PROBES, x1), (pg2.PROBES, x2)):
         for pid, fn in probes.items():
             cases[pid] = lambda fn=fn, x=x: fn(x)

@@ -28,6 +28,12 @@ near-to-far order; the traversal builds each node's hit mask in that
 permuted bit order, so the next child is the lowest set bit. Colliding
 children take the free slot at the smallest XOR distance.
 
+The component-major rows are made for one lane per child: kernel K2 gives a
+ray a warp, lane l tests slot l ^ mask5, and each of its six slab words
+(``row[32 c + slot]``) is, across the 32 lanes, one 128-byte line; the
+lanes' ballot is the permuted hit mask. A leaf's nine vertex words
+``row[25 c + j]`` are likewise consecutive across lanes j < 25.
+
 Left out, as TPU scheduling knobs: the interleaved and chunked loops,
 the sequential leaf chain and the per-lane step counter.
 """

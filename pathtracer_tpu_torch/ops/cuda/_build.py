@@ -74,7 +74,7 @@ def build_library(source: str, compiler: str, flags: tuple,
                                f"({res.returncode}):\n{res.stdout}\n"
                                f"{res.stderr}")
         if verbose:
-            print(res.stdout + res.stderr, flush=True)
+            print(" ".join(cmd) + "\n" + res.stdout + res.stderr, flush=True)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -82,18 +82,21 @@ def build_library(source: str, compiler: str, flags: tuple,
     return out
 
 
-def build_cuda(name: str, verbose: bool = False) -> str:
-    """Compile ``csrc/<name>`` with nvcc for sm_90a. Returns its path."""
-    return build_library(os.path.join(CSRC_DIR, name), nvcc(), NVCC_FLAGS,
+def build_cuda(name: str, verbose: bool = False, defines: tuple = ()) -> str:
+    """Compile ``csrc/<name>`` with nvcc for sm_90a, with ``-D`` for each
+    of ``defines`` ("NAME=value": a source's tuning constants). Returns its
+    path."""
+    return build_library(os.path.join(CSRC_DIR, name), nvcc(),
+                         NVCC_FLAGS + tuple(f"-D{d}" for d in defines),
                          verbose=verbose)
 
 
-def load_cuda(name: str, signatures: dict) -> dict:
+def load_cuda(name: str, signatures: dict, defines: tuple = ()) -> dict:
     """Build (if needed) and load ``csrc/<name>``, and resolve each C
     launcher of ``signatures`` ({name: argument types, the stream last})
     once. Every launcher returns an int error code (0 = cudaSuccess).
     Returns {name: ctypes function}."""
-    lib = ctypes.CDLL(build_cuda(name))
+    lib = ctypes.CDLL(build_cuda(name, defines=defines))
     fns = {}
     for fn_name, argtypes in signatures.items():
         fn = getattr(lib, fn_name)

@@ -3,8 +3,9 @@
 ``bvhw_intersect(table, o, d, t_max, any_hit=False, stackw=STACKW)``
 keeps the signature and return dict of the reference's
 ``pathtracer_tpu/accel/bvhw.py::bvhw_intersect``. CUDA tensors go to the
-hand-written kernel in ``csrc/bvhw.cu``; CPU tensors go to the plain
-PyTorch version ``accel/bvhw.bvhw_intersect``. There is no fallback
+hand-written kernel in ``csrc/bvhw.cu`` (one warp walks one ray, one lane
+tests one child of a row); CPU tensors go to the plain PyTorch version
+``accel/bvhw.bvhw_intersect``. There is no fallback
 between the two: a CUDA input that the kernel cannot take raises.
 """
 
@@ -20,6 +21,11 @@ from ..intersect import GAMMA2, GAMMA3, GAMMA5
 from . import _build
 
 SOURCE = "bvhw.cu"
+# the C launcher's arguments: table, o, d, t_max; rows, n, any_hit, stackw;
+# g, g2, g3, g5; valid, t, tri, b, stream
+SIGNATURES = {"pt_bvhw_launch": (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)}
 
 # kernel launches made by ``bvhw_intersect`` (CPU calls never count)
 LAUNCHES = 0
@@ -35,9 +41,7 @@ def build(verbose: bool = False) -> str:
 def _load() -> dict:
     global _fns
     if _fns is None:
-        _fns = _build.load_cuda(SOURCE, {"pt_bvhw_launch": (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-            + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)})
+        _fns = _build.load_cuda(SOURCE, SIGNATURES)
     return _fns
 
 

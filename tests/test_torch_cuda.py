@@ -106,9 +106,9 @@ def _bvh_case(seed, f, n, dev):
 @pytest.mark.parametrize("f,n", [(5, 1000), (26, 4096), (3000, 65536),
                                  (20000, 8192)])
 def test_bvhw_kernel_matches_plain_and_k1(dev, f, n):
-    """K2 against its plain version (valid, tri, any-hit identical; t and b
-    to rtol 1e-6 / atol 1e-7) and against brute force K1 (valid identical,
-    t to rtol 1e-5; tri only where t ties)."""
+    """K2 against its plain version (valid, tri, any-hit, t and b
+    identical) and against brute force K1 (valid identical, t to rtol
+    1e-5; tri only where t ties)."""
     table, depth, o, d, t_max, pack = _bvh_case(f + n, f, n, dev)
     before = k2.LAUNCHES
     got = k2.bvhw_intersect(table, o, d, t_max, stackw=depth)
@@ -121,8 +121,8 @@ def test_bvhw_kernel_matches_plain_and_k1(dev, f, n):
     assert torch.equal(got["valid"], want["valid"])
     assert torch.equal(got["tri"], want["tri"])
     assert torch.equal(got_any, want_any)
-    torch.testing.assert_close(got["t"], want["t"], rtol=1e-6, atol=1e-7)
-    torch.testing.assert_close(got["b"], want["b"], rtol=1e-6, atol=1e-7)
+    assert torch.equal(got["t"], want["t"])
+    assert torch.equal(got["b"], want["b"])
     brute = k1.intersect(o, d, t_max, pack)
     assert torch.equal(got["valid"], brute["valid"])
     v = brute["valid"]
@@ -150,6 +150,112 @@ def test_bvhw_kernel_short_stack_and_rejects(dev):
     with pytest.raises(TypeError, match="float32"):
         k2.bvhw_intersect(table.double(), o, d, t_max)
     assert k2.LAUNCHES == before
+
+
+def _assert_k2_equals_plain(table, o, d, t_max, stackw):
+    """Closest and any hit, bit for bit; one launch each unless N = 0."""
+    before = k2.LAUNCHES
+    got = k2.bvhw_intersect(table, o, d, t_max, stackw=stackw)
+    got_any = k2.bvhw_intersect(table, o, d, t_max, any_hit=True,
+                                stackw=stackw)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES == before + (2 if o.shape[0] else 0)
+    want = bvhw_plain(table, o, d, t_max, stackw=stackw)
+    for key in ("valid", "tri", "t", "b"):
+        assert got[key].shape == want[key].shape
+        assert got[key].dtype == want[key].dtype
+        assert torch.equal(got[key], want[key]), key
+    assert torch.equal(got_any, bvhw_plain(table, o, d, t_max, any_hit=True,
+                                           stackw=stackw))
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 7, 31, 33, 1000, 4099])
+def test_bvhw_kernel_ragged_ray_counts(dev, n):
+    """N = 0 and 1, and N that fills neither a warp's rays, a warp's 32
+    lanes nor a block."""
+    table, depth, o, d, t_max, _ = _bvh_case(n, 3000, max(n, 1), dev)
+    want = _assert_k2_equals_plain(table, o[:n], d[:n], t_max[:n], depth)
+    if n >= 1000:
+        assert want["valid"].any() and not want["valid"].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [5, 3000])
+def test_bvhw_kernel_all_lanes_dead(dev, f):
+    """t_max = 0, negative or NaN on every lane: no hit, zeros out."""
+    table, depth, o, d, t_max, _ = _bvh_case(f, f, 777, dev)
+    t_max = torch.zeros_like(t_max)
+    t_max[1::3] = -1.0
+    t_max[2::3] = float("nan")
+    want = _assert_k2_equals_plain(table, o, d, t_max, depth)
+    assert not want["valid"].any() and not want["t"].any()
+
+
+@pytest.mark.cuda
+def test_bvhw_kernel_two_row_table(dev):
+    """A soup that fits one leaf: a root row with one child."""
+    table, depth, o, d, t_max, _ = _bvh_case(9, 5, 2000, dev)
+    assert table.shape[0] == 2 and depth == 1
+    # aim every other ray at the soup's centre
+    centre = table[1, :9 * 25].reshape(3, 3, 25)[:, :, :5].mean(dim=(0, 2))
+    d[::2] = torch.nn.functional.normalize(centre - o[::2], dim=-1)
+    want = _assert_k2_equals_plain(table, o, d, t_max, depth)
+    assert want["valid"].any() and not want["valid"].all()
+
+
+def _deep_case(dev, n=4096):
+    """A table of depth 3 (a dense cluster of small triangles inside a
+    sparse soup) and rays through the cluster toward the soup beyond it."""
+    rng = np.random.default_rng(600)
+
+    def soup(f, spread, size):
+        c = (rng.random((f, 1, 3)) * 2 - 1) * spread
+        return (c + (rng.random((f, 3, 3)) * 2 - 1) * size).astype(np.float32)
+    tri = np.concatenate([soup(600, 4.0, 0.4),
+                          soup(800, 0.3, 0.02) + np.float32(1)])
+    table, _, depth = build_bvhw(tri[:, 0], tri[:, 1], tri[:, 2])
+    aim = tri[rng.integers(0, 600, n)].mean(axis=1)
+    through = (1.0 + rng.uniform(-0.2, 0.2, (n, 3))).astype(np.float32)
+    d = aim - through
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return t(table), depth, t(through - 2.0 * d), t(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stackw", [1, 2, 3, 10])
+def test_bvhw_kernel_stack_shallower_than_the_tree(dev, stackw):
+    """A stack of 1 under a tree of depth 3 drops its oldest entry, and
+    the kernel loses the hits the plain version loses."""
+    table, depth, o, d = _deep_case(dev)
+    assert depth == 3
+    t_inf = torch.full((o.shape[0],), torch.inf, device=dev)
+    want = _assert_k2_equals_plain(table, o, d, t_inf, stackw)
+    full = bvhw_plain(table, o, d, t_inf, stackw=depth)
+    assert torch.equal(want["t"], full["t"]) == (stackw >= 2)
+
+
+@pytest.mark.cuda
+def test_bvhw_kernel_bounce_rays(dev):
+    """The rays of a later bounce: origins just off the closest hits of a
+    first set, random directions, the first set's misses dead."""
+    table, depth, o, d, t_max, _ = _bvh_case(5, 3000, 20000, dev)
+    first = _assert_k2_equals_plain(table, o, d, t_max, depth)
+    live = first["valid"]
+    assert live.any() and not live.all()
+    rng = np.random.default_rng(1)
+    d2 = rng.normal(size=(o.shape[0], 3)).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    o2 = (o + d * first["t"][:, None] - 1e-3 * d).contiguous()
+    t2 = torch.where(live, torch.inf, torch.zeros((), device=dev))
+    second = _assert_k2_equals_plain(table, o2,
+                                     torch.as_tensor(d2, device=dev), t2,
+                                     depth)
+    assert second["valid"].any() and not second["valid"][~live].any()
 
 
 @pytest.mark.cuda
