@@ -8,7 +8,8 @@ printing one JSON line:
              nvidia-smi gives them);
 2. build   - compiles kernel K1 (csrc/intersect.cu), kernel K2
              (csrc/bvhw.cu) and the gather probes (csrc/gather_probe.cu,
-             csrc/gather_probe2.cu) with nvcc, and the native BVH builder
+             csrc/gather_probe2.cu) with nvcc, the launch module
+             (csrc/pylaunch.c) with cc and the native BVH builder
              (csrc/bvh_builder.cpp) with g++, all at once;
 3. k1      - K1 against its plain PyTorch version on the card, at the main
              path's shapes (131,072 rays x cornell's 36 triangles): hit
@@ -16,10 +17,14 @@ printing one JSON line:
              rtol 1e-6 / atol 1e-7; both timed (below);
 4. golden  - cornell 32x32, 2 spp, depth 3 ("ref" MIS) against
              tests/golden_cornell_32.npz (the JAX film) at RMSE < 1e-3 and
-             alpha rtol 1e-5, with the exact K1 launch count;
+             alpha rtol 1e-5, with the exact K1 launch count; then the
+             same scene through the BVH route (``use_bvh=True``: K2, no
+             K1) against that K1 film at the same bar, both launch counts
+             printed;
 5. main    - cornell 640x480, 16 spp, depth 5, "onesample" MIS: one
-             warm-up render, one timed render, Mrays/s, finite film with
-             positive weight everywhere, exact K1 launch count;
+             warm-up render, then three timed renders (Mrays/s: their
+             median, min and max), each with the exact K1 launch count;
+             finite film with positive weight everywhere;
 6. k2      - K2 against its plain version on the full box-field table
              (4,000 boxes, 48,012 triangles) and 131,072 rays (camera rays
              of the first 1920x1080 band and random directions from inside
@@ -37,10 +42,10 @@ printing one JSON line:
              against the port's own CPU film (the plain traversal) at
              RMSE < 1e-3 and alpha rtol 1e-5, exact K2 launch count, no K1;
 8. box_main - box field 1920x1080, 4,000 boxes, 2 spp, depth 5,
-             "onesample" MIS: one warm-up render, one timed render,
-             Mrays/s, set-up seconds, table size, peak device memory,
-             exact K2 launch count, no K1, finite film with positive
-             weight everywhere;
+             "onesample" MIS: one warm-up render, three timed renders
+             (as phase 5), set-up seconds, table size, peak device
+             memory, exact K2 launch count and no K1 in each, finite film
+             with positive weight everywhere;
 9. probes  - the gather probes P1-P5 once through ``run_probes`` (their
              path), then each against its plain version and its library
              call (one PyTorch call on the same int32 indices:
@@ -59,10 +64,11 @@ printing one JSON line:
              counts, no K1;
 12. materials_main - each config at 640x480, 4 spp, "onesample" MIS
              (C at depth 15, B and D at depth 5): a 1 spp warm-up render,
-             then one timed render with the launch counts set to 0 just
-             before it: Mrays/s, set-up seconds, peak device memory,
-             exact K2 launch count, no K1, finite film with positive
-             weight everywhere; then K2 against its plain version on the
+             then three timed renders (as phase 5), each with the launch
+             counts set to 0 just before it and checked after it (exact
+             K2 count, no K1): set-up seconds, peak device memory, finite
+             film with positive weight everywhere; then K2 against its
+             plain version on the
              config's own table, on 131,072 camera rays drawn over the
              whole image (valid, tri, t and b identical, closest and any
              hit);
@@ -78,7 +84,8 @@ call over 100 back-to-back calls (the median of 5 such runs);
 runs); and, for a kernel wrapper, ``host_us``, the host's enqueue time per
 call over 10,000 calls.
 
-Then one JSON line listing the kernels, each with those times, its device
+Then the script's total seconds (one JSON line), one JSON line listing
+the kernels, each with those times, its device
 time, its plain version's and its library call's times where one exists
 (with the library call's device time), and its bound (the least time an
 H100 could take: the larger of the bytes it must move over 3.35 TB/s and
@@ -120,6 +127,10 @@ MATERIAL_CONFIGS = {
 }
 MAT_RES = (640, 480)
 MAT_SPP = 4
+# timed renders of each main path after its warm-up; the figure is their
+# median (single renders of one tree have spread by up to 1.8x on a
+# shared host)
+RENDER_REPS = 3
 
 # the H100 SXM's published peaks (NVIDIA data sheet; 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -207,6 +218,37 @@ def host_us(fn, calls: int = HOST_CALLS, chunk: int = HOST_CHUNK) -> float:
         total += time.perf_counter() - t0
         torch.cuda.synchronize()
     return total / (calls // chunk * chunk) * 1e6
+
+
+def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
+    """RENDER_REPS timed renders of a main path (after the caller's
+    warm-up), each with every kernel count of ``expect`` ({wrapper module:
+    launches}) set to 0 just before it and checked just after it. Returns
+    the last film and the renders' figures: Mrays/s as the median, min and
+    max of the renders, with each render's seconds."""
+    import torch
+    seconds = []
+    for _ in range(RENDER_REPS):
+        for mod in expect:
+            mod.LAUNCHES = 0  # the main path's run starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = integ.render(cam, scene)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        got = {mod.__name__.rsplit(".", 1)[-1]: mod.LAUNCHES for mod in expect}
+        want = {mod.__name__.rsplit(".", 1)[-1]: n
+                for mod, n in expect.items()}
+        if got != want:
+            raise AssertionError(f"{what} render launched {got}, expected "
+                                 f"{want}")
+    rates = [integ.last_ray_count / dt / 1e6 for dt in seconds]
+    return film, dict(rays=integ.last_ray_count,
+                      seconds=statistics.median(seconds),
+                      seconds_runs=seconds,
+                      mrays_per_s=statistics.median(rates),
+                      mrays_per_s_min=min(rates), mrays_per_s_max=max(rates),
+                      renders=RENDER_REPS)
 
 
 def timings(kernel, plain=None, library=None, plain_calls: int = PER_CALL,
@@ -382,7 +424,9 @@ def phase_golden(dev):
     import numpy as np
     import torch
 
-    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.integrator import (PathConfig, PathIntegrator,
+                                                 TracedScene)
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
     from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
 
@@ -404,10 +448,33 @@ def phase_golden(dev):
     rmse = float(np.sqrt(np.mean((got[..., :3] - want[..., :3]) ** 2)))
     if not rmse < 1e-3:
         raise AssertionError(f"golden RMSE {rmse} >= 1e-3")
+    # the same scene through K2: the BVH route forced on cornell's 36
+    # triangles, against the K1 film just rendered
+    bvh_scene = TracedScene.create(sd, use_bvh=True)
+    k1_before, k2_before = k1.LAUNCHES, k2.LAUNCHES
+    bvh_film = integ.render(cam, bvh_scene)
+    torch.cuda.synchronize()
+    bvh_launches = (k1.LAUNCHES - k1_before, k2.LAUNCHES - k2_before)
+    if bvh_launches != (0, expect):
+        raise AssertionError(f"cornell through the BVH route launched (K1, "
+                             f"K2) {bvh_launches} times, expected "
+                             f"{(0, expect)}")
+    bvh_got = bvh_film.cpu().numpy()
+    np.testing.assert_allclose(bvh_got[..., 3], got[..., 3], rtol=1e-5)
+    rmse_k1_k2 = float(np.sqrt(np.mean((bvh_got[..., :3]
+                                        - got[..., :3]) ** 2)))
+    if not rmse_k1_k2 < 1e-3:
+        raise AssertionError(f"cornell K1 and K2 films differ: RMSE "
+                             f"{rmse_k1_k2} >= 1e-3")
     out = dict(phase="golden", rmse=rmse,
                alpha_max_rel=float(np.max(np.abs(got[..., 3] - want[..., 3])
                                           / np.abs(want[..., 3]))),
-               launches=launches, expected_launches=expect)
+               launches=launches, expected_launches=expect,
+               k2_route=dict(k1_launches=launches, k2_launches=bvh_launches[1],
+                             table_rows=int(bvh_scene.bw_rows.shape[0]),
+                             rmse_k1_vs_k2=rmse_k1_k2,
+                             rmse_k2_vs_golden=float(np.sqrt(np.mean(
+                                 (bvh_got[..., :3] - want[..., :3]) ** 2)))))
     emit(out)
     return out
 
@@ -437,16 +504,8 @@ def phase_main(dev, smi: str):
                              f"{k1.LAUNCHES - before} times, expected "
                              f"{expect}")
 
-    k1.LAUNCHES = 0  # the main path's run starts here
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    film = integ.render(cam, scene)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    film, runs = timed_renders(integ, cam, scene, {k1: expect}, "main")
     launches = k1.LAUNCHES
-    if launches != expect:
-        raise AssertionError(f"main render launched K1 {launches} times, "
-                             f"expected {expect}")
     if tuple(film.shape) != (480, 640, 4):
         raise AssertionError(f"film shape {tuple(film.shape)}")
     if not bool(torch.isfinite(film).all()):
@@ -455,9 +514,7 @@ def phase_main(dev, smi: str):
         raise AssertionError("film weight must be positive everywhere")
     out = dict(phase="main", resolution=[640, 480], spp=integ.spp,
                max_depth=cfg.max_depth, mis_mode=cfg.mis_mode,
-               bands=n_bands, rays=integ.last_ray_count, seconds=dt,
-               warmup_seconds=warm_s,
-               mrays_per_s=integ.last_ray_count / dt / 1e6,
+               bands=n_bands, **runs, warmup_seconds=warm_s,
                launches=launches, expected_launches=expect,
                bad_samples=integ.bad_sample_count,
                film_mean_rgb=[float(v) for v in
@@ -724,17 +781,9 @@ def phase_box_main(dev, smi: str):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    k1.LAUNCHES = 0  # the box field's main path starts here
-    k2.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    film = integ.render(cam, scene)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    film, runs = timed_renders(integ, cam, scene, {k2: expect, k1: 0},
+                               "box field")
     launches, k1_launches = k2.LAUNCHES, k1.LAUNCHES
-    if (launches, k1_launches) != (expect, 0):
-        raise AssertionError(f"box render launched K2 {launches} and K1 "
-                             f"{k1_launches} times, expected {expect} and 0")
     w, h = BOX_RES
     if tuple(film.shape) != (h, w, 4):
         raise AssertionError(f"film shape {tuple(film.shape)}")
@@ -749,10 +798,9 @@ def phase_box_main(dev, smi: str):
                table_bytes=table.numel() * table.element_size(),
                depth=scene.bw_depth, spp=integ.spp,
                max_depth=cfg.max_depth, mis_mode=cfg.mis_mode,
-               bands=n_bands, rays=integ.last_ray_count, seconds=dt,
-               warmup_seconds=warm_s, create_seconds=create_s,
-               mrays_per_s=integ.last_ray_count / dt / 1e6,
-               launches=launches, expected_launches=expect,
+               bands=n_bands, **runs, warmup_seconds=warm_s,
+               create_seconds=create_s, launches=launches,
+               expected_launches=expect,
                k1_launches=k1_launches,
                peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
                bad_samples=integ.bad_sample_count,
@@ -1054,18 +1102,9 @@ def phase_materials_main(dev, smi: str):
         _, n_bands = integ.band_layout(cam)
         expect = n_bands * integ.spp * (2 * depth + 1)
 
-        k1.LAUNCHES = 0  # this config's main path starts here
-        k2.LAUNCHES = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        film = integ.render(cam, scene)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        film, runs = timed_renders(integ, cam, scene, {k2: expect, k1: 0},
+                                   f"config {config}")
         launches, k1_launches = k2.LAUNCHES, k1.LAUNCHES
-        if (launches, k1_launches) != (expect, 0):
-            raise AssertionError(f"config {config} launched K2 {launches} "
-                                 f"and K1 {k1_launches} times, expected "
-                                 f"{expect} and 0")
         if tuple(film.shape) != (h, w, 4):
             raise AssertionError(f"film shape {tuple(film.shape)}")
         if not bool(torch.isfinite(film).all()):
@@ -1082,10 +1121,8 @@ def phase_materials_main(dev, smi: str):
             scene=name, max_depth=depth,
             triangles=int(scene.tri_pack.shape[0]),
             table_rows=int(scene.bw_rows.shape[0]), depth=scene.bw_depth,
-            bands=n_bands, rays=integ.last_ray_count, seconds=dt,
-            warmup_1spp_seconds=warm_s, build_seconds=build_s,
-            create_seconds=create_s,
-            mrays_per_s=integ.last_ray_count / dt / 1e6,
+            bands=n_bands, **runs, warmup_1spp_seconds=warm_s,
+            build_seconds=build_s, create_seconds=create_s,
             launches=launches, expected_launches=expect,
             k1_launches=k1_launches,
             peak_mem_bytes=peak,
@@ -1186,6 +1223,7 @@ def phase_profile(dev):
 def phase_build():
     """Compile every native source at once (one compiler process each)."""
     from pathtracer_tpu_torch.accel import cpp
+    from pathtracer_tpu_torch.ops.cuda import _build
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
     from pathtracer_tpu_torch.probes import gather as pg
@@ -1196,7 +1234,8 @@ def phase_build():
         path = build()
         return os.path.relpath(path, ROOT), time.perf_counter() - t0
 
-    builds = dict(intersect=lambda: k1.build(verbose=True),
+    builds = dict(pylaunch=_build.build_pylaunch,
+                  intersect=lambda: k1.build(verbose=True),
                   bvhw=lambda: k2.build(verbose=True),
                   gather_probe=lambda: pg.build(verbose=True),
                   gather_probe2=lambda: pg2.build(verbose=True),
@@ -1239,6 +1278,7 @@ def main() -> int:
               torch=torch.__version__, cuda=torch.version.cuda,
               count=torch.cuda.device_count()))
 
+    t_start = time.perf_counter()
     phase_build()
     k1_out = phase_k1(dev)
     phase_golden(dev)
@@ -1313,6 +1353,7 @@ def main() -> int:
     p9 = probe2_out["probes"]["P9"]
     kernels[-1].update(matmul_ms=p9["matmul_ms"],
                        matmul_device_ms=library_ms["P9 matmul"])
+    emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

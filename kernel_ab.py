@@ -32,6 +32,7 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -51,7 +52,11 @@ def measure(tree: str) -> dict:
     pkg = os.path.dirname(os.path.abspath(pathtracer_tpu_torch.__file__))
     if pkg != os.path.join(os.path.abspath(tree), "pathtracer_tpu_torch"):
         raise AssertionError(f"imported {pkg}, not the package of {tree}")
-    cs.phase_build()
+    # each tree's own build and load (the launch path differs by tree)
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(lambda m: m.build(verbose=True), (k1, k2, pg, pg2)))
+    for mod in (k1, k2, pg, pg2):
+        mod._load()
     dev = torch.device("cuda", 0)
     scene, o, d, t_max = cs.k1_inputs(dev)
     box, bo, bd, t_inf, t_any = cs.k2_inputs(dev)

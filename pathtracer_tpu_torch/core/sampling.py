@@ -131,6 +131,21 @@ def searchsorted_batched(cdf_rows, u):
                               right=True)[..., 0] - 1
 
 
+def searchsorted_rows(flat, base, n: int, u):
+    """``searchsorted_batched`` over rows of a flat table, read in place:
+    the count of entries <= u, less one, in the sorted row
+    ``flat[base : base + n]`` of each lane (base, u (...,)). A binary
+    search of ``n.bit_length()`` steps (ceil(log2(n + 1))), each reading
+    one entry a lane, so no lane copies its row."""
+    pos = torch.zeros_like(base)
+    for k in reversed(range(n.bit_length())):
+        cand = pos + (1 << k)
+        inside = cand <= n
+        val = flat[base + torch.where(inside, cand, n) - 1]
+        pos = torch.where(inside & (val <= u), cand, pos)
+    return pos - 1
+
+
 @dataclasses.dataclass
 class Distribution2D:
     """2D distribution: per-row conditionals and the marginal over rows.
@@ -189,8 +204,9 @@ def sample_distribution_2d(cond_func, cond_cdf, cond_int, marg_func,
     nu = cond_func.shape[-1]
     int_v = cond_int[v]
     u0 = u[..., 0]
-    # only the search needs row v whole; the rest reads single cells
-    off = torch.clamp(searchsorted_batched(cond_cdf[v], u0), 0, nu - 1)
+    # the search reads row v of the flat table in place, a cell a step
+    off = torch.clamp(searchsorted_rows(cond_cdf.reshape(-1), v * (nu + 1),
+                                        nu + 1, u0), 0, nu - 1)
     c0 = cond_cdf[v, off]
     c1 = cond_cdf[v, off + 1]
     denom = c1 - c0

@@ -419,10 +419,10 @@ bvhw_kernel(const float* __restrict__ table, int rows,
 
 }  // namespace
 
-// Plain C launcher for ctypes. All pointers are device pointers; t, tri
-// and b may be null when any_hit is set; 1 <= stackw <= 10. Launches on
-// `stream` and returns the launch's cudaError_t (0 = cudaSuccess); it does
-// not synchronise.
+// Plain C launcher, called through pylaunch.c. All pointers are device
+// pointers; t, tri and b may be null when any_hit is set; 1 <= stackw <=
+// 10. Launches on `stream` and returns the launch's cudaError_t (0 =
+// cudaSuccess); it does not synchronise.
 extern "C" int pt_bvhw_launch(const float* table, const float* o,
                               const float* d, const float* t_max, int rows,
                               int n, int any_hit, int stackw, float g,

@@ -93,10 +93,10 @@ int blocks_for(long threads) {
 
 }  // namespace
 
-// Plain C launchers for ctypes. All pointers are device pointers; an index
-// outside its table (or sp outside [0, depth)) stops the kernel with a
-// trap. Each launches on `stream` and returns the launch's cudaError_t
-// (0 = cudaSuccess) without synchronising.
+// Plain C launchers, called through pylaunch.c. All pointers are device
+// pointers; an index outside its table (or sp outside [0, depth)) stops
+// the kernel with a trap. Each launches on `stream` and returns the
+// launch's cudaError_t (0 = cudaSuccess) without synchronising.
 extern "C" int pt_gather_rows_launch(const float* table, const int32_t* idx,
                                      int n, int m, int w, float* out,
                                      void* stream) {

@@ -189,10 +189,11 @@ int blocks_for(long threads) {
 
 }  // namespace
 
-// Plain C launchers for ctypes. All pointers are device pointers; `rows`
-// is the number of 128-lane index rows. An index outside its table stops
-// the kernel with a trap. Each launches on `stream` and returns the
-// launch's cudaError_t (0 = cudaSuccess) without synchronising.
+// Plain C launchers, called through pylaunch.c. All pointers are device
+// pointers; `rows` is the number of 128-lane index rows. An index outside
+// its table stops the kernel with a trap. Each launches on `stream` and
+// returns the launch's cudaError_t (0 = cudaSuccess) without
+// synchronising.
 extern "C" int pt_gather_sublane_launch(const float* data, const int32_t* idx,
                                         int rows, int c, float* out,
                                         void* stream) {

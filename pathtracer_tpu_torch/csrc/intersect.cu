@@ -178,9 +178,10 @@ intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
 }  // namespace
 
-// Plain C launcher for ctypes. All pointers are device pointers; t, tri
-// and b may be null when any_hit is set. Launches on `stream` and returns
-// the launch's cudaError_t (0 = cudaSuccess); it does not synchronise.
+// Plain C launcher, called through pylaunch.c. All pointers are device
+// pointers; t, tri and b may be null when any_hit is set. Launches on
+// `stream` and returns the launch's cudaError_t (0 = cudaSuccess); it does
+// not synchronise.
 extern "C" int pt_intersect_launch(const float* o, const float* d,
                                    const float* t_max, const float* tri,
                                    int n, int f, int any_hit, float g2,

@@ -1,0 +1,161 @@
+// CPython entry points to the port's C kernel launchers.
+//
+// Every kernel source in csrc/ exports a plain C launcher
+// `int pt_<kernel>_launch(args..., void* stream)` that launches its kernel
+// on `stream` and returns the launch's cudaError_t (0 = cudaSuccess).
+// This module calls those launchers from Python for less than a ctypes
+// call costs: each function below is METH_FASTCALL (its arguments arrive
+// as a C array, no tuple, no ctypes argument objects), takes a launcher's
+// address (resolved once, when its library is loaded) and then the
+// launcher's own arguments as Python ints and floats, converts them, calls
+// the launcher through a function pointer of its exact prototype, and
+// returns the launcher's int result. It releases the interpreter lock
+// around the call, as a ctypes call does.
+//
+// A function is named by its launcher's signature, one letter an
+// argument: p a pointer (a Python int; 0 is NULL), i a C int, f a C float.
+// Add a function here for a launcher of a new signature.
+//
+// Built with the host C compiler against Python's own headers only (no
+// PyTorch, no CUDA headers), at first use: ops/cuda/_build.py.
+
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+#include <limits.h>
+#include <string.h>
+
+typedef union {
+  void* p;
+  int i;
+  float f;
+} arg_t;
+
+// Converts args[0] to the launcher's address *fn and args[1:] by `sig`
+// into out. Returns 0, or -1 with a Python exception set.
+static int unpack(const char* sig, PyObject* const* args, Py_ssize_t nargs,
+                  void** fn, arg_t* out) {
+  const Py_ssize_t n = (Py_ssize_t)strlen(sig);
+  if (nargs != n + 1) {
+    PyErr_Format(PyExc_TypeError,
+                 "%s takes %zd arguments (a launcher address and %zd more), "
+                 "got %zd", sig, n + 1, n, nargs);
+    return -1;
+  }
+  *fn = PyLong_AsVoidPtr(args[0]);
+  if (*fn == NULL) {
+    if (!PyErr_Occurred())
+      PyErr_SetString(PyExc_ValueError, "launcher address is 0");
+    return -1;
+  }
+  for (Py_ssize_t k = 0; k < n; ++k) {
+    PyObject* o = args[k + 1];
+    switch (sig[k]) {
+      case 'p':
+        out[k].p = PyLong_AsVoidPtr(o);
+        if (out[k].p == NULL && PyErr_Occurred()) return -1;
+        break;
+      case 'i': {
+        const long v = PyLong_AsLong(o);
+        if (v == -1 && PyErr_Occurred()) return -1;
+        if (v < INT_MIN || v > INT_MAX) {
+          PyErr_Format(PyExc_OverflowError,
+                       "argument %zd (%ld) does not fit a C int", k + 1, v);
+          return -1;
+        }
+        out[k].i = (int)v;
+        break;
+      }
+      case 'f': {
+        const double v = PyFloat_AsDouble(o);
+        if (v == -1.0 && PyErr_Occurred()) return -1;
+        out[k].f = (float)v;
+        break;
+      }
+    }
+  }
+  return 0;
+}
+
+#define CALL(expr)            \
+  int err;                    \
+  Py_BEGIN_ALLOW_THREADS      \
+  err = (expr);               \
+  Py_END_ALLOW_THREADS        \
+  return PyLong_FromLong(err)
+
+// P6, P8: (data, idx, rows, c, out, stream); P5: (sp, v, n, depth, out,
+// stream)
+typedef int (*ppiipp_t)(void*, void*, int, int, void*, void*);
+static PyObject* ppiipp(PyObject* self, PyObject* const* args,
+                        Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[6];
+  if (unpack("ppiipp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((ppiipp_t)fn)(a[0].p, a[1].p, a[2].i, a[3].i, a[4].p, a[5].p));
+}
+
+// P7, P9: (data, idx, rows, out, stream)
+typedef int (*ppipp_t)(void*, void*, int, void*, void*);
+static PyObject* ppipp(PyObject* self, PyObject* const* args,
+                       Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[5];
+  if (unpack("ppipp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((ppipp_t)fn)(a[0].p, a[1].p, a[2].i, a[3].p, a[4].p));
+}
+
+// P1-P4: (table, idx, n, m, w, out, stream)
+typedef int (*ppiiipp_t)(void*, void*, int, int, int, void*, void*);
+static PyObject* ppiiipp(PyObject* self, PyObject* const* args,
+                         Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[7];
+  if (unpack("ppiiipp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((ppiiipp_t)fn)(a[0].p, a[1].p, a[2].i, a[3].i, a[4].i, a[5].p,
+                       a[6].p));
+}
+
+// K1: (o, d, t_max, tri, n, f, any_hit, g2, g3, g5, valid, t, tri_out, b,
+// stream)
+typedef int (*ppppiiifffppppp_t)(void*, void*, void*, void*, int, int, int,
+                                 float, float, float, void*, void*, void*,
+                                 void*, void*);
+static PyObject* ppppiiifffppppp(PyObject* self, PyObject* const* args,
+                                 Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[15];
+  if (unpack("ppppiiifffppppp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((ppppiiifffppppp_t)fn)(a[0].p, a[1].p, a[2].p, a[3].p, a[4].i,
+                               a[5].i, a[6].i, a[7].f, a[8].f, a[9].f,
+                               a[10].p, a[11].p, a[12].p, a[13].p, a[14].p));
+}
+
+// K2: (table, o, d, t_max, rows, n, any_hit, stackw, g, g2, g3, g5, valid,
+// t, tri, b, stream)
+typedef int (*ppppiiiiffffppppp_t)(void*, void*, void*, void*, int, int, int,
+                                   int, float, float, float, float, void*,
+                                   void*, void*, void*, void*);
+static PyObject* ppppiiiiffffppppp(PyObject* self, PyObject* const* args,
+                                   Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[17];
+  if (unpack("ppppiiiiffffppppp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((ppppiiiiffffppppp_t)fn)(a[0].p, a[1].p, a[2].p, a[3].p, a[4].i,
+                                 a[5].i, a[6].i, a[7].i, a[8].f, a[9].f,
+                                 a[10].f, a[11].f, a[12].p, a[13].p,
+                                 a[14].p, a[15].p, a[16].p));
+}
+
+#define ENTRY(name) \
+  {#name, (PyCFunction)(void (*)(void))name, METH_FASTCALL, NULL}
+
+static PyMethodDef methods[] = {
+    ENTRY(ppiipp),          ENTRY(ppipp),
+    ENTRY(ppiiipp),         ENTRY(ppppiiifffppppp),
+    ENTRY(ppppiiiiffffppppp), {NULL, NULL, 0, NULL}};
+
+static struct PyModuleDef module = {
+    PyModuleDef_HEAD_INIT, "pylaunch",
+    "CPython entry points to the port's C kernel launchers.", -1, methods};
+
+PyMODINIT_FUNC PyInit_pylaunch(void) { return PyModule_Create(&module); }

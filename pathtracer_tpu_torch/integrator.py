@@ -125,12 +125,16 @@ class TracedScene:
         return self.tri_pack.device
 
     @staticmethod
-    def create(sd: SceneData, max_leaf: int = 4) -> "TracedScene":
-        """Pack the scene on its own device. Above 128 triangles it takes
-        the reference's BVH route (``use_bvh = f > 128``): the binary SAH
-        build, the triangles reordered into its leaf order, and the
-        32-wide collapse."""
-        if int(sd.p0.shape[0]) <= 128:
+    def create(sd: SceneData, use_bvh: bool | None = None,
+               max_leaf: int = 4) -> "TracedScene":
+        """Pack the scene on its own device. With ``use_bvh`` (by default
+        above 128 triangles, the reference's rule) it takes the BVH route,
+        kernel K2: the binary SAH build, the triangles reordered into its
+        leaf order, and the 32-wide collapse. Without it, the brute-force
+        route, kernel K1, which takes any number of triangles."""
+        if use_bvh is None:
+            use_bvh = int(sd.p0.shape[0]) > 128
+        if not use_bvh:
             return TracedScene.from_tables(sd)
         _check_scene(sd)  # before the build, not only after it
         bvh = build_bvh(sd.p0.cpu().numpy(), sd.p1.cpu().numpy(),

@@ -1,27 +1,40 @@
 """Build, load and launch helpers shared by the port's native sources.
 
-Each source is compiled at first use into a shared library with a plain C
-interface under the gitignored ``pathtracer_tpu_torch/build/``, named by a
-hash of the source and the flags, and loaded with ctypes. A library that
-is already there is reused; concurrent builds agree, as each writes a
-temporary file and renames it into place.
+Each source is compiled at first use into a shared library under the
+gitignored ``pathtracer_tpu_torch/build/``, named by a hash of the source
+and the flags. A library that is already there is reused; concurrent
+builds agree, as each writes a temporary file and renames it into place.
 
-Every kernel wrapper goes through ``check`` (its tensors, in one pass) and
-``launch`` (the C launcher on PyTorch's current stream). The launch path is
-the host's cost of every call, so it does the least it can: each C
-function is resolved once, at load; the stream's raw handle comes from
+A CUDA source exports plain C launchers (``pt_<kernel>_launch``). They are
+called through ``csrc/pylaunch.c``, a CPython module of one METH_FASTCALL
+function per launcher signature, built with the host C compiler against
+Python's own headers (no PyTorch headers: it builds in a second or two).
+``bind`` resolves each launcher's address once, when its library is
+loaded; a launcher is then the pair (trampoline, address).
+
+Every kernel wrapper checks its tensors with a fast test of the case it
+launches for (dtype by identity, ``get_device()``, ``is_contiguous()``,
+its shapes) and, only where that test fails, with ``check`` (one pass
+that raises the error for what is wrong, or finds CPU tensors); then it
+calls ``launch``, which runs the launcher on PyTorch's current stream. The
+launch path is the host's cost of every call, so it does the least it
+can: the stream's raw handle comes from
 ``torch._C._cuda_getCurrentRawStream`` (what ``torch.compile``'s generated
-code calls), not from a ``torch.cuda.Stream`` built per call; a device
-guard is entered only for a tensor that is not on the current device.
+code calls), and a device guard is entered only for a tensor that is not
+on the current device. Each wrapper calls ``launch`` itself and counts the
+launch, with no helper frame between them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 
 import torch
@@ -92,25 +105,63 @@ def build_cuda(name: str, verbose: bool = False, defines: tuple = ()) -> str:
 
 
 def load_cuda(name: str, signatures: dict, defines: tuple = ()) -> dict:
-    """Build (if needed) and load ``csrc/<name>``, and resolve each C
-    launcher of ``signatures`` ({name: argument types, the stream last})
-    once. Every launcher returns an int error code (0 = cudaSuccess).
-    Returns {name: ctypes function}."""
-    lib = ctypes.CDLL(build_cuda(name, defines=defines))
-    fns = {}
-    for fn_name, argtypes in signatures.items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        fns[fn_name] = fn
-    return fns
+    """Build (if needed) and load ``csrc/<name>``, and bind the launcher of
+    each kernel of ``signatures`` (as ``bind``). Returns {kernel:
+    launcher}."""
+    return bind(build_cuda(name, defines=defines), signatures)
 
 
-def check(what: str, tensors: dict, dtypes) -> torch.device:
+def load_extension(path: str):
+    """Load the CPython module ``pylaunch`` (``csrc/pylaunch.c``) from the
+    library at ``path``."""
+    loader = importlib.machinery.ExtensionFileLoader("pylaunch", path)
+    module = importlib.util.module_from_spec(
+        importlib.util.spec_from_loader("pylaunch", loader))
+    loader.exec_module(module)
+    return module
+
+
+def build_pylaunch() -> str:
+    """Compile ``csrc/pylaunch.c`` with ``cc`` against this interpreter's
+    headers into BUILD_DIR (once). Returns its path; a failed build
+    raises."""
+    include = sysconfig.get_paths()["include"]
+    return build_library(os.path.join(CSRC_DIR, "pylaunch.c"), "cc",
+                         ("-O2", "-shared", "-fPIC", f"-I{include}"))
+
+
+_pylaunch = None
+
+
+def pylaunch():
+    """The trampoline module, built (``build_pylaunch``) and loaded once."""
+    global _pylaunch
+    if _pylaunch is None:
+        _pylaunch = load_extension(build_pylaunch())
+    return _pylaunch
+
+
+def bind(path: str, signatures: dict) -> dict:
+    """Load the shared library at ``path`` and resolve the C launcher
+    ``pt_<kernel>_launch`` of each kernel of ``signatures`` ({kernel:
+    signature}) once. A signature has one letter an argument (p a pointer,
+    i an int, f a float; the stream last) and names the trampoline of
+    ``csrc/pylaunch.c`` that calls the launcher. Every launcher returns an
+    int error code (0 = cudaSuccess). Returns {kernel: (trampoline,
+    address)}; ctypes never unloads a library, so the addresses stay
+    valid."""
+    lib, tramp = ctypes.CDLL(path), pylaunch()
+    return {kernel: (getattr(tramp, sig), ctypes.cast(
+        getattr(lib, f"pt_{kernel}_launch"), ctypes.c_void_p).value)
+        for kernel, sig in signatures.items()}
+
+
+def check(what: str, tensors: dict, dtypes) -> int:
     """One pass over ``tensors`` ({name: tensor}, the first one's device
     the reference): each must be a torch.Tensor of its dtype (``dtypes``:
     one dtype, or {name: dtype}) on that device, and contiguous on a CUDA
-    device; the device must be cpu or cuda. Returns the device."""
+    device; the device must be cpu or cuda. Raises for the first that is
+    not. Returns the CUDA device's index, or -1 for CPU tensors."""
     dev = None
     for name, x in tensors.items():
         if not isinstance(x, torch.Tensor):
@@ -127,17 +178,24 @@ def check(what: str, tensors: dict, dtypes) -> torch.device:
             raise ValueError(f"{name} is on {x.device}, expected {dev}")
         if cuda and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return dev
+    return dev.index if cuda else -1
 
 
-def launch(fn, what: str, dev: torch.device, *args) -> None:
-    """Call the C launcher ``fn(*args, stream)`` on PyTorch's current
-    stream of CUDA device ``dev``; raise if the launch reports an error."""
-    index = dev.index
-    if index == torch._C._cuda_getDevice():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+# PyTorch's current CUDA device and the raw handle of a device's current
+# stream (absent from a CPU-only build of PyTorch, where nothing launches)
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def launch(fn, what: str, index: int, *args) -> None:
+    """Call the C launcher ``fn`` (from ``bind``) with ``(*args, stream)``
+    on PyTorch's current stream of CUDA device ``index``; raise if the
+    launch reports an error."""
+    call, address = fn
+    if index == _current_device():
+        err = call(address, *args, _raw_stream(index))
     else:
         with torch.cuda.device(index):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    if err != 0:
+            err = call(address, *args, _raw_stream(index))
+    if err:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

@@ -11,8 +11,6 @@ between the two: a CUDA input that the kernel cannot take raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ...accel import bvhw as plain
@@ -21,11 +19,9 @@ from ..intersect import GAMMA2, GAMMA3, GAMMA5
 from . import _build
 
 SOURCE = "bvhw.cu"
-# the C launcher's arguments: table, o, d, t_max; rows, n, any_hit, stackw;
-# g, g2, g3, g5; valid, t, tri, b, stream
-SIGNATURES = {"pt_bvhw_launch": (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-    + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)}
+# the launcher's signature (ops/cuda/_build.bind): table, o, d, t_max;
+# rows, n, any_hit, stackw; g, g2, g3, g5; valid, t, tri, b, stream
+SIGNATURES = {"bvhw": "ppppiiiiffffppppp"}
 
 # kernel launches made by ``bvhw_intersect`` (CPU calls never count)
 LAUNCHES = 0
@@ -45,9 +41,28 @@ def _load() -> dict:
     return _fns
 
 
+F32 = torch.float32
+
+
 def _check(table, o, d, t_max):
+    """Check an (R >= 2, 256) table, (N, 3) o and d and (N,) t_max, all
+    f32. Returns (the CUDA device's index, or -1 for CPU tensors; N)."""
+    try:  # the case a launch takes, in the fewest attribute reads
+        dev, shape, tshape = table.get_device(), o.shape, table.shape
+        if table.dtype is F32 and o.dtype is F32 and d.dtype is F32 \
+                and t_max.dtype is F32 and table.is_cuda \
+                and o.get_device() == dev and d.get_device() == dev \
+                and t_max.get_device() == dev and table.is_contiguous() \
+                and o.is_contiguous() and d.is_contiguous() \
+                and t_max.is_contiguous() and len(shape) == 2 \
+                and shape[1] == 3 and d.shape == shape \
+                and t_max.shape == shape[:1] and len(tshape) == 2 \
+                and tshape[1] == WW and tshape[0] >= 2:
+            return dev, shape[0]
+    except AttributeError:  # not a tensor: check raises for it
+        pass
     dev = _build.check("bvhw_intersect", dict(table=table, o=o, d=d,
-                                              t_max=t_max), torch.float32)
+                                              t_max=t_max), F32)
     n = o.shape[0] if o.dim() == 2 else -1
     if o.dim() != 2 or o.shape[1] != 3 or tuple(d.shape) != (n, 3):
         raise ValueError(f"o, d must be (N, 3), got {tuple(o.shape)}, "
@@ -74,19 +89,19 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
     dev, n = _check(table, o, d, t_max)
     if not 1 <= stackw <= STACKW:
         raise ValueError(f"stackw must be in [1, {STACKW}], got {stackw}")
-    if not o.is_cuda:
+    if dev < 0:
         return plain.bvhw_intersect(table, o, d, t_max, any_hit, stackw)
-    valid = torch.empty(n, dtype=torch.bool, device=dev)
-    t = tri = b = None
-    if not any_hit:
-        t = torch.empty(n, dtype=torch.float32, device=dev)
-        tri = torch.empty(n, dtype=torch.int32, device=dev)
-        b = torch.empty(n, 3, dtype=torch.float32, device=dev)
+    valid = torch.empty_like(t_max, dtype=torch.bool)
+    if any_hit:
+        outs = (valid.data_ptr(), 0, 0, 0)
+    else:
+        t = torch.empty_like(t_max)
+        tri = torch.empty_like(t_max, dtype=torch.int32)
+        b = torch.empty_like(o)
+        outs = (valid.data_ptr(), t.data_ptr(), tri.data_ptr(), b.data_ptr())
     if n > 0:
-        outs = [valid.data_ptr()] + ([None] * 3 if any_hit else [
-            t.data_ptr(), tri.data_ptr(), b.data_ptr()])
         _build.launch(
-            _load()["pt_bvhw_launch"], "bvhw", dev, table.data_ptr(),
+            (_fns or _load())["bvhw"], "bvhw", dev, table.data_ptr(),
             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), table.shape[0], n,
             int(bool(any_hit)), int(stackw), G_SLAB, GAMMA2, GAMMA3, GAMMA5,
             *outs)

@@ -8,13 +8,11 @@ the plain PyTorch version built on ``ops/intersect.py``. There is no
 fallback between the two: a CUDA input that the kernel cannot take raises.
 
 The kernel is compiled with nvcc at first use (``ops/cuda/_build.py``:
-``build/``, keyed by a hash of the source and flags), loaded with ctypes
-and launched through ``_build.launch``.
+``build/``, keyed by a hash of the source and flags) and launched through
+``_build.launch``.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -23,6 +21,10 @@ from ..intersect import (GAMMA2, GAMMA3, GAMMA5, intersect_brute,
 from . import _build
 
 SOURCE = "intersect.cu"
+
+# the launcher's signature (ops/cuda/_build.bind): o, d, t_max, tri_pack;
+# n, f, any_hit; g2, g3, g5; valid, t, tri, b, stream
+SIGNATURES = {"intersect": "ppppiiifffppppp"}
 
 # kernel launches made by ``intersect`` (CPU calls never count)
 LAUNCHES = 0
@@ -38,9 +40,7 @@ def build(verbose: bool = False) -> str:
 def _load() -> dict:
     global _fns
     if _fns is None:
-        _fns = _build.load_cuda(SOURCE, {"pt_intersect_launch": (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-            + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 5)})
+        _fns = _build.load_cuda(SOURCE, SIGNATURES)
     return _fns
 
 
@@ -56,9 +56,28 @@ def intersect_plain(o, d, t_max, tri_pack, any_hit: bool = False):
     return hit
 
 
+F32 = torch.float32
+
+
 def _check(o, d, t_max, tri_pack):
+    """Check (N, 3) o and d, (N,) t_max and an (F, 12) tri_pack, all f32.
+    Returns (the CUDA device's index, or -1 for CPU tensors; N)."""
+    try:  # the case a launch takes, in the fewest attribute reads
+        dev, shape, fshape = o.get_device(), o.shape, tri_pack.shape
+        if o.dtype is F32 and d.dtype is F32 and t_max.dtype is F32 \
+                and tri_pack.dtype is F32 and o.is_cuda \
+                and d.get_device() == dev and t_max.get_device() == dev \
+                and tri_pack.get_device() == dev and o.is_contiguous() \
+                and d.is_contiguous() and t_max.is_contiguous() \
+                and tri_pack.is_contiguous() and len(shape) == 2 \
+                and shape[1] == 3 and d.shape == shape \
+                and t_max.shape == shape[:1] and len(fshape) == 2 \
+                and fshape[1] == 12:
+            return dev, shape[0]
+    except AttributeError:  # not a tensor: check raises for it
+        pass
     dev = _build.check("intersect", dict(o=o, d=d, t_max=t_max,
-                                         tri_pack=tri_pack), torch.float32)
+                                         tri_pack=tri_pack), F32)
     n = o.shape[0] if o.dim() == 2 else -1
     if o.dim() != 2 or o.shape[1] != 3 or tuple(d.shape) != (n, 3):
         raise ValueError(f"o, d must be (N, 3), got {tuple(o.shape)}, "
@@ -80,19 +99,19 @@ def intersect(o, d, t_max, tri_pack, any_hit: bool = False):
     """
     global LAUNCHES
     dev, n = _check(o, d, t_max, tri_pack)
-    if not o.is_cuda:
+    if dev < 0:
         return intersect_plain(o, d, t_max, tri_pack, any_hit)
-    valid = torch.empty(n, dtype=torch.bool, device=dev)
-    t = tri = b = None
-    if not any_hit:
-        t = torch.empty(n, dtype=torch.float32, device=dev)
-        tri = torch.empty(n, dtype=torch.int32, device=dev)
-        b = torch.empty(n, 3, dtype=torch.float32, device=dev)
+    valid = torch.empty_like(t_max, dtype=torch.bool)
+    if any_hit:
+        outs = (valid.data_ptr(), 0, 0, 0)
+    else:
+        t = torch.empty_like(t_max)
+        tri = torch.empty_like(t_max, dtype=torch.int32)
+        b = torch.empty_like(o)
+        outs = (valid.data_ptr(), t.data_ptr(), tri.data_ptr(), b.data_ptr())
     if n > 0:
-        outs = [valid.data_ptr()] + ([None] * 3 if any_hit else [
-            t.data_ptr(), tri.data_ptr(), b.data_ptr()])
         _build.launch(
-            _load()["pt_intersect_launch"], "intersect", dev, o.data_ptr(),
+            (_fns or _load())["intersect"], "intersect", dev, o.data_ptr(),
             d.data_ptr(), t_max.data_ptr(), tri_pack.data_ptr(), n,
             tri_pack.shape[0], int(bool(any_hit)), GAMMA2, GAMMA3, GAMMA5,
             *outs)

@@ -23,8 +23,6 @@ as the tool's script is: it makes the tool's inputs from
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -40,6 +38,10 @@ SOURCE = "gather_probe.cu"
 LAUNCHES = {"gather_rows": 0, "gather_cols": 0, "gather_rows_warp": 0,
             "stack_push_read": 0}
 
+# each launcher's signature (ops/cuda/_build.bind)
+SIGNATURES = {"gather_rows": "ppiiipp", "gather_cols": "ppiiipp",
+              "gather_rows_warp": "ppiiipp", "stack_push_read": "ppiipp"}
+
 _fns = None
 
 
@@ -51,13 +53,7 @@ def build(verbose: bool = False) -> str:
 def _load() -> dict:
     global _fns
     if _fns is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        _fns = _build.load_cuda(SOURCE, {
-            "pt_gather_rows_launch": (vp, vp, i, i, i, vp, vp),
-            "pt_gather_cols_launch": (vp, vp, i, i, i, vp, vp),
-            "pt_gather_rows_warp_launch": (vp, vp, i, i, i, vp, vp),
-            "pt_stack_push_read_launch": (vp, vp, i, i, vp, vp),
-        })
+        _fns = _build.load_cuda(SOURCE, SIGNATURES)
     return _fns
 
 
@@ -80,18 +76,23 @@ def stack_push_read_plain(sp, v, depth: int = D):
 
 # --- wrappers
 
-
-def _launch(kernel: str, dev, out, *args):
-    """Launch ``pt_<kernel>_launch(*args, out)`` on ``dev`` and count it."""
-    _build.launch(_load()[f"pt_{kernel}_launch"], kernel, dev, *args,
-                  out.data_ptr())
-    LAUNCHES[kernel] += 1
-    return out
+F32, I32 = torch.float32, torch.int32
 
 
 def _rows_args(what: str, table, idx):
+    """Check a 2-D f32 table and (N,) i32 indices. Returns (the CUDA
+    device's index, or -1 for CPU tensors; N; the table's two sizes)."""
+    try:  # the case a launch takes, in the fewest attribute reads
+        dev, shape, tshape = table.get_device(), idx.shape, table.shape
+        if table.dtype is F32 and idx.dtype is I32 and table.is_cuda \
+                and idx.get_device() == dev and table.is_contiguous() \
+                and idx.is_contiguous() and len(tshape) == 2 \
+                and len(shape) == 1:
+            return dev, shape[0], tshape[0], tshape[1]
+    except AttributeError:  # not a tensor: check raises for it
+        pass
     dev = _build.check(what, dict(table=table, idx=idx),
-                       dict(table=torch.float32, idx=torch.int32))
+                       dict(table=F32, idx=I32))
     if table.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"table must be (M, W) and idx (N,), got "
                          f"{tuple(table.shape)}, {tuple(idx.shape)}")
@@ -101,48 +102,72 @@ def _rows_args(what: str, table, idx):
 def gather_rows(table, idx):
     """P1 / P2: (M, W) f32 table, (N,) i32 idx -> (N, W)."""
     dev, n, m, w = _rows_args("gather_rows", table, idx)
-    if not table.is_cuda:
+    if dev < 0:
         return gather_rows_plain(table, idx)
-    out = torch.empty(n, w, dtype=torch.float32, device=dev)
-    return _launch("gather_rows", dev, out,
-                   table.data_ptr(), idx.data_ptr(), n, m, w)
+    out = torch.empty(n, w, dtype=F32, device=table.device)
+    if out.numel():
+        _build.launch((_fns or _load())["gather_rows"], "gather_rows", dev,
+                      table.data_ptr(), idx.data_ptr(), n, m, w,
+                      out.data_ptr())
+        LAUNCHES["gather_rows"] += 1
+    return out
 
 
 def gather_rows_warp(table, idx):
     """P4: as gather_rows, one warp per output row."""
     dev, n, m, w = _rows_args("gather_rows_warp", table, idx)
-    if not table.is_cuda:
+    if dev < 0:
         return gather_rows_plain(table, idx)
-    out = torch.empty(n, w, dtype=torch.float32, device=dev)
-    return _launch("gather_rows_warp", dev, out,
-                   table.data_ptr(), idx.data_ptr(), n, m, w)
+    out = torch.empty(n, w, dtype=F32, device=table.device)
+    if out.numel():
+        _build.launch((_fns or _load())["gather_rows_warp"],
+                      "gather_rows_warp", dev, table.data_ptr(),
+                      idx.data_ptr(), n, m, w, out.data_ptr())
+        LAUNCHES["gather_rows_warp"] += 1
+    return out
 
 
 def gather_cols(table_t, idx):
     """P3: (W, M) f32 column-major table, (N,) i32 idx -> (W, N)."""
     dev, n, w, m = _rows_args("gather_cols", table_t, idx)
-    if not table_t.is_cuda:
+    if dev < 0:
         return gather_cols_plain(table_t, idx)
-    out = torch.empty(w, n, dtype=torch.float32, device=dev)
-    return _launch("gather_cols", dev, out,
-                   table_t.data_ptr(), idx.data_ptr(), n, m, w)
+    out = torch.empty(w, n, dtype=F32, device=table_t.device)
+    if out.numel():
+        _build.launch((_fns or _load())["gather_cols"], "gather_cols", dev,
+                      table_t.data_ptr(), idx.data_ptr(), n, m, w,
+                      out.data_ptr())
+        LAUNCHES["gather_cols"] += 1
+    return out
 
 
 def stack_push_read(sp, v, depth: int = D):
     """P5: (N,) i32 stack pointers in [0, depth), (N,) f32 values ->
     (N,) f32, each value read back from where it was pushed."""
-    dev = _build.check("stack_push_read", dict(sp=sp, v=v),
-                       dict(sp=torch.int32, v=torch.float32))
-    if sp.dim() != 1 or tuple(v.shape) != tuple(sp.shape):
-        raise ValueError(f"sp and v must be (N,), got {tuple(sp.shape)}, "
-                         f"{tuple(v.shape)}")
+    try:  # the case a launch takes, in the fewest attribute reads
+        dev, shape = sp.get_device(), sp.shape
+        fast = sp.dtype is I32 and v.dtype is F32 and sp.is_cuda \
+            and v.get_device() == dev and sp.is_contiguous() \
+            and v.is_contiguous() and len(shape) == 1 and v.shape == shape
+    except AttributeError:  # not a tensor: check raises for it
+        fast = False
+    if not fast:
+        dev = _build.check("stack_push_read", dict(sp=sp, v=v),
+                           dict(sp=I32, v=F32))
+        if sp.dim() != 1 or tuple(v.shape) != tuple(sp.shape):
+            raise ValueError(f"sp and v must be (N,), got "
+                             f"{tuple(sp.shape)}, {tuple(v.shape)}")
     if not 1 <= depth <= D:
         raise ValueError(f"depth must be in [1, {D}], got {depth}")
-    if not sp.is_cuda:
+    if dev < 0:
         return stack_push_read_plain(sp, v, depth)
-    out = torch.empty(v.shape[0], dtype=torch.float32, device=dev)
-    return _launch("stack_push_read", dev, out,
-                   sp.data_ptr(), v.data_ptr(), v.shape[0], depth)
+    out = torch.empty_like(v)
+    if out.numel():
+        _build.launch((_fns or _load())["stack_push_read"], "stack_push_read",
+                      dev, sp.data_ptr(), v.data_ptr(), out.shape[0], depth,
+                      out.data_ptr())
+        LAUNCHES["stack_push_read"] += 1
+    return out
 
 
 # --- the probe

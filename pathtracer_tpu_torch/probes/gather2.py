@@ -25,8 +25,6 @@ point, as the tool's script is: it makes the tool's inputs from
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -41,6 +39,10 @@ SOURCE = "gather_probe2.cu"
 LAUNCHES = {"gather_sublane": 0, "gather_lane": 0, "gather_two_step": 0,
             "onehot_matmul": 0}
 
+# each launcher's signature (ops/cuda/_build.bind)
+SIGNATURES = {"gather_sublane": "ppiipp", "gather_lane": "ppipp",
+              "gather_two_step": "ppiipp", "onehot_matmul": "ppipp"}
+
 _fns = None
 
 
@@ -52,13 +54,7 @@ def build(verbose: bool = False) -> str:
 def _load() -> dict:
     global _fns
     if _fns is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        _fns = _build.load_cuda(SOURCE, {
-            "pt_gather_sublane_launch": (vp, vp, i, i, vp, vp),
-            "pt_gather_lane_launch": (vp, vp, i, vp, vp),
-            "pt_gather_two_step_launch": (vp, vp, i, i, vp, vp),
-            "pt_onehot_matmul_launch": (vp, vp, i, vp, vp),
-        })
+        _fns = _build.load_cuda(SOURCE, SIGNATURES)
     return _fns
 
 
@@ -88,12 +84,25 @@ def onehot_matmul_plain(tbl, idx):
 
 # --- wrappers
 
+F32, I32 = torch.float32, torch.int32
+
 
 def _lane_args(what: str, table, idx, table_rows=None):
-    """Check a (rows, 128) f32 table and (S, 128) i32 indices. Returns
-    their device and S."""
+    """Check a (rows, 128) f32 table (of ``table_rows`` rows where given)
+    and (S, 128) i32 indices. Returns (the CUDA device's index, or -1 for
+    CPU tensors; S)."""
+    try:  # the case a launch takes, in the fewest attribute reads
+        dev, shape, tshape = table.get_device(), idx.shape, table.shape
+        if table.dtype is F32 and idx.dtype is I32 and table.is_cuda \
+                and idx.get_device() == dev and table.is_contiguous() \
+                and idx.is_contiguous() and len(shape) == 2 == len(tshape) \
+                and shape[1] == L == tshape[1] \
+                and table_rows in (None, tshape[0]):
+            return dev, shape[0]
+    except AttributeError:  # not a tensor: check raises for it
+        pass
     dev = _build.check(what, dict(table=table, idx=idx),
-                       dict(table=torch.float32, idx=torch.int32))
+                       dict(table=F32, idx=I32))
     if table.dim() != 2 or table.shape[1] != L or idx.dim() != 2 \
             or idx.shape[1] != L:
         raise ValueError(f"table must be (rows, {L}) and idx (S, {L}), got "
@@ -104,43 +113,46 @@ def _lane_args(what: str, table, idx, table_rows=None):
     return dev, idx.shape[0]
 
 
-def _launch(kernel: str, dev, out, *args):
-    """Launch ``pt_<kernel>_launch(*args, out)`` on ``dev`` and count it."""
-    _build.launch(_load()[f"pt_{kernel}_launch"], kernel, dev, *args,
-                  out.data_ptr())
-    LAUNCHES[kernel] += 1
-    return out
-
-
 def gather_sublane(data, idx):
     """P6: (C, 128) f32 data, (S, 128) i32 idx in [0, C) -> (S, 128)."""
     dev, s = _lane_args("gather_sublane", data, idx)
-    if not data.is_cuda:
+    if dev < 0:
         return gather_sublane_plain(data, idx)
-    out = torch.empty(s, L, dtype=torch.float32, device=dev)
-    return _launch("gather_sublane", dev, out, data.data_ptr(),
-                   idx.data_ptr(), s, data.shape[0])
+    out = torch.empty_like(idx, dtype=F32)
+    if s:
+        _build.launch((_fns or _load())["gather_sublane"], "gather_sublane",
+                      dev, data.data_ptr(), idx.data_ptr(), s, data.shape[0],
+                      out.data_ptr())
+        LAUNCHES["gather_sublane"] += 1
+    return out
 
 
 def gather_lane(data, idx):
     """P7: (S, 128) f32 data, (S, 128) i32 idx in [0, 128) -> (S, 128)."""
     dev, s = _lane_args("gather_lane", data, idx, table_rows=idx.shape[0])
-    if not data.is_cuda:
+    if dev < 0:
         return gather_lane_plain(data, idx)
-    out = torch.empty(s, L, dtype=torch.float32, device=dev)
-    return _launch("gather_lane", dev, out, data.data_ptr(), idx.data_ptr(),
-                   s)
+    out = torch.empty_like(data)
+    if s:
+        _build.launch((_fns or _load())["gather_lane"], "gather_lane", dev,
+                      data.data_ptr(), idx.data_ptr(), s, out.data_ptr())
+        LAUNCHES["gather_lane"] += 1
+    return out
 
 
 def gather_two_step(flat2, idx):
     """P8: (C, 128) f32 flat2, (S, 128) i32 idx in [0, 128 C) -> (S, 128),
     the TPU kernel's composite (module docstring)."""
     dev, s = _lane_args("gather_two_step", flat2, idx)
-    if not flat2.is_cuda:
+    if dev < 0:
         return gather_two_step_plain(flat2, idx)
-    out = torch.empty(s, L, dtype=torch.float32, device=dev)
-    return _launch("gather_two_step", dev, out, flat2.data_ptr(),
-                   idx.data_ptr(), s, flat2.shape[0])
+    out = torch.empty_like(idx, dtype=F32)
+    if s:
+        _build.launch((_fns or _load())["gather_two_step"], "gather_two_step",
+                      dev, flat2.data_ptr(), idx.data_ptr(), s,
+                      flat2.shape[0], out.data_ptr())
+        LAUNCHES["gather_two_step"] += 1
+    return out
 
 
 def onehot_matmul(tbl, idx, out=None):
@@ -150,18 +162,22 @@ def onehot_matmul(tbl, idx, out=None):
     reads and writes 16 bytes at a time, so a CUDA ``tbl`` and ``out``
     must be 16-byte aligned."""
     dev, s = _lane_args("onehot_matmul", tbl, idx, table_rows=L)
-    if not tbl.is_cuda:
+    if dev < 0:
         return onehot_matmul_plain(tbl, idx)
     if out is None:
-        out = torch.empty(s, L, L, dtype=torch.float32, device=dev)
-    elif out.shape != (s, L, L) or out.dtype != torch.float32 or \
-            out.device != dev or not out.is_contiguous():
+        out = torch.empty(s, L, L, dtype=F32, device=tbl.device)
+    elif out.shape != (s, L, L) or out.dtype != F32 or \
+            out.device != tbl.device or not out.is_contiguous():
         raise ValueError(f"out must be a contiguous {(s, L, L)} float32 "
-                         f"tensor on {dev}")
+                         f"tensor on {tbl.device}")
     tbl_ptr = tbl.data_ptr()
     if tbl_ptr % 16 or out.data_ptr() % 16:
         raise ValueError("tbl and out must be 16-byte aligned")
-    return _launch("onehot_matmul", dev, out, tbl_ptr, idx.data_ptr(), s * L)
+    if s:
+        _build.launch((_fns or _load())["onehot_matmul"], "onehot_matmul",
+                      dev, tbl_ptr, idx.data_ptr(), s * L, out.data_ptr())
+        LAUNCHES["onehot_matmul"] += 1
+    return out
 
 
 # --- the probe

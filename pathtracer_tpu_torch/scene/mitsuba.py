@@ -16,8 +16,8 @@ from ..core.camera import Camera
 from . import meshgen
 from .scene import MAT_MATTE, SceneBuilder, SceneData
 
-_MORE_MATERIALS = ("ROADMAP Queue 1 item 9b (Mitsuba import of the other "
-                   "BSDFs, textures, shapes and emitters)")
+_ITEM_9B = ("ROADMAP Queue 1 item 9b (Mitsuba import of the other "
+            "BSDFs, textures, shapes and emitters)")
 
 
 def _floats(el) -> dict[str, float]:
@@ -49,9 +49,9 @@ def _material_from_bsdf(scene_builder: SceneBuilder, el) -> int:
     if kind == "twosided":
         return _material_from_bsdf(scene_builder, el.find("bsdf"))
     if kind != "diffuse":
-        raise NotImplementedError(f"bsdf type {kind!r}: {_MORE_MATERIALS}")
+        raise NotImplementedError(f"bsdf type {kind!r}: {_ITEM_9B}")
     if el.find("texture") is not None:
-        raise NotImplementedError(f"textured diffuse: {_MORE_MATERIALS}")
+        raise NotImplementedError(f"textured diffuse: {_ITEM_9B}")
     kd = _rgbs(el).get("reflectance", np.ones(3, np.float32))
     return scene_builder.add_material(mtype=MAT_MATTE, kd=kd)
 
@@ -118,9 +118,7 @@ def load_mitsuba(path: str, resolution=None, device="cuda"):
         elif kind == "cube":
             pos, idx, nrm, uv = meshgen.gen_cube()
         else:
-            raise NotImplementedError(
-                f"shape type {kind!r}: ROADMAP Queue 1 item 10 (BVH scenes "
-                "and mesh import)")
+            raise NotImplementedError(f"shape type {kind!r}: {_ITEM_9B}")
         pos, nrm = meshgen.transform_mesh(pos, nrm, matrix)
 
         ref_el = shape.find("ref")
@@ -138,13 +136,13 @@ def load_mitsuba(path: str, resolution=None, device="cuda"):
             if emitter.get("type") != "area":
                 kind = emitter.get("type")
                 raise NotImplementedError(
-                    f"shape emitter {kind!r}: {_MORE_MATERIALS}")
+                    f"shape emitter {kind!r}: {_ITEM_9B}")
             emission = _rgbs(emitter)["radiance"]
         scene_builder.add_mesh(pos, idx, nrm, uv, mat_id, emission)
 
     for emitter in root.findall("emitter"):
         raise NotImplementedError(
-            f"scene emitter {emitter.get('type')!r}: {_MORE_MATERIALS}")
+            f"scene emitter {emitter.get('type')!r}: {_ITEM_9B}")
 
     scene: SceneData = scene_builder.build(device=device)
     return camera, scene, settings

@@ -1,9 +1,11 @@
 """Kernels K1, K2 and the gather probes P1-P9 on the card against their
 plain PyTorch versions.
 
-These tests need a CUDA card (marked ``cuda``; without one they skip: the
-kernel has no CPU or interpret mode). The file imports neither JAX nor
-the JAX package, so it also runs where JAX is not installed:
+Every kernel is called as the wrappers call it: through the CPython
+trampolines of ``csrc/pylaunch.c``. These tests need a CUDA card (marked
+``cuda``; without one they skip: the kernel has no CPU or interpret mode).
+The file imports neither JAX nor the JAX package, so it also runs where
+JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -277,6 +279,34 @@ def test_gather_probe2_matches_plain(dev, pid):
     torch.cuda.synchronize()
     assert sum(pg2.LAUNCHES.values()) == before + 1
     assert torch.equal(got, pg2.PLAIN[pid](x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 1, 3, 65, 0])
+def test_gather_sublane_and_lane_ragged_rows(dev, rows):
+    """P6 and P7 through the launch path at the probe's and at ragged row
+    counts: equal to their plain versions, one launch a call (none for
+    zero rows)."""
+    rng = np.random.default_rng(rows)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    data_g = t(rng.random((pg2.C, 128), np.float32))
+    idx_g = t(rng.integers(0, pg2.C, (rows, 128)).astype(np.int32))
+    data_h = t(rng.random((rows, 128), np.float32))
+    idx_h = t(rng.integers(0, 128, (rows, 128)).astype(np.int32))
+    before = dict(pg2.LAUNCHES)
+    got_g = pg2.gather_sublane(data_g, idx_g)
+    got_h = pg2.gather_lane(data_h, idx_h)
+    torch.cuda.synchronize()
+    launched = int(rows > 0)
+    assert pg2.LAUNCHES == dict(before, gather_sublane=before[
+        "gather_sublane"] + launched, gather_lane=before["gather_lane"]
+        + launched)
+    assert got_g.shape == got_h.shape == (rows, 128)
+    assert got_g.is_contiguous() and got_h.is_contiguous()
+    assert torch.equal(got_g, pg2.gather_sublane_plain(data_g, idx_g))
+    assert torch.equal(got_h, pg2.gather_lane_plain(data_h, idx_h))
 
 
 @pytest.mark.cuda
