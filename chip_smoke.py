@@ -12,9 +12,15 @@ printing one JSON line:
              (csrc/pylaunch.c) with cc and the native BVH builder
              (csrc/bvh_builder.cpp) with g++, all at once;
 3. k1      - K1 against its plain PyTorch version on the card, at the main
-             path's shapes (131,072 rays x cornell's 36 triangles): hit
-             flags, triangle ids and any-hit identical, t and b to
-             rtol 1e-6 / atol 1e-7; both timed (below);
+             path's shapes (131,072 rays x cornell's 36 triangles, camera
+             and shadow rays mixed): valid, tri, t, b and any-hit
+             ``torch.equal``; then the same on the render set, the rays
+             of the closest-hit query at bounce 2 of the last row band of
+             a 640x480 cornell render (130,732 lanes, mostly dead: the
+             band's padding rows and the finished paths), with the
+             integrator's t_max (0 on lanes not active) and with t_max inf
+             on every lane; all timed (below); K1's registers and spills
+             from ptxas;
 4. golden  - cornell 32x32, 2 spp, depth 3 ("ref" MIS) against
              tests/golden_cornell_32.npz (the JAX film) at RMSE < 1e-3 and
              alpha rtol 1e-5, with the exact K1 launch count; then the
@@ -73,10 +79,11 @@ printing one JSON line:
              whole image (valid, tri, t and b identical, closest and any
              hit);
 13. profile - device times from a torch.profiler trace: K1's and K2's
-             (both ray sets, closest and any hit), P1-P9's and their library
-             calls'; then one box-field render (as phase 8) under the
-             profiler: its device time, K2's share of it and the launches
-             (last, as tracing slows later launches).
+             (both ray sets each, closest and any hit), P1-P9's and their
+             library calls'; then one cornell render (as phase 5, at
+             2 spp) and one box-field render (as phase 8) under the
+             profiler: the device time, K1's or K2's share of it and the
+             launches (last, as tracing slows later launches).
 
 "Timed" is three figures on CUDA events and the host clock: ``ms``, per
 call over 100 back-to-back calls (the median of 5 such runs);
@@ -131,13 +138,21 @@ MAT_SPP = 4
 # median (single renders of one tree have spread by up to 1.8x on a
 # shared host)
 RENDER_REPS = 3
+# traces ``kernel_device_ms`` takes before it gives up on an empty one
+PROFILE_ATTEMPTS = 3
+# samples of the profiled cornell render: phase 5's 16 give a trace of
+# ~673,000 device events, costly to process on the host; K1's share is
+# that of every sample
+PROFILE_CORNELL_SPP = 2
 
 # the H100 SXM's published peaks (NVIDIA data sheet; 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # FP32 operations every ray-triangle pair pays in the watertight test
 # before its early exit: 9 translations, 6 shear multiply-adds (12) and
-# 3 edge functions of two products and a difference (9)
+# 3 edge functions of two products and a difference (9). The kernels are
+# built unfused (-fmad=false), so each is one instruction: they reach at
+# most half the FMA peak of 67 TFLOP/s that the bound divides by
 PAIR_OPS = 30
 # per occupied child slab test of a BVH32 interior row: per axis 2
 # subtractions, 2 multiplies, a min, a max and the gamma scaling (21), the
@@ -154,6 +169,28 @@ def bound(nbytes: float, ops: float) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, ops=ops)
+
+
+def ray_bytes(n: int, live: int) -> float:
+    """The bytes an intersection query of ``n`` lanes must move for its
+    rays, ``live`` of them with a t_max > 0: each lane's t_max (4 B) and
+    its record (valid, t, tri, b: 21 B), and a live lane's o and d (24 B).
+    A lane whose t_max is not > 0 is a miss whatever its ray, so the
+    function needs no more of it."""
+    return 25.0 * n + 24.0 * live
+
+
+def max_abs_err(pairs) -> float:
+    """The largest |got - want| over ``(got, want)`` tensor pairs, 0 where
+    the two are equal (infinities included)."""
+    import torch
+    err = 0.0
+    for got, want in pairs:
+        diff = (got.double() - want.double()).abs()
+        diff = torch.where(got == want, 0.0, diff)
+        if diff.numel():
+            err = max(err, float(diff.max()))
+    return err
 
 
 def emit(obj) -> None:
@@ -275,18 +312,26 @@ def kernel_device_ms(fn, name: str | None = None,
     """Mean device time (ms) per call of ``fn`` from torch.profiler's
     CUPTI trace: of the CUDA kernels whose name contains ``name``, or of
     all its device work with no name. The kernel alone, without the
-    host's per-call dispatch gaps that CUDA events around a call count."""
+    host's per-call dispatch gaps that CUDA events around a call count.
+    A trace that holds none of it is reported on stderr and taken again,
+    up to PROFILE_ATTEMPTS traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if name is None or name in e.key)
-    if us <= 0:
-        raise AssertionError(f"profiler saw no device time for {name}")
-    return us / reps / 1e3
+    for attempt in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        us = sum(e.self_device_time_total for e in events
+                 if name is None or name in e.key)
+        if us > 0:
+            return us / reps / 1e3
+        seen = [e.key for e in events][:8]
+        print(f"kernel_device_ms: trace {attempt + 1} of "
+              f"{PROFILE_ATTEMPTS} held no device time for {name} (it "
+              f"held {seen})", file=sys.stderr, flush=True)
+    raise AssertionError(f"profiler saw no device time for {name}")
 
 
 def first_band_rays(cam, integ, dev):
@@ -371,51 +416,127 @@ def k1_inputs(dev, n_rays: int = K1_RAYS, resolution=(640, 480)):
     return scene, o_all, d_all, t_all
 
 
-def phase_k1(dev):
+def k1_render_inputs(dev, bounce: int = 2, resolution=(640, 480)):
+    """K1's second ray set, the rays of a render: the closest-hit query
+    at bounce ``bounce`` of the last row band of a 640x480 cornell render
+    (phase 5's configuration at 1 spp): 203 rows of 644 lanes, of which
+    the rows below the image are padding, dead from the start, and the
+    paths that ended are dead too. Returns (scene, o, d, t_live, t_inf):
+    t_live the integrator's rule (inf on the active lanes, 0 on the
+    others), t_inf inf on every lane."""
+    import torch
+
+    from pathtracer_tpu_torch import integrator as im
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    cam, sd, _ = load_mitsuba(CORNELL, resolution=resolution, device=dev)
+    scene = im.TracedScene.create(sd)
+    integ = im.PathIntegrator(im.PathConfig(max_depth=5,
+                                            mis_mode="onesample"), spp=1)
+    seen, wave_bounce = [], im._wave_bounce
+
+    def record(scene_, cfg, b, st, draw, draw2):
+        if b == bounce:
+            seen.append((st["o"], st["d"], st["active"]))
+        return wave_bounce(scene_, cfg, b, st, draw, draw2)
+    im._wave_bounce = record
+    try:
+        integ.render(cam, scene)
+    finally:
+        im._wave_bounce = wave_bounce
+    o, d, active = seen[-1]  # the last band
+    t_inf = torch.full((o.shape[0],), torch.inf, device=dev)
+    return (scene, o.contiguous(), d.contiguous(),
+            torch.where(active, torch.inf, 0.0), t_inf)
+
+
+def k1_check(o, d, t_max, tri_pack, what: str):
+    """K1 against its plain version, closest and any hit: every output
+    ``torch.equal``. Returns (plain closest hit, plain any hit, the
+    largest |error| of t and b)."""
     import torch
 
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
 
-    scene, o, d, t_max = k1_inputs(dev)
-    n, f = o.shape[0], scene.tri_pack.shape[0]
-    got = k1.intersect(o, d, t_max, scene.tri_pack)
-    want = k1.intersect_plain(o, d, t_max, scene.tri_pack)
-    got_any = k1.intersect(o, d, t_max, scene.tri_pack, any_hit=True)
-    want_any = k1.intersect_plain(o, d, t_max, scene.tri_pack, any_hit=True)
+    got = k1.intersect(o, d, t_max, tri_pack)
+    got_any = k1.intersect(o, d, t_max, tri_pack, any_hit=True)
+    want = k1.intersect_plain(o, d, t_max, tri_pack)
+    want_any = k1.intersect_plain(o, d, t_max, tri_pack, any_hit=True)
     torch.cuda.synchronize()
-    if not torch.equal(got["valid"], want["valid"]):
-        raise AssertionError("K1 valid differs from the plain version")
-    if not torch.equal(got["tri"], want["tri"]):
-        raise AssertionError("K1 tri differs from the plain version")
+    for key in ("valid", "tri", "t", "b"):
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"K1 {key} differs from the plain version "
+                                 f"({what})")
     if not torch.equal(got_any, want_any):
-        raise AssertionError("K1 any-hit differs from the plain version")
+        raise AssertionError(f"K1 any-hit differs from the plain version "
+                             f"({what})")
     hit = want["valid"]
     if int(hit.sum()) == 0 or bool(hit.all()):
-        raise AssertionError("K1 inputs need both hits and misses")
-    errs = {}
-    for key in ("t", "b"):
-        a, b = got[key], want[key]
-        torch.testing.assert_close(a[hit], b[hit], rtol=1e-6, atol=1e-7)
-        if not bool((a[~hit] == 0).all()):
-            raise AssertionError(f"K1 {key} must be 0 on misses")
-        errs[key] = float((a[hit] - b[hit]).abs().max())
-    t_bits_equal = float((got["t"] == want["t"]).float().mean())
+        raise AssertionError(f"K1 inputs need both hits and misses ({what})")
+    err = max_abs_err((got[key], want[key]) for key in ("t", "b"))
+    return want, want_any, err
 
-    times = timings(lambda: k1.intersect(o, d, t_max, scene.tri_pack),
-                    lambda: k1.intersect_plain(o, d, t_max, scene.tri_pack))
-    ms_any = time_ms(lambda: k1.intersect(o, d, t_max, scene.tri_pack,
+
+def k1_registers() -> dict:
+    """K1's registers and spills a kernel (closest, any hit), from the
+    ptxas report of its build."""
+    from pathtracer_tpu_torch.ops.cuda import _build
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    report = _build.ptxas_report(k1.build())
+    return {("any_hit" if "ILb1E" in name else "closest"): regs
+            for name, regs in report.items() if "intersect_kernel" in name}
+
+
+def phase_k1(dev, k1_sets: dict):
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    scene, o, d, t_max = k1_sets["k1"]
+    tri_pack = scene.tri_pack
+    n, f = o.shape[0], tri_pack.shape[0]
+    n_live = int((t_max > 0).sum())
+    want, want_any, err = k1_check(o, d, t_max, tri_pack,
+                                   "camera and shadow")
+    hit = want["valid"]
+    times = timings(lambda: k1.intersect(o, d, t_max, tri_pack),
+                    lambda: k1.intersect_plain(o, d, t_max, tri_pack))
+    ms_any = time_ms(lambda: k1.intersect(o, d, t_max, tri_pack,
                                           any_hit=True))
     plain_ms_any = time_ms(lambda: k1.intersect_plain(
-        o, d, t_max, scene.tri_pack, any_hit=True))
-    # inputs o, d, t_max (28 B a ray) and the (F, 12) table; outputs
-    # valid, t, tri and b (21 B a ray)
-    out = dict(phase="k1", rays=n, triangles=f, hit_lanes=int(hit.sum()),
-               **bound(49.0 * n + 48.0 * f, PAIR_OPS * float(n) * f),
-               anyhit_lanes=int(want_any.sum()), max_abs_err_t=errs["t"],
-               max_abs_err_b=errs["b"], t_bit_equal_frac=t_bits_equal,
-               **times, ms_anyhit=ms_any, plain_ms_anyhit=plain_ms_any,
-               reps=K1_REPS, per_call=PER_CALL,
-               mrays_per_s=n / times["ms"] / 1e3)
+        o, d, t_max, tri_pack, any_hit=True))
+
+    # the render set, with the integrator's t_max and with inf everywhere
+    _, ro, rd, t_live, t_inf = k1_sets["render"]
+    rn, live = ro.shape[0], int((t_live > 0).sum())
+    r_want, _, r_err = k1_check(ro, rd, t_live, tri_pack, "render")
+    r_inf_err = k1_check(ro, rd, t_inf, tri_pack, "render, t_max inf")[2]
+    # the rays (``ray_bytes``: dead lanes only their t_max and record) and
+    # the (F, 12) table; a pair test for each live lane and triangle
+    render = dict(rays=rn, live_lanes=live,
+                  hit_lanes=int(r_want["valid"].sum()),
+                  **bound(ray_bytes(rn, live) + 48.0 * f,
+                          PAIR_OPS * float(live) * f),
+                  **timings(lambda: k1.intersect(ro, rd, t_live, tri_pack),
+                            lambda: k1.intersect_plain(ro, rd, t_live,
+                                                       tri_pack),
+                            # 3-4 ms a call: as few calls as K2's plain
+                            plain_calls=PLAIN_K2_REPS,
+                            plain_reps=PLAIN_K2_REPS),
+                  ms_t_inf=per_call_ms(lambda: k1.intersect(ro, rd, t_inf,
+                                                            tri_pack)),
+                  ms_single_t_inf=time_ms(lambda: k1.intersect(
+                      ro, rd, t_inf, tri_pack)))
+    # as the render set's
+    out = dict(phase="k1", rays=n, live_lanes=n_live, triangles=f,
+               hit_lanes=int(hit.sum()),
+               **bound(ray_bytes(n, n_live) + 48.0 * f,
+                       PAIR_OPS * float(n_live) * f),
+               anyhit_lanes=int(want_any.sum()),
+               max_abs_err=max(err, r_err, r_inf_err), **times,
+               ms_anyhit=ms_any,
+               plain_ms_anyhit=plain_ms_any, reps=K1_REPS,
+               per_call=PER_CALL, mrays_per_s=n / times["ms"] / 1e3,
+               render=render, registers=k1_registers())
     emit(out)
     return out
 
@@ -687,12 +808,13 @@ def k2_ray_set(name, scene, o, d, t_max, t_any, check_k1: bool):
     for r in (rows, rows_any):
         r["row_bytes_read"] = (INTERIOR_ROW_BYTES * r["interior"]
                                + LEAF_ROW_BYTES * r["leaf"])
-    # rays in and out (49 B a ray) and the table; the closest-hit query's
+    # the rays (``ray_bytes``) and the table; the closest-hit query's
     # work: a slab test per occupied child of each interior row visited, a
     # pair test per real triangle of each leaf row visited
-    out.update(rays=n, live_lanes=int((t_max > 0).sum()), rows_visited=rows,
+    live = int((t_max > 0).sum())
+    out.update(rays=n, live_lanes=live, rows_visited=rows,
                rows_visited_anyhit=rows_any,
-               **bound(49.0 * n + table.numel() * 4.0,
+               **bound(ray_bytes(n, live) + table.numel() * 4.0,
                        SLAB_OPS * float(rows["slabs"])
                        + PAIR_OPS * float(rows["triangles"])),
                hit_lanes=int(hit.sum()), anyhit_lanes=int(want_any.sum()),
@@ -864,7 +986,9 @@ def phase_probes(dev):
                                                         want):
             raise AssertionError(f"{pid}'s library call differs")
         probes[pid] = dict(**timings(lambda: fn(x), lambda: pg.PLAIN[pid](x),
-                                     library[pid]), **bounds[pid])
+                                     library[pid]),
+                           max_abs_err=max_abs_err([(outs[pid], want)]),
+                           **bounds[pid])
     out = dict(phase="probes", M=pg.M, W=pg.W, N=pg.N, D=pg.D,
                launches=launches, reps=K1_REPS, per_call=PER_CALL,
                probes=probes)
@@ -918,7 +1042,8 @@ def phase_probes2(dev):
             raise AssertionError(f"{pid}'s library call differs")
         probes[pid] = dict(**timings(lambda: fn(x), lambda: pg.PLAIN[pid](x),
                                      library[pid]),
-                           max_abs_err=0.0, **bounds[pid])
+                           max_abs_err=max_abs_err([(outs[pid], want)]),
+                           **bounds[pid])
     matmul = library["P9 matmul"]
     if not torch.equal(matmul().reshape(outs["P9"].shape), outs["P9"]):
         raise AssertionError("P9 differs from torch.matmul")
@@ -1134,19 +1259,20 @@ def phase_materials_main(dev, smi: str):
     return out
 
 
-def box_render_profile(dev) -> dict:
-    """One box-field render (phase 8's, after a warm-up render) under
-    torch.profiler: the device time of all its kernels, K2's share of it,
-    the launches, and the device's busy share of the traced render's wall
-    time (the trace slows the host, so the share is a lower bound)."""
+def render_profile(cam, scene, spp: int, kernel: str) -> dict:
+    """One render (depth 5, "onesample") under torch.profiler: the device
+    time of all its kernels, the share of it of the kernels whose name
+    contains ``kernel``, the launches, and the device's busy share of the
+    traced render's wall time (the trace slows the host, so the share is
+    a lower bound), after one untraced warm-up render of the same
+    configuration."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
 
-    cam, scene, _ = box_scene(dev)
     integ = PathIntegrator(PathConfig(max_depth=5, mis_mode="onesample"),
-                           spp=2)
+                           spp=spp)
     _, n_bands = integ.band_layout(cam)
     integ.render(cam, scene)  # warm-up
     torch.cuda.synchronize()
@@ -1156,21 +1282,39 @@ def box_render_profile(dev) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    k2_events = [e for e in events if "bvhw_kernel" in e.key]
+    k_events = [e for e in events if kernel in e.key]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    k2_ms = sum(e.self_device_time_total for e in k2_events) / 1e3
-    if device_ms <= 0 or not k2_events:
+    k_ms = sum(e.self_device_time_total for e in k_events) / 1e3
+    if device_ms <= 0 or not k_events:
         raise AssertionError("profiler saw no device time for the render")
     launches = sum(e.count for e in events)
-    return dict(device_ms=device_ms, k2_device_ms=k2_ms,
-                k2_share=k2_ms / device_ms,
-                k2_launches=sum(e.count for e in k2_events),
+    return dict(device_ms=device_ms, kernel=kernel, kernel_device_ms=k_ms,
+                kernel_share=k_ms / device_ms,
+                kernel_launches=sum(e.count for e in k_events),
                 launches=launches,
                 launches_per_band_frame=launches / (n_bands * integ.spp),
                 traced_wall_ms=wall_ms, device_busy_share=device_ms / wall_ms)
 
 
-def phase_profile(dev):
+def cornell_render_profile(dev, spp: int = PROFILE_CORNELL_SPP) -> dict:
+    """Phase 5's cornell render at ``spp`` under the profiler
+    (``render_profile``): K1's share."""
+    from pathtracer_tpu_torch.integrator import TracedScene
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    cam, sd, _ = load_mitsuba(CORNELL, resolution=(640, 480), device=dev)
+    return render_profile(cam, TracedScene.create(sd), spp,
+                          "intersect_kernel")
+
+
+def box_render_profile(dev) -> dict:
+    """Phase 8's box-field render under the profiler
+    (``render_profile``): K2's share."""
+    cam, scene, _ = box_scene(dev)
+    return render_profile(cam, scene, 2, "bvhw_kernel")
+
+
+def phase_profile(dev, k1_sets: dict):
     """Device times from a torch.profiler trace: K1's and K2's at the
     shapes of phases 3 and 6, P1-P9's and their library calls' at the
     probes' shapes (all the device work of a call); then a whole box-field
@@ -1181,10 +1325,18 @@ def phase_profile(dev):
     from pathtracer_tpu_torch.probes import gather as pg
     from pathtracer_tpu_torch.probes import gather2 as pg2
 
-    scene, o, d, t_max = k1_inputs(dev)
-    k1_ms = kernel_device_ms(
-        lambda: k1.intersect(o, d, t_max, scene.tri_pack),
+    scene, o, d, t_max = k1_sets["k1"]
+    tri_pack = scene.tri_pack
+    k1_ms = kernel_device_ms(lambda: k1.intersect(o, d, t_max, tri_pack),
+                             "intersect_kernel")
+    k1_any_ms = kernel_device_ms(
+        lambda: k1.intersect(o, d, t_max, tri_pack, any_hit=True),
         "intersect_kernel")
+    _, ro, rd, t_live, t_inf = k1_sets["render"]
+    k1_render_ms = kernel_device_ms(
+        lambda: k1.intersect(ro, rd, t_live, tri_pack), "intersect_kernel")
+    k1_render_inf_ms = kernel_device_ms(
+        lambda: k1.intersect(ro, rd, t_inf, tri_pack), "intersect_kernel")
     scene, o, d, t_inf, t_any = k2_inputs(dev)
     k2_ms = kernel_device_ms(
         lambda: k2.bvhw_intersect(scene.bw_rows, o, d, t_inf,
@@ -1209,12 +1361,16 @@ def phase_profile(dev):
             if fn is not None:
                 library_ms[pid] = kernel_device_ms(fn)
     out = dict(phase="profile", k1_kernel_device_ms=k1_ms,
+               k1_anyhit_kernel_device_ms=k1_any_ms,
+               k1_render_kernel_device_ms=k1_render_ms,
+               k1_render_t_inf_kernel_device_ms=k1_render_inf_ms,
                k2_kernel_device_ms=k2_ms,
                k2_anyhit_kernel_device_ms=k2_any_ms,
                k2_bounce_kernel_device_ms=k2_bounce_ms,
                k2_bounce_anyhit_kernel_device_ms=k2_bounce_any_ms,
                probe_kernel_device_ms=probe_ms,
                library_device_ms=library_ms, reps=K1_REPS,
+               cornell_render=cornell_render_profile(dev),
                box_render=box_render_profile(dev))
     emit(out)
     return out
@@ -1280,7 +1436,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_build()
-    k1_out = phase_k1(dev)
+    k1_sets = dict(k1=k1_inputs(dev), render=k1_render_inputs(dev))
+    k1_out = phase_k1(dev, k1_sets)
     phase_golden(dev)
     main_out = phase_main(dev, smi)
     k2_out = phase_k2(dev)
@@ -1290,7 +1447,7 @@ def main() -> int:
     probe2_out = phase_probes2(dev)
     phase_materials_golden(dev)
     mat_out = phase_materials_main(dev, smi)
-    prof_out = phase_profile(dev)
+    prof_out = phase_profile(dev, k1_sets)
 
     def times(d, device_ms, library_device_ms=None):
         """The kernels line's times of one kernel from its phase's
@@ -1313,8 +1470,10 @@ def main() -> int:
              source="pathtracer_tpu_torch/csrc/intersect.cu",
              replaces="pathtracer_tpu/ops/pallas/intersect_pl.py:52",
              launches=main_out["launches"],
-             max_abs_err=max(k1_out["max_abs_err_t"],
-                             k1_out["max_abs_err_b"]),
+             max_abs_err=k1_out["max_abs_err"],
+             render=times(k1_out["render"],
+                          prof_out["k1_render_kernel_device_ms"]),
+             registers=k1_out["registers"],
              **times(k1_out, prof_out["k1_kernel_device_ms"])),
         dict(name="bvhw", route="cuda",
              source="pathtracer_tpu_torch/csrc/bvhw.cu",
@@ -1335,7 +1494,8 @@ def main() -> int:
         kernels.append(dict(
             name=f"{kernel} ({pid})", route="cuda", source=probe_src,
             replaces=f"{probe_tool}:{line}",
-            launches=probe_out["launches"][kernel], max_abs_err=0.0,
+            launches=probe_out["launches"][kernel],
+            max_abs_err=probe_out["probes"][pid]["max_abs_err"],
             **times(probe_out["probes"][pid], probe_ms[pid],
                     library_ms.get(pid))))
     probe2_tool = "tools/probe_pallas_gather2.py"
@@ -1347,7 +1507,8 @@ def main() -> int:
             name=f"{kernel} ({pid})", route="cuda",
             source="pathtracer_tpu_torch/csrc/gather_probe2.cu",
             replaces=f"{probe2_tool}:{line}",
-            launches=probe2_out["launches"][kernel], max_abs_err=0.0,
+            launches=probe2_out["launches"][kernel],
+            max_abs_err=probe2_out["probes"][pid]["max_abs_err"],
             **times(probe2_out["probes"][pid], probe_ms[pid],
                     library_ms.get(pid))))
     p9 = probe2_out["probes"]["P9"]

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Split the host cost of the P6 and P7 wrappers into their steps, on one
-CUDA card (an H100).
+"""Split the host cost of the P6, P7 and K1 wrappers into their steps, on
+one CUDA card (an H100).
 
     python3 host_steps.py [--tree DIR]
 
@@ -25,6 +25,19 @@ times each step of a wrapper call with a host clock over 10,000 calls
   count         the ``LAUNCHES`` update
   wrapper       the whole wrapper
   library       ``torch.gather`` on the same inputs
+
+For K1 (``intersect``) at ``chip_smoke.py``'s K1 shapes (131,072 rays x
+cornell's 36 triangles), likewise:
+
+  check         the fast check (``_check``)
+  valid, t, tri, b
+                each output's ``torch.empty_like``
+  one_buffer    the four outputs as views of one allocation (one
+                ``torch.empty``, ``split``, ``view``s: the 4-byte fields
+                first, then valid), the other way to allocate them
+  launcher      the trampoline call with the kernel's arguments
+  count         the ``LAUNCHES`` update
+  wrapper       the whole wrapper, closest hit (``wrapper_anyhit``: any hit)
 
 Then device times from torch.profiler: P6 and P7 at 64 rows, P7 at one
 row (the card's floor for a kernel of this kind: one block of 128
@@ -111,8 +124,56 @@ def measure(tree: str) -> dict:
             lambda: torch.gather(x["data_g"], 0, x["idx_g"])),
         P7_library=cs.kernel_device_ms(
             lambda: torch.gather(x["data_h"], 1, x["idx_h"])))
+    steps["K1"] = k1_steps(dev)
     return dict(tree=os.path.abspath(tree), host_us=steps,
                 device_ms=device_ms, calls=cs.HOST_CALLS)
+
+
+def one_buffer(n: int, dev):
+    """K1's four outputs as views of one allocation: t, tri, b (the
+    4-byte fields), then valid."""
+    import torch
+    t, tri, b, valid = torch.empty(21 * n, dtype=torch.uint8,
+                                   device=dev).split([4 * n, 4 * n, 12 * n, n])
+    return (valid.view(torch.bool), t.view(torch.float32),
+            tri.view(torch.int32), b.view(torch.float32).view(n, 3))
+
+
+def k1_steps(dev) -> dict:
+    """Host microseconds of each step of a K1 wrapper call."""
+    import chip_smoke as cs
+    import torch
+
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.ops.intersect import GAMMA2, GAMMA3, GAMMA5
+
+    k1.build()
+    fn = k1._load()["intersect"]
+    scene, o, d, t_max = cs.k1_inputs(dev)
+    tri_pack = scene.tri_pack
+    n, f = o.shape[0], tri_pack.shape[0]
+    out = k1.intersect(o, d, t_max, tri_pack)
+    args = (o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+            tri_pack.data_ptr(), n, f, 0, GAMMA2, GAMMA3, GAMMA5,
+            out["valid"].data_ptr(), out["t"].data_ptr(),
+            out["tri"].data_ptr(), out["b"].data_ptr())
+    stream = torch._C._cuda_getCurrentRawStream(0)
+
+    def count():
+        k1.LAUNCHES += 1
+    cases = dict(
+        loop=lambda: None,
+        check=lambda: k1._check(o, d, t_max, tri_pack),
+        valid=lambda: torch.empty_like(t_max, dtype=torch.bool),
+        t=lambda: torch.empty_like(t_max),
+        tri=lambda: torch.empty_like(t_max, dtype=torch.int32),
+        b=lambda: torch.empty_like(o),
+        one_buffer=lambda: one_buffer(n, dev),
+        launcher=lambda: fn[0](fn[1], *args, stream), count=count,
+        wrapper=lambda: k1.intersect(o, d, t_max, tri_pack),
+        wrapper_anyhit=lambda: k1.intersect(o, d, t_max, tri_pack,
+                                            any_hit=True))
+    return {name: cs.host_us(fn) for name, fn in cases.items()}
 
 
 def main() -> int:

@@ -9,15 +9,23 @@ unpacked with ``git archive`` into a gitignored directory. The script runs
 one process per turn, in the order parent, change, change, parent (the
 change is this script's own checkout). Each process imports the package
 from its checkout, builds its kernels, and measures every wrapper at
-``chip_smoke.py``'s shapes: K1 (131,072 cornell rays x 36 triangles), K2
-(131,072 rays on the 4,000-box field: closest and any hit, on the camera
-and room rays and on the bounce rays) and the probes P1-P9:
+``chip_smoke.py``'s shapes: K1 (131,072 cornell camera and shadow rays x
+36 triangles, closest and any hit; the render set, the 130,732 lanes of
+bounce 2 of the last band of a 640x480 cornell render, with the
+integrator's t_max, 0 on the lanes not active, and with t_max inf on every
+lane), K2 (131,072 rays on the 4,000-box field: closest and any hit, on
+the camera and room rays and on the bounce rays) and the probes P1-P9:
 
   host_us    host time per call over 10,000 calls (``chip_smoke.host_us``)
   ms         per call over 100 back-to-back calls on CUDA events (the
              median of 5 such runs)
   ms_single  median of 30 single calls on CUDA events
   device_ms  device time per call from torch.profiler (all of its kernels)
+
+Then the cornell render of ``chip_smoke.py`` phase ``main`` (640x480,
+16 spp, depth 5, onesample): Mrays/s of three timed renders after a
+warm-up (median, min, max), and one more render under torch.profiler
+(K1's device time and share of the render's).
 
 Each turn prints one JSON line; the last line gathers them by kernel and
 checkout. With ``--out``, FILE receives the same and each turn's whole
@@ -59,6 +67,7 @@ def measure(tree: str) -> dict:
         mod._load()
     dev = torch.device("cuda", 0)
     scene, o, d, t_max = cs.k1_inputs(dev)
+    _, ro, rd, r_live, r_inf = cs.k1_render_inputs(dev)
     box, bo, bd, t_inf, t_any = cs.k2_inputs(dev)
     _, co, cd, t_live, t_live_any = cs.k2_bounce_inputs(dev)
     x1, x2 = pg.probe_inputs(dev), pg2.probe_inputs(dev)
@@ -67,8 +76,13 @@ def measure(tree: str) -> dict:
         return lambda: k2.bvhw_intersect(box.bw_rows, o, d, bound,
                                          any_hit=any_hit,
                                          stackw=box.bw_depth)
+    tri_pack = scene.tri_pack
     cases = {
-        "K1": lambda: k1.intersect(o, d, t_max, scene.tri_pack),
+        "K1": lambda: k1.intersect(o, d, t_max, tri_pack),
+        "K1 any-hit": lambda: k1.intersect(o, d, t_max, tri_pack,
+                                           any_hit=True),
+        "K1 render": lambda: k1.intersect(ro, rd, r_live, tri_pack),
+        "K1 render t_max inf": lambda: k1.intersect(ro, rd, r_inf, tri_pack),
         "K2": k2_case(bo, bd, t_inf),
         "K2 any-hit": k2_case(bo, bd, t_any, True),
         "K2 bounce": k2_case(co, cd, t_live),
@@ -79,10 +93,32 @@ def measure(tree: str) -> dict:
     out = {name: dict(host_us=cs.host_us(fn), ms=cs.per_call_ms(fn),
                       ms_single=cs.time_ms(fn))
            for name, fn in cases.items()}
+    cornell = cornell_renders(dev, k1)
     # last: an active trace slows later launches
     for name, fn in cases.items():
         out[name]["device_ms"] = cs.kernel_device_ms(fn)
-    return dict(tree=os.path.abspath(tree), kernels=out)
+    cornell["profile"] = cs.cornell_render_profile(dev, spp=16)
+    return dict(tree=os.path.abspath(tree), kernels=out, cornell=cornell)
+
+
+def cornell_renders(dev, k1) -> dict:
+    """Phase ``main``'s cornell render: a warm-up, then
+    ``chip_smoke.timed_renders`` (exact K1 launch counts)."""
+    import chip_smoke as cs
+    from pathtracer_tpu_torch.integrator import (PathConfig, PathIntegrator,
+                                                 TracedScene)
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    cam, sd, _ = load_mitsuba(cs.CORNELL, resolution=(640, 480), device=dev)
+    scene = TracedScene.create(sd)
+    cfg = PathConfig(max_depth=5, mis_mode="onesample")
+    integ = PathIntegrator(cfg, spp=16)
+    _, n_bands = integ.band_layout(cam)
+    integ.render(cam, scene)  # warm-up
+    _, runs = cs.timed_renders(
+        integ, cam, scene, {k1: n_bands * integ.spp * (2 * cfg.max_depth + 1)},
+        "cornell")
+    return runs
 
 
 def main() -> int:
@@ -131,7 +167,9 @@ def main() -> int:
         name: {label: [r["kernels"][name] for r in runs
                        if r["label"] == label]
                for label in ("parent", "change")}
-        for name in runs[0]["kernels"]})
+        for name in runs[0]["kernels"]}, cornell={
+        label: [r["cornell"] for r in runs if r["label"] == label]
+        for label in ("parent", "change")})
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(summary, fh, indent=1)

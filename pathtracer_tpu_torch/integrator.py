@@ -198,16 +198,32 @@ def _check_scene(sd: SceneData) -> None:
         raise NotImplementedError(f"alpha masks: {_ITEM_10B}")
 
 
-def _scene_intersect(scene, o, d, t_max):
-    o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
+def _lane_bounds(o, t_max, live):
+    """Each lane's t_max as an (N,) tensor: ``t_max`` ((N,), or one float
+    for every lane) on the lanes of ``live`` ((N,) bool; None: all), 0 on
+    the others. Both kernels test nothing for a lane whose t_max is not
+    > 0 and report it a miss, as the plain versions do."""
+    if live is not None:
+        return torch.where(live, t_max, 0.0)
+    if isinstance(t_max, float):
+        return torch.full((o.shape[0],), t_max, device=o.device)
+    return t_max.contiguous()
+
+
+def _scene_intersect(scene, o, d, t_max, live=None):
+    """Closest hit of every lane (K2 on the BVH route, K1 otherwise);
+    lanes outside ``live`` get a miss (``_lane_bounds``)."""
+    o, d, t_max = o.contiguous(), d.contiguous(), _lane_bounds(o, t_max, live)
     if scene.bw_rows is not None:
         return bvhw_intersect(scene.bw_rows, o, d, t_max,
                               stackw=scene.bw_depth)
     return intersect(o, d, t_max, scene.tri_pack)
 
 
-def _scene_intersect_p(scene, o, d, t_max):
-    o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
+def _scene_intersect_p(scene, o, d, t_max, live=None):
+    """Any hit of every lane within t_max; lanes outside ``live`` report
+    none."""
+    o, d, t_max = o.contiguous(), d.contiguous(), _lane_bounds(o, t_max, live)
     if scene.bw_rows is not None:
         return bvhw_intersect(scene.bw_rows, o, d, t_max, any_hit=True,
                               stackw=scene.bw_depth)
@@ -232,15 +248,16 @@ def _reflect_ng_fn(it, wo_world):
 
 
 def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
-                    wo_world, bsdf_branch=True, pick_prob=1.0):
+                    wo_world, bsdf_branch=True, pick_prob=1.0, live=None):
     """Both-strategy MIS direct lighting for one chosen light per ray.
 
     Returns (N, 3) radiance (pre num_lights scaling). With
     ``bsdf_branch=False`` ("onesample") only the light-sample branch runs
-    and ``pick_prob`` folds into the light pdf.
+    and ``pick_prob`` folds into the light pdf. ``live`` ((N,) bool, None
+    for all) marks the lanes whose result the caller keeps: a ray of a
+    lane outside it, or of a branch whose term is zero, tests nothing.
     """
     sd = scene.data
-    n = wo_world.shape[0]
     light_rows = scene.light_attr[light_idx.long()]
     ls = lt.sample_li(sd, light_rows, it["p"], it["p_error"], it["ng"],
                       u_light, light_set=scene.light_set)
@@ -266,7 +283,8 @@ def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
     contrib1 = f * li1u * w1[..., None] / \
         torch.clamp_min(pdf_eff, 1e-20)[..., None]
     contrib1 = torch.where(branch1[..., None], contrib1, 0.0)
-    occluded = _scene_intersect_p(scene, so, sdir, st)
+    occluded = _scene_intersect_p(
+        scene, so, sdir, st, live=branch1 if live is None else live & branch1)
     ld = torch.where(occluded[..., None], 0.0, contrib1)
     if not bsdf_branch:
         return ld
@@ -284,8 +302,9 @@ def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
     branch2 = branch2 & (light_pdf2 > 0.0)
 
     o2 = ia.spawn_ray(it["p"], it["p_error"], it["ng"], wi2_w)
-    hit2 = _scene_intersect(scene, o2, wi2_w,
-                            torch.full((n,), torch.inf, device=o2.device))
+    hit2 = _scene_intersect(
+        scene, o2, wi2_w, torch.inf,
+        live=branch2 if live is None else live & branch2)
     li2_hit, hit_tri_light = ia.hit_emission(scene.tri_attr, hit2, -wi2_w)
     hit_the_light = hit2["valid"] & (hit_tri_light == light_idx) & \
         ls["is_area"]
@@ -373,13 +392,8 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2):
     prev_perr, prev_ng = st["prev_perr"], st["prev_ng"]
 
     st["rays"] = st["rays"] + torch.sum(active.to(torch.float32))
-    if scene.bw_rows is not None:
-        # wavefront compaction: the traversal kills t_max <= 0 lanes on
-        # entry, so finished paths cost no traversal steps
-        t_in = torch.where(active, torch.inf, 0.0)
-    else:
-        t_in = torch.full((n,), torch.inf, device=o.device)
-    hit = _scene_intersect(scene, o, d, t_in)
+    # finished paths test nothing: t_max 0 on the lanes not active
+    hit = _scene_intersect(scene, o, d, torch.inf, live=active)
     found = hit["valid"] & active
 
     # emitted radiance. "ref": camera/specular bounces only; "onesample":
@@ -449,7 +463,8 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2):
             light_idx = torch.zeros((n,), dtype=torch.int32, device=o.device)
         ld = estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
                              wo, bsdf_branch=not one_sample,
-                             pick_prob=pick_prob if one_sample else 1.0)
+                             pick_prob=pick_prob if one_sample else 1.0,
+                             live=nonspec)
         scale = 1.0 if one_sample else n_l
         l = l + torch.where(nonspec[..., None], beta * ld * scale, 0.0)
         rays = rays + shadow_rays * torch.sum(nonspec.to(torch.float32))

@@ -32,6 +32,7 @@ import hashlib
 import importlib.machinery
 import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import sysconfig
@@ -65,7 +66,10 @@ def build_library(source: str, compiler: str, flags: tuple,
                   verbose: bool = False) -> str:
     """Compile ``source`` with ``compiler`` and ``flags`` into BUILD_DIR
     unless a library of the same source and flags is already there.
-    Returns the library's path."""
+    Returns the library's path. The compiler's output is kept beside the
+    library (``report_path``); an nvcc build asks ptxas for its report
+    (registers, spills) in it. ``verbose`` prints the command and the
+    output."""
     with open(source, "rb") as fh:
         src = fh.read()
     key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
@@ -77,7 +81,7 @@ def build_library(source: str, compiler: str, flags: tuple,
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [compiler, *flags]
-    if verbose and compiler.endswith("nvcc"):
+    if compiler.endswith("nvcc"):
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", tmp, source]
     try:
@@ -88,11 +92,51 @@ def build_library(source: str, compiler: str, flags: tuple,
                                f"{res.stderr}")
         if verbose:
             print(" ".join(cmd) + "\n" + res.stdout + res.stderr, flush=True)
+        with open(tmp + ".txt", "w") as fh:
+            fh.write(res.stdout + res.stderr)
+        os.replace(tmp + ".txt", report_path(out))
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for path in (tmp, tmp + ".txt"):
+            if os.path.exists(path):
+                os.remove(path)
     return out
+
+
+def report_path(library: str) -> str:
+    """Where ``build_library`` keeps the compiler's report of
+    ``library``."""
+    return os.path.splitext(library)[0] + ".report.txt"
+
+
+def ptxas_report(library: str) -> dict:
+    """Registers and spills of each kernel of an nvcc-built ``library``,
+    from the ptxas report kept beside it: {mangled kernel name:
+    dict(registers, stack, spill_stores, spill_loads)} (bytes but the
+    registers). Empty where the library was built elsewhere."""
+    path = report_path(library)
+    if not os.path.exists(path):
+        return {}
+    kernels, name = {}, None
+    with open(path) as fh:
+        for line in fh:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1)
+                kernels[name] = {}
+                continue
+            if name is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                kernels[name].update(stack=int(m.group(1)),
+                                     spill_stores=int(m.group(2)),
+                                     spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                kernels[name]["registers"] = int(m.group(1))
+    return kernels
 
 
 def build_cuda(name: str, verbose: bool = False, defines: tuple = ()) -> str:

@@ -95,7 +95,9 @@ def intersect(o, d, t_max, tri_pack, any_hit: bool = False):
 
     o, d: (N, 3) f32; t_max: (N,) f32; tri_pack: (F, 12) f32 rows
     [p0 p1 p2 pad]. Returns dict(valid (N,) bool, t (N,), tri (N,) i32,
-    b (N, 3)) or, with any_hit, an (N,) bool tensor.
+    b (N, 3)) or, with any_hit, an (N,) bool tensor. A lane whose t_max
+    is not > 0 (0, negative, NaN) is a miss, as in the plain version; the
+    kernel tests nothing for it.
     """
     global LAUNCHES
     dev, n = _check(o, d, t_max, tri_pack)

@@ -81,6 +81,76 @@ def test_kernel_handles_empty_and_rejects_strided(dev):
     assert k1.LAUNCHES == before
 
 
+def _assert_k1_equals_plain(o, d, t_max, tri_pack):
+    """K1's closest and any hit against its plain version: every output
+    ``torch.equal``, one launch a query. Returns the plain results."""
+    before = k1.LAUNCHES
+    got = k1.intersect(o, d, t_max, tri_pack)
+    got_any = k1.intersect(o, d, t_max, tri_pack, any_hit=True)
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES == before + (2 if o.shape[0] else 0)
+    want = k1.intersect_plain(o, d, t_max, tri_pack)
+    want_any = k1.intersect_plain(o, d, t_max, tri_pack, any_hit=True)
+    for key in ("valid", "tri", "t", "b"):
+        assert torch.equal(got[key], want[key]), key
+    assert torch.equal(got_any, want_any)
+    return want, want_any
+
+
+def _k1_case(case, dev, f=70, n=4099):
+    """Rays and triangles that take K1's redesign apart: ties (every
+    triangle twice, so equal t at two indices), mixed kz in every warp
+    (axis-parallel rays and |dx| == |dy|, |dy| == |dz| ties of the kz
+    rule), dead lanes (t_max 0, -0, -1, -inf, NaN) beside live ones, and
+    an input whose lanes are all dead."""
+    o, d, t_max, tri_pack = _soup(f + n, f, n, dev)
+    if case == "ties":
+        tri_pack = torch.cat([tri_pack, tri_pack])
+    elif case == "mixed_kz":
+        axes = torch.tensor([[1, 0, 0], [0, -1, 0], [0, 0, 1], [-1, 0, 0],
+                             [1, 1, 0.5], [0.5, -1, 1], [-1, 0.25, -1],
+                             [1, -1, 1]], dtype=torch.float32, device=dev)
+        d = d.clone()
+        d[::3] = axes.repeat(n // 3 // 8 + 1, 1)[:d[::3].shape[0]]
+    elif case == "dead_lanes":
+        dead = torch.tensor([0.0, -0.0, -1.0, -torch.inf, torch.nan],
+                            device=dev)
+        t_max = t_max.clone()
+        t_max[1::2] = dead.repeat(n // 10 + 1)[:t_max[1::2].shape[0]]
+    elif case == "all_dead":
+        t_max = torch.where(torch.arange(n, device=dev) % 2 == 0, 0.0,
+                            torch.nan)
+    return o, d, t_max.contiguous(), tri_pack.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties", "mixed_kz", "dead_lanes",
+                                  "all_dead"])
+def test_kernel_redesign_cases(dev, case):
+    want, want_any = _assert_k1_equals_plain(*_k1_case(case, dev))
+    if case == "all_dead":
+        assert not want["valid"].any() and not want_any.any()
+    else:
+        assert want["valid"].any() and not want["valid"].all()
+    if case == "ties":  # the first of each pair of copies wins
+        assert bool((want["tri"][want["valid"]] < 70).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 128, 256, 257, 513])
+def test_kernel_triangle_counts(dev, f):
+    """One tile, a full tile, one triangle into the next, three tiles;
+    a ragged last block; dead lanes throughout."""
+    o, d, t_max, tri_pack = _k1_case("dead_lanes", dev, f=f, n=2053)
+    _assert_k1_equals_plain(o, d, t_max, tri_pack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 4099])
+def test_kernel_ragged_ray_counts(dev, n):
+    _assert_k1_equals_plain(*_k1_case("dead_lanes", dev, f=36, n=n))
+
+
 def _bvh_case(seed, f, n, dev):
     """Random soup, its BVH32 table and depth, and rays from inside and
     around it; a quarter of the rays get a finite t_max, some are dead
