@@ -10,7 +10,9 @@ printing one JSON line:
              (csrc/bvhw.cu) and the gather probes (csrc/gather_probe.cu,
              csrc/gather_probe2.cu) with nvcc, the launch module
              (csrc/pylaunch.c) with cc and the native BVH builder
-             (csrc/bvh_builder.cpp) with g++, all at once;
+             (csrc/bvh_builder.cpp) with g++, all at once; the registers,
+             static shared memory and spills of P3 and P5 from ptxas,
+             their threads a block and P5's dynamic stack slab;
 3. k1      - K1 against its plain PyTorch version on the card, at the main
              path's shapes (131,072 rays x cornell's 36 triangles, camera
              and shadow rays mixed): valid, tri, t, b and any-hit
@@ -80,10 +82,12 @@ printing one JSON line:
              hit);
 13. profile - device times from a torch.profiler trace: K1's and K2's
              (both ray sets each, closest and any hit), P1-P9's and their
-             library calls'; then one cornell render (as phase 5, at
-             2 spp) and one box-field render (as phase 8) under the
-             profiler: the device time, K1's or K2's share of it and the
-             launches (last, as tracing slows later launches).
+             library calls', P1-P5's at one lane (N = 1: each kernel's
+             launch floor, ``floor_device_ms`` in the kernels line);
+             then one cornell render (as phase 5, at 2 spp) and one
+             box-field render (as phase 8) under the profiler: the device
+             time, K1's or K2's share of it and the launches (last, as
+             tracing slows later launches).
 
 "Timed" is three figures on CUDA events and the host clock: ``ms``, per
 call over 100 back-to-back calls (the median of 5 such runs);
@@ -942,6 +946,12 @@ def probe_library(x) -> dict:
                 P4=rows, P5=None)
 
 
+def one_lane(x) -> dict:
+    """The inputs ``x`` of P1-P5 cut to their first lane (N = 1): what a
+    probe costs at one lane is its launch floor."""
+    return dict(x, idx=x["idx"][:1], sp=x["sp"][:1], v=x["v"][:1])
+
+
 def probe2_library(x) -> dict:
     """As ``probe_library`` for P6-P9 (P8 has none). P9's is ``tbl[idx]``
     (its function on finite tables); "P9 matmul" is the one-hot product
@@ -1352,6 +1362,9 @@ def phase_profile(dev, k1_sets: dict):
         lambda: k2.bvhw_intersect(scene.bw_rows, o, d, t_any, any_hit=True,
                                   stackw=scene.bw_depth), "bvhw_kernel")
     x, x2 = pg.probe_inputs(dev), pg2.probe_inputs(dev)
+    one = one_lane(x)
+    floor_ms = {pid: kernel_device_ms(lambda: fn(one))
+                for pid, fn in pg.PROBES.items()}
     probe_ms, library_ms = {}, {}
     for probes, inputs, library in ((pg.PROBES, x, probe_library(x)),
                                     (pg2.PROBES, x2, probe2_library(x2))):
@@ -1369,6 +1382,7 @@ def phase_profile(dev, k1_sets: dict):
                k2_bounce_kernel_device_ms=k2_bounce_ms,
                k2_bounce_anyhit_kernel_device_ms=k2_bounce_any_ms,
                probe_kernel_device_ms=probe_ms,
+               probe_floor_device_ms=floor_ms,
                library_device_ms=library_ms, reps=K1_REPS,
                cornell_render=cornell_render_profile(dev),
                box_render=box_render_profile(dev))
@@ -1405,9 +1419,15 @@ def phase_build():
     pg._load()
     pg2._load()
     cpp._load()
+    probe_ptxas = {name: report for name, report
+                   in _build.ptxas_report(pg.build()).items()
+                   if "gather_cols" in name or "stack_push_read" in name}
     out = dict(phase="build", seconds=time.perf_counter() - t0,
                libraries={name: dict(path=path, seconds=sec)
-                          for name, (path, sec) in done.items()})
+                          for name, (path, sec) in done.items()},
+               probe_ptxas=probe_ptxas,
+               p3_threads=pg.threads("P3"), p5_threads=pg.threads("P5"),
+               p5_slab_bytes=4 * pg.D * pg.threads("P5"))
     emit(out)
     return out
 
@@ -1496,6 +1516,7 @@ def main() -> int:
             replaces=f"{probe_tool}:{line}",
             launches=probe_out["launches"][kernel],
             max_abs_err=probe_out["probes"][pid]["max_abs_err"],
+            floor_device_ms=prof_out["probe_floor_device_ms"][pid],
             **times(probe_out["probes"][pid], probe_ms[pid],
                     library_ms.get(pid))))
     probe2_tool = "tools/probe_pallas_gather2.py"

@@ -14,7 +14,8 @@ from its checkout, builds its kernels, and measures every wrapper at
 bounce 2 of the last band of a 640x480 cornell render, with the
 integrator's t_max, 0 on the lanes not active, and with t_max inf on every
 lane), K2 (131,072 rays on the 4,000-box field: closest and any hit, on
-the camera and room rays and on the bounce rays) and the probes P1-P9:
+the camera and room rays and on the bounce rays) and the probes P1-P9,
+P1-P5 also at one lane (their launch floors):
 
   host_us    host time per call over 10,000 calls (``chip_smoke.host_us``)
   ms         per call over 100 back-to-back calls on CUDA events (the
@@ -90,6 +91,9 @@ def measure(tree: str) -> dict:
     for probes, x in ((pg.PROBES, x1), (pg2.PROBES, x2)):
         for pid, fn in probes.items():
             cases[pid] = lambda fn=fn, x=x: fn(x)
+    one = cs.one_lane(x1)
+    for pid, fn in pg.PROBES.items():
+        cases[f"{pid} one lane"] = lambda fn=fn: fn(one)
     out = {name: dict(host_us=cs.host_us(fn), ms=cs.per_call_ms(fn),
                       ms_single=cs.time_ms(fn))
            for name, fn in cases.items()}

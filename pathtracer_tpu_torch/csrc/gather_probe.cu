@@ -11,22 +11,24 @@
 //                    (M, W) table: one thread per (lane, column), so a
 //                    warp reads 32 / W whole rows, each W words contiguous;
 //   gather_cols      (P3) out[c, n] = table_t[c, idx[n]] on the
-//                    column-major (W, M) table: one thread per lane,
-//                    reading W words M apart (a warp's reads of one column
-//                    are scattered, like the TPU's lane-dim gather);
+//                    column-major (W, M) table: one thread per lane in
+//                    64-thread blocks, its W loads (M words apart) all in
+//                    flight before its first store;
 //   gather_rows_warp (P4) one warp per output row with a warp-uniform
 //                    index: the SIMT form of a scalar-index row loop, and
 //                    what a warp-cooperative node fetch would pay in K2;
-//   stack_push_read  (P5) a per-thread stack of `depth` floats in local
-//                    memory, zeroed, written at a dynamic index sp[n] and
-//                    read back there: what K2's short stack costs.
+//   stack_push_read  (P5) a per-thread stack of `depth` floats, a column
+//                    of a slab in shared memory, written at a dynamic
+//                    index sp[n] and read back there: what K2's short
+//                    stack costs.
 //
-// What bounds them on an H100: memory latency, not bandwidth. The probe's
-// table is 65,536 x 8 f32 = 2 MB and stays in the 50 MB L2 across calls;
-// 8,192 lanes read 256 KB. The stack lives in local memory, which is
-// cached in L1; `volatile` keeps the compiler from forwarding the stored
-// value to the load, so the probe pays for the round trip K2's dynamic
-// stack index forces.
+// What bounds them on an H100: memory latency and the launch, not
+// bandwidth. The probe's table is 65,536 x 8 f32 = 2 MB and stays in the
+// 50 MB L2 across calls; 8,192 lanes read 256 KB. A one-lane launch takes
+// most of a probe's device time; to keep the latency above it short, P3
+// and P5 put 64 threads in a block: 128 blocks at 8,192 lanes, work on
+// almost every SM. P5's push and read go through shared memory, each
+// thread of a warp in a bank of its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,6 +37,16 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxDepth = 64;
+// threads a block of gather_cols and stack_push_read (probe_variants.py
+// builds other sizes)
+#ifndef P3_THREADS
+#define P3_THREADS 64
+#endif
+#ifndef P5_THREADS
+#define P5_THREADS 64
+#endif
+static_assert(P5_THREADS * kMaxDepth * 4 <= 48 * 1024,
+              "the stack slab must fit the default shared memory");
 
 __global__ void gather_rows_kernel(const float* __restrict__ table,
                                    const int32_t* __restrict__ idx, int n,
@@ -48,6 +60,11 @@ __global__ void gather_rows_kernel(const float* __restrict__ table,
   out[k] = table[(long)row * w + c];
 }
 
+// One thread per lane, all W of its table loads issued before its first
+// store: W is a template parameter (8, the probe's width; 0 is the loop
+// for any other width). A warp's idx load and each of its W stores are 32
+// consecutive words; its W table loads are the only scattered sectors.
+template <int WT>
 __global__ void gather_cols_kernel(const float* __restrict__ table_t,
                                    const int32_t* __restrict__ idx, int n,
                                    int m, int w, float* __restrict__ out) {
@@ -55,8 +72,16 @@ __global__ void gather_cols_kernel(const float* __restrict__ table_t,
   if (lane >= n) return;
   const int row = idx[lane];
   if ((unsigned)row >= (unsigned)m) __trap();
-  for (int c = 0; c < w; ++c) {
-    out[(long)c * n + lane] = table_t[c * (long)m + row];
+  if constexpr (WT > 0) {
+    float vals[WT];
+#pragma unroll
+    for (int c = 0; c < WT; ++c) vals[c] = table_t[c * (long)m + row];
+#pragma unroll
+    for (int c = 0; c < WT; ++c) out[(long)c * n + lane] = vals[c];
+  } else {
+    for (int c = 0; c < w; ++c) {
+      out[(long)c * n + lane] = table_t[c * (long)m + row];
+    }
   }
 }
 
@@ -74,17 +99,23 @@ __global__ void gather_rows_warp_kernel(const float* __restrict__ table,
   }
 }
 
+// Each thread's stack is a column of a (depth, blockDim.x) slab of
+// dynamic shared memory: entry k of thread t at k * blockDim.x + t, in
+// bank t mod 32 whatever k, so a warp's push and read at 32 run-time
+// indices are free of bank conflicts. `volatile` keeps the store and the
+// load: the compiler cannot forward v to out. The slab is not zeroed: no
+// output reads an entry this thread did not write.
 __global__ void stack_push_read_kernel(const int32_t* __restrict__ sp,
                                        const float* __restrict__ v, int n,
                                        int depth, float* __restrict__ out) {
+  extern __shared__ float slab[];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  volatile float stack[kMaxDepth];
-  for (int k = 0; k < depth; ++k) stack[k] = 0.f;
+  volatile float* col = slab + threadIdx.x;
   const int s = sp[lane];
   if ((unsigned)s >= (unsigned)depth) __trap();
-  stack[s] = v[lane];
-  out[lane] = stack[s];
+  col[s * blockDim.x] = v[lane];
+  out[lane] = col[s * blockDim.x];
 }
 
 int blocks_for(long threads) {
@@ -108,8 +139,14 @@ extern "C" int pt_gather_rows_launch(const float* table, const int32_t* idx,
 extern "C" int pt_gather_cols_launch(const float* table_t, const int32_t* idx,
                                      int n, int m, int w, float* out,
                                      void* stream) {
-  gather_cols_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      table_t, idx, n, m, w, out);
+  const int blocks = (n + P3_THREADS - 1) / P3_THREADS;
+  if (w == 8) {
+    gather_cols_kernel<8><<<blocks, P3_THREADS, 0, (cudaStream_t)stream>>>(
+        table_t, idx, n, m, w, out);
+  } else {
+    gather_cols_kernel<0><<<blocks, P3_THREADS, 0, (cudaStream_t)stream>>>(
+        table_t, idx, n, m, w, out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -125,7 +162,9 @@ extern "C" int pt_stack_push_read_launch(const int32_t* sp, const float* v,
                                          int n, int depth, float* out,
                                          void* stream) {
   if (depth < 1 || depth > kMaxDepth) return (int)cudaErrorInvalidValue;
-  stack_push_read_kernel<<<blocks_for(n), kThreads, 0,
-                           (cudaStream_t)stream>>>(sp, v, n, depth, out);
+  const int blocks = (n + P5_THREADS - 1) / P5_THREADS;
+  const size_t slab = sizeof(float) * depth * P5_THREADS;
+  stack_push_read_kernel<<<blocks, P5_THREADS, slab, (cudaStream_t)stream>>>(
+      sp, v, n, depth, out);
   return (int)cudaGetLastError();
 }

@@ -110,10 +110,11 @@ def report_path(library: str) -> str:
 
 
 def ptxas_report(library: str) -> dict:
-    """Registers and spills of each kernel of an nvcc-built ``library``,
-    from the ptxas report kept beside it: {mangled kernel name:
-    dict(registers, stack, spill_stores, spill_loads)} (bytes but the
-    registers). Empty where the library was built elsewhere."""
+    """Registers, static shared memory and spills of each kernel of an
+    nvcc-built ``library``, from the ptxas report kept beside it: {mangled
+    kernel name: dict(registers, smem, stack, spill_stores, spill_loads)}
+    (bytes but the registers). Empty where the library was built
+    elsewhere."""
     path = report_path(library)
     if not os.path.exists(path):
         return {}
@@ -136,6 +137,8 @@ def ptxas_report(library: str) -> dict:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 kernels[name]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                kernels[name]["smem"] = int(m.group(1)) if m else 0
     return kernels
 
 

@@ -11,8 +11,10 @@ stack D = 64 deep.
            (P1 ``k_take`` and P2 ``k_getitem`` compute the same function;
            only their TPU idiom differed, so both map to one kernel)
   P3       gather_cols(table_t, idx)    out[:, n] = table_t[:, idx[n]]
+           (one thread per lane, its W loads in flight together)
   P4       gather_rows_warp(table, idx) as P1, one warp per row
   P5       stack_push_read(sp, v)       push v[n] at sp[n], read it back
+           (each thread's stack a column of a slab in shared memory)
 
 Each wrapper launches its CUDA kernel (``csrc/gather_probe.cu``) for CUDA
 tensors and runs its plain PyTorch version for CPU tensors; a CUDA input
@@ -22,6 +24,9 @@ as the tool's script is: it makes the tool's inputs from
 """
 
 from __future__ import annotations
+
+import os
+import re
 
 import numpy as np
 import torch
@@ -43,6 +48,16 @@ SIGNATURES = {"gather_rows": "ppiiipp", "gather_cols": "ppiiipp",
               "gather_rows_warp": "ppiiipp", "stack_push_read": "ppiipp"}
 
 _fns = None
+
+
+def threads(kernel: str) -> int:
+    """Threads a block of ``gather_cols`` ("P3") or ``stack_push_read``
+    ("P5") in the default build: the source's P3_THREADS / P5_THREADS.
+    P5's stack slab takes ``4 * depth * threads("P5")`` bytes of shared
+    memory a block."""
+    with open(os.path.join(_build.CSRC_DIR, SOURCE)) as fh:
+        return int(re.search(rf"#define {kernel}_THREADS (\d+)",
+                             fh.read()).group(1))
 
 
 def build(verbose: bool = False) -> str:

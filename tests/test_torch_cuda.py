@@ -340,6 +340,48 @@ def test_gather_probe_matches_plain(dev, pid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 3, 8, 13])
+@pytest.mark.parametrize("n", [0, 1, 33, 257, 8193])
+def test_gather_cols_ragged_shapes(dev, n, w):
+    """P3 at ragged lane counts and table widths: equal to its plain
+    version, one launch a call, none for zero lanes."""
+    rng = np.random.default_rng(n * 100 + w)
+    m = 1000
+    table_t = torch.as_tensor(rng.random((w, m), np.float32), device=dev)
+    idx = rng.integers(0, m, n).astype(np.int32)
+    idx[:1], idx[-1:] = 0, m - 1
+    idx = torch.as_tensor(idx, device=dev)
+    before = dict(pg.LAUNCHES)
+    got = pg.gather_cols(table_t, idx)
+    torch.cuda.synchronize()
+    assert pg.LAUNCHES == dict(before, gather_cols=before["gather_cols"]
+                               + int(n > 0))
+    assert got.shape == (w, n) and got.is_contiguous()
+    assert torch.equal(got, pg.gather_cols_plain(table_t, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 33, 64])
+@pytest.mark.parametrize("n", [0, 1, 63, 65, 8193])
+def test_stack_push_read_ragged_shapes(dev, n, depth):
+    """P5 at ragged lane counts and depths, pointers at 0, at depth - 1
+    and between: equal to its plain version, one launch a call, none for
+    zero lanes."""
+    rng = np.random.default_rng(n * 100 + depth)
+    sp = rng.integers(0, depth, n).astype(np.int32)
+    sp[:1], sp[-1:] = 0, depth - 1
+    sp = torch.as_tensor(sp, device=dev)
+    v = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+    before = dict(pg.LAUNCHES)
+    got = pg.stack_push_read(sp, v, depth)
+    torch.cuda.synchronize()
+    assert pg.LAUNCHES == dict(
+        before, stack_push_read=before["stack_push_read"] + int(n > 0))
+    assert torch.equal(got, pg.stack_push_read_plain(sp, v, depth))
+    assert torch.equal(got, v)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("pid", ["P6", "P7", "P8", "P9"])
 def test_gather_probe2_matches_plain(dev, pid):
     """Bit for bit: the probes move words (P9 adds exact zeros)."""

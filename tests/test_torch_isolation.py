@@ -53,6 +53,17 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_ab.py",
+                                    "host_steps.py", "k1_variants.py",
+                                    "k2_variants.py", "probe_variants.py"])
+def test_card_scripts_import_no_jax(script):
+    """The scripts run on the card, where JAX is absent, import neither
+    JAX nor the JAX package."""
+    bad = [name for name in _imported(os.path.join(ROOT, script))
+           if name.split(".")[0] in ("jax", "jaxlib", "pathtracer_tpu")]
+    assert not bad, bad
+
+
 def test_no_module_names_a_jax_package_path():
     """No code path reaches into pathtracer_tpu/ (docstrings may name the
     reference; string constants that build paths may not)."""

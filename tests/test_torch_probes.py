@@ -59,3 +59,36 @@ def test_probe_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="expected"):
         pg.gather_cols(x["table_t"], torch.zeros(4, dtype=torch.int32,
                                                  device="meta"))
+
+
+@pytest.mark.parametrize("w", [1, 3, 8, 13])
+@pytest.mark.parametrize("n", [1, 33, 257, 8193])
+def test_plain_gather_cols_ragged_shapes(n, w):
+    """P3's plain version at ragged lane counts and table widths, against
+    numpy's column gather."""
+    rng = np.random.default_rng(n * 100 + w)
+    m = 1000
+    table_t = rng.random((w, m), np.float32)
+    idx = rng.integers(0, m, n).astype(np.int32)
+    idx[0], idx[-1] = 0, m - 1  # the table's first and last columns
+    got = pg.gather_cols(torch.as_tensor(table_t), torch.as_tensor(idx))
+    assert got.shape == (w, n) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), table_t[:, idx])
+
+
+@pytest.mark.parametrize("sp_at", ["bottom", "top", "mixed"])
+@pytest.mark.parametrize("depth", [1, 33, 64])
+def test_plain_stack_push_read_ragged_depths(depth, sp_at):
+    """P5's plain version at ragged depths, every pointer at 0, every one
+    at depth - 1, or drawn over [0, depth) with both ends present: each
+    lane reads back its own value."""
+    rng = np.random.default_rng(depth)
+    n = 257
+    sp = {"bottom": np.zeros(n), "top": np.full(n, depth - 1),
+          "mixed": rng.integers(0, depth, n)}[sp_at].astype(np.int32)
+    if sp_at == "mixed":
+        sp[:2] = 0, depth - 1
+    v = rng.normal(size=n).astype(np.float32)
+    got = pg.stack_push_read(torch.as_tensor(sp), torch.as_tensor(v), depth)
+    assert got.shape == (n,) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), v)
