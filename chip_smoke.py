@@ -11,8 +11,9 @@ printing one JSON line:
              csrc/gather_probe2.cu) with nvcc, the launch module
              (csrc/pylaunch.c) with cc and the native BVH builder
              (csrc/bvh_builder.cpp) with g++, all at once; the registers,
-             static shared memory and spills of P3 and P5 from ptxas,
-             their threads a block and P5's dynamic stack slab;
+             static shared memory and spills of P1-P5's kernels from
+             ptxas, their threads a block (P1_THREADS ... P5_THREADS),
+             P4's rows a warp (P4_ROWS) and P5's dynamic stack slab;
 3. k1      - K1 against its plain PyTorch version on the card, at the main
              path's shapes (131,072 rays x cornell's 36 triangles, camera
              and shadow rays mixed): valid, tri, t, b and any-hit
@@ -82,8 +83,9 @@ printing one JSON line:
              hit);
 13. profile - device times from a torch.profiler trace: K1's and K2's
              (both ray sets each, closest and any hit), P1-P9's and their
-             library calls', P1-P5's at one lane (N = 1: each kernel's
-             launch floor, ``floor_device_ms`` in the kernels line);
+             library calls', P1-P5's at one lane (N = 1) and P6-P9's at
+             one index row (S = 1): each kernel's launch floor,
+             ``floor_device_ms`` in the kernels line;
              then one cornell render (as phase 5, at 2 spp) and one
              box-field render (as phase 8) under the profiler: the device
              time, K1's or K2's share of it and the launches (last, as
@@ -952,6 +954,15 @@ def one_lane(x) -> dict:
     return dict(x, idx=x["idx"][:1], sp=x["sp"][:1], v=x["v"][:1])
 
 
+def one_row(x) -> dict:
+    """The inputs ``x`` of P6-P9 cut to their first index row (S = 1, and
+    P7's data to its first row): the smallest input each takes, and its
+    launch floor."""
+    return dict(x, idx_g=x["idx_g"][:1], data_h=x["data_h"][:1],
+                idx_h=x["idx_h"][:1], idx_i=x["idx_i"][:1],
+                idx_j=x["idx_j"][:1])
+
+
 def probe2_library(x) -> dict:
     """As ``probe_library`` for P6-P9 (P8 has none). P9's is ``tbl[idx]``
     (its function on finite tables); "P9 matmul" is the one-hot product
@@ -1362,9 +1373,11 @@ def phase_profile(dev, k1_sets: dict):
         lambda: k2.bvhw_intersect(scene.bw_rows, o, d, t_any, any_hit=True,
                                   stackw=scene.bw_depth), "bvhw_kernel")
     x, x2 = pg.probe_inputs(dev), pg2.probe_inputs(dev)
-    one = one_lane(x)
+    one, one2 = one_lane(x), one_row(x2)
     floor_ms = {pid: kernel_device_ms(lambda: fn(one))
                 for pid, fn in pg.PROBES.items()}
+    floor_ms.update({pid: kernel_device_ms(lambda: fn(one2))
+                     for pid, fn in pg2.PROBES.items()})
     probe_ms, library_ms = {}, {}
     for probes, inputs, library in ((pg.PROBES, x, probe_library(x)),
                                     (pg2.PROBES, x2, probe2_library(x2))):
@@ -1419,14 +1432,14 @@ def phase_build():
     pg._load()
     pg2._load()
     cpp._load()
-    probe_ptxas = {name: report for name, report
-                   in _build.ptxas_report(pg.build()).items()
-                   if "gather_cols" in name or "stack_push_read" in name}
+    probe_ptxas = _build.ptxas_report(pg.build())
     out = dict(phase="build", seconds=time.perf_counter() - t0,
                libraries={name: dict(path=path, seconds=sec)
                           for name, (path, sec) in done.items()},
                probe_ptxas=probe_ptxas,
-               p3_threads=pg.threads("P3"), p5_threads=pg.threads("P5"),
+               p1_threads=pg.threads("P1"), p3_threads=pg.threads("P3"),
+               p4_threads=pg.threads("P4"), p4_rows=pg.macro("P4_ROWS"),
+               p5_threads=pg.threads("P5"),
                p5_slab_bytes=4 * pg.D * pg.threads("P5"))
     emit(out)
     return out
@@ -1530,6 +1543,7 @@ def main() -> int:
             replaces=f"{probe2_tool}:{line}",
             launches=probe2_out["launches"][kernel],
             max_abs_err=probe2_out["probes"][pid]["max_abs_err"],
+            floor_device_ms=prof_out["probe_floor_device_ms"][pid],
             **times(probe2_out["probes"][pid], probe_ms[pid],
                     library_ms.get(pid))))
     p9 = probe2_out["probes"]["P9"]

@@ -15,7 +15,8 @@ bounce 2 of the last band of a 640x480 cornell render, with the
 integrator's t_max, 0 on the lanes not active, and with t_max inf on every
 lane), K2 (131,072 rays on the 4,000-box field: closest and any hit, on
 the camera and room rays and on the bounce rays) and the probes P1-P9,
-P1-P5 also at one lane (their launch floors):
+P1-P5 also at one lane and P6-P9 at one index row (their launch
+floors):
 
   host_us    host time per call over 10,000 calls (``chip_smoke.host_us``)
   ms         per call over 100 back-to-back calls on CUDA events (the
@@ -91,9 +92,11 @@ def measure(tree: str) -> dict:
     for probes, x in ((pg.PROBES, x1), (pg2.PROBES, x2)):
         for pid, fn in probes.items():
             cases[pid] = lambda fn=fn, x=x: fn(x)
-    one = cs.one_lane(x1)
+    one, one2 = cs.one_lane(x1), cs.one_row(x2)
     for pid, fn in pg.PROBES.items():
         cases[f"{pid} one lane"] = lambda fn=fn: fn(one)
+    for pid, fn in pg2.PROBES.items():
+        cases[f"{pid} one row"] = lambda fn=fn: fn(one2)
     out = {name: dict(host_us=cs.host_us(fn), ms=cs.per_call_ms(fn),
                       ms_single=cs.time_ms(fn))
            for name, fn in cases.items()}

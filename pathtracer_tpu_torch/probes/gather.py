@@ -9,10 +9,17 @@ stack D = 64 deep.
 
   P1 / P2  gather_rows(table, idx)      out[n] = table[idx[n]]
            (P1 ``k_take`` and P2 ``k_getitem`` compute the same function;
-           only their TPU idiom differed, so both map to one kernel)
+           only their TPU idiom differed, so both map to one kernel: at
+           W = 8 on 16-byte aligned pointers one thread per float4 of the
+           output, else one thread per word on a 2-D grid of lanes by
+           columns)
   P3       gather_cols(table_t, idx)    out[:, n] = table_t[:, idx[n]]
            (one thread per lane, its W loads in flight together)
-  P4       gather_rows_warp(table, idx) as P1, one warp per row
+  P4       gather_rows_warp(table, idx) as P1, a warp per run of P4_ROWS
+           rows: the run's indices loaded once, one a lane, and each sent
+           by shuffle to the pair of lanes that copies its row, a float4
+           a lane (W = 8 on aligned pointers; else the warp copies a row
+           at a time)
   P5       stack_push_read(sp, v)       push v[n] at sp[n], read it back
            (each thread's stack a column of a slab in shared memory)
 
@@ -50,14 +57,20 @@ SIGNATURES = {"gather_rows": "ppiiipp", "gather_cols": "ppiiipp",
 _fns = None
 
 
-def threads(kernel: str) -> int:
-    """Threads a block of ``gather_cols`` ("P3") or ``stack_push_read``
-    ("P5") in the default build: the source's P3_THREADS / P5_THREADS.
-    P5's stack slab takes ``4 * depth * threads("P5")`` bytes of shared
-    memory a block."""
+def macro(name: str) -> int:
+    """A tuning constant of the default build: the value of ``#define
+    name`` in the source."""
     with open(os.path.join(_build.CSRC_DIR, SOURCE)) as fh:
-        return int(re.search(rf"#define {kernel}_THREADS (\d+)",
-                             fh.read()).group(1))
+        return int(re.search(rf"#define {name} (\d+)", fh.read()).group(1))
+
+
+def threads(kernel: str) -> int:
+    """Threads a block of ``gather_rows`` ("P1"), ``gather_cols`` ("P3"),
+    ``gather_rows_warp`` ("P4") or ``stack_push_read`` ("P5") in the
+    default build: the source's P1_THREADS ... P5_THREADS. P5's stack slab
+    takes ``4 * depth * threads("P5")`` bytes of shared memory a block;
+    a warp of P4 copies ``macro("P4_ROWS")`` rows."""
+    return macro(f"{kernel}_THREADS")
 
 
 def build(verbose: bool = False) -> str:
@@ -129,7 +142,7 @@ def gather_rows(table, idx):
 
 
 def gather_rows_warp(table, idx):
-    """P4: as gather_rows, one warp per output row."""
+    """P4: as gather_rows, a warp per run of P4_ROWS output rows."""
     dev, n, m, w = _rows_args("gather_rows_warp", table, idx)
     if dev < 0:
         return gather_rows_plain(table, idx)

@@ -382,6 +382,36 @@ def test_stack_push_read_ragged_shapes(dev, n, depth):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("w", [1, 3, 4, 8, 13, 40])
+@pytest.mark.parametrize("n", [0, 1, 33, 257, 8193])
+@pytest.mark.parametrize("kernel", ["gather_rows", "gather_rows_warp"])
+def test_row_gathers_ragged_shapes(dev, kernel, n, w, offset):
+    """P1 / P2 (``gather_rows``) and P4 (``gather_rows_warp``) at ragged
+    lane counts and widths (a ragged last warp run; W = 8's unrolled
+    paths, the other widths' loops, W > 32), indices at the first and last
+    rows, on a table that starts at its allocation and one float past it
+    (not 16-byte aligned: P1 then moves words, not float4): equal to the
+    plain version, one launch a call, none for zero lanes."""
+    rng = np.random.default_rng(n * 100 + w)
+    m = 1000
+    flat = torch.zeros(m * w + offset, device=dev)
+    table = flat[offset:].view(m, w)
+    table.copy_(torch.as_tensor(rng.random((m, w), np.float32)))
+    assert (table.data_ptr() % 16 != 0) == offset
+    idx = rng.integers(0, m, n).astype(np.int32)
+    idx[:1], idx[-1:] = 0, m - 1
+    idx = torch.as_tensor(idx, device=dev)
+    before = dict(pg.LAUNCHES)
+    got = getattr(pg, kernel)(table, idx)
+    torch.cuda.synchronize()
+    assert pg.LAUNCHES == dict(before, **{kernel: before[kernel]
+                                          + int(n > 0)})
+    assert got.shape == (n, w) and got.is_contiguous()
+    assert torch.equal(got, pg.gather_rows_plain(table, idx))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("pid", ["P6", "P7", "P8", "P9"])
 def test_gather_probe2_matches_plain(dev, pid):
     """Bit for bit: the probes move words (P9 adds exact zeros)."""

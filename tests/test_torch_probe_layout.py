@@ -1,20 +1,34 @@
-"""A numpy model of how kernels P3 and P5 (``csrc/gather_probe.cu``) map
-their threads to the words they read and write, held to the plain versions.
+"""A numpy model of how kernels P1 / P2, P3, P4 and P5
+(``csrc/gather_probe.cu``) map their threads to the words they read and
+write, held to the plain versions.
 
 The CUDA kernels cannot run on the CPU, so this file runs their thread
-maps instead, at the default build's block sizes (read from the source):
+maps instead, at the default build's block sizes and rows a warp (read
+from the source):
 
+- P1 / P2, ``gather_rows``: blocks of ``threads("P1")``; at W = 8 on
+  16-byte aligned table and out pointers, thread k moves float4 ``k % 2``
+  of lane ``k // 2``'s row; any other width or alignment a 2-D grid of
+  words (lanes along x, columns along y);
 - P3, ``gather_cols``: one thread per lane, blocks of ``threads("P3")``;
   thread ``lane`` loads ``idx[lane]``, then ``table_t[c, idx[lane]]`` for
   every column c, and stores each at ``out[c * n + lane]``;
+- P4, ``gather_rows_warp``: a warp per run of ``macro("P4_ROWS")`` rows,
+  blocks of ``threads("P4")``; lane l loads the run's index l, and the
+  lanes that copy row r (at W = 8 on aligned pointers a pair, a float4 a
+  lane, 16 rows a pass; else the whole warp, a row at a time) take its
+  index by shuffle from lane r;
 - P5, ``stack_push_read``: blocks of ``threads("P5")``, each with a
   (depth, threads) slab of shared memory; thread t's stack entry k is slab
   word ``k * threads + t``, so its bank is ``t mod 32`` whatever k.
 
 Each model checks that every output word is written exactly once at
-ragged shapes, that a warp's index loads and stores are consecutive words,
-and that the 32 pushes of a warp at any stack pointers fall in 32 distinct
-banks.
+ragged shapes and that a warp's index loads are consecutive words; P3's
+stores are consecutive too, and the 32 pushes of a warp of P5 at any stack
+pointers fall in 32 distinct banks. P4's shuffles take each row's index
+from the lane that loaded it, and no row is copied by two groups. P1's
+and P4's float4 paths are taken only at W = 8 with both pointers 16-byte
+aligned, and then every float4 address is 16-byte aligned.
 """
 
 import numpy as np
@@ -27,6 +41,104 @@ from pathtracer_tpu_torch.probes import gather as pg
 WARP = 32
 BANKS = 32
 DEFAULT_SMEM = 48 * 1024  # shared memory a block gets without opting in
+
+
+def _warp_slices(live_lanes):
+    """The live lanes of each warp of a 1-D grid of consecutive lanes."""
+    return [live_lanes[first:first + WARP]
+            for first in range(0, live_lanes.size, WARP)]
+
+
+def gather_rows_model(table, idx, table_ptr, out_ptr):
+    """P1 / P2's thread map. ``table_ptr`` and ``out_ptr`` are the byte
+    addresses the launcher is given. Returns (out, writes per output word,
+    per warp the idx words it loads, the grid, the bytes a thread
+    moves)."""
+    m, w = table.shape
+    n = idx.shape[0]
+    block = pg.threads("P1")
+    vec4 = w == 8 and (table_ptr | out_ptr) % 16 == 0
+    flat = table.reshape(-1)
+    out = np.full(n * w, np.nan, np.float32)
+    writes = np.zeros(n * w, np.int64)
+    assert ((idx >= 0) & (idx < m)).all()  # the kernel traps otherwise
+    if vec4:  # a thread a float4, two a row
+        grid = (-(-2 * n // block), 1)
+        k = np.arange(grid[0] * block)
+        k = k[k < 2 * n]
+        lane, part = k // 2, k % 2
+        src = idx[lane].astype(np.int64) * 2 + part
+        dst = lane * 2 + part
+        assert ((table_ptr + 16 * src) % 16 == 0).all()
+        assert ((out_ptr + 16 * dst) % 16 == 0).all()
+        for e in range(4):
+            np.add.at(writes, dst * 4 + e, 1)
+            out[dst * 4 + e] = flat[src * 4 + e]
+    else:  # a 2-D grid of words: lanes along x, columns along y
+        grid = (-(-n // block), min(w, 65535))
+        lane = np.arange(grid[0] * block)
+        lane = lane[lane < n]
+        row = idx[lane].astype(np.int64)
+        for y in range(grid[1]):
+            for c in range(y, w, grid[1]):
+                np.add.at(writes, lane * w + c, 1)
+                out[lane * w + c] = flat[row * w + c]
+    loads = [lane[first:first + WARP] for first in range(0, lane.size, WARP)]
+    return out.reshape(n, w), writes, loads, grid, 16 if vec4 else 4
+
+
+def gather_rows_warp_model(table, idx, table_ptr, out_ptr):
+    """P4's thread map, on the byte addresses the launcher is given.
+    Returns (out, writes per output word, per warp the idx words it
+    loads, the groups that copied each row, the block count)."""
+    m, w = table.shape
+    n = idx.shape[0]
+    runs, block = pg.macro("P4_ROWS"), pg.threads("P4")
+    blocks = -(-n // (runs * block // WARP))
+    pairs = w == 8 and (table_ptr | out_ptr) % 16 == 0
+    flat = table.reshape(-1)
+    out = np.full(n * w, np.nan, np.float32)
+    writes = np.zeros(n * w, np.int64)
+    copies = np.zeros(n, np.int64)
+    loads = []
+    lanes = np.arange(WARP)
+    for warp in range(blocks * block // WARP):
+        base = warp * runs
+        if base >= n:
+            continue
+        rows = min(runs, n - base)
+        mine = np.zeros(WARP, np.int64)  # each lane's register
+        held = lanes < rows
+        mine[held] = idx[base + lanes[held]]
+        loads.append(base + lanes[held])
+        assert ((mine[held] >= 0) & (mine[held] < m)).all()  # else a trap
+        if pairs:  # two lanes a row, a float4 each, 16 rows a pass
+            g, h = lanes // 2, lanes % 2
+            for p in range(-(-runs // 16)):
+                r = p * 16 + g  # each lane's row, its shuffle source
+                row = mine[r % WARP]
+                ok = r < rows
+                np.testing.assert_array_equal(row[ok], idx[base + r[ok]])
+                for rr in np.unique(r[ok]):  # one pair a row
+                    assert (h[r == rr] == [0, 1]).all()
+                    copies[base + rr] += 1
+                src = row[ok] * 2 + h[ok]
+                dst = (base + r[ok]) * 2 + h[ok]
+                assert ((table_ptr + 16 * src) % 16 == 0).all()
+                assert ((out_ptr + 16 * dst) % 16 == 0).all()
+                for e in range(4):
+                    np.add.at(writes, dst * 4 + e, 1)
+                    out[dst * 4 + e] = flat[src * 4 + e]
+        else:  # the whole warp a row, lanes along the columns
+            for r in range(rows):
+                row = mine[r]
+                assert row == idx[base + r]
+                copies[base + r] += 1
+                for first in range(0, w, WARP):
+                    col = first + lanes[first + lanes < w]
+                    np.add.at(writes, (base + r) * w + col, 1)
+                    out[(base + r) * w + col] = flat[row * w + col]
+    return out.reshape(n, w), writes, loads, copies, blocks
 
 
 def gather_cols_model(table_t, idx):
@@ -103,6 +215,85 @@ def test_gather_cols_writes_each_word_once(n, w):
     for lanes, stores in warps:  # coalesced: 32 consecutive words at most
         assert lanes.size <= WARP and _consecutive(lanes)
         assert all(_consecutive(s) for s in stores)
+
+
+def _rows_case(n, w, m=1000):
+    rng = np.random.default_rng(n * 100 + w)
+    table = rng.random((m, w), np.float32)
+    idx = rng.integers(0, m, n).astype(np.int32)
+    idx[:1], idx[-1:] = 0, m - 1
+    return table, idx
+
+
+def _pointers(table, n, shift):
+    """A contiguous (M, W) view of ``table`` and the out pointer a launch
+    gets: both 16-byte aligned, the table one float into its allocation,
+    or out one float past 16 bytes."""
+    off = int(shift == "table")
+    view = torch.zeros(table.size + off)[off:].view(table.shape)
+    view.copy_(torch.as_tensor(table))
+    out_ptr = torch.empty(n, table.shape[1]).data_ptr() + 4 * (shift == "out")
+    return view, out_ptr
+
+
+@pytest.mark.parametrize("shift", ["none", "table", "out"])
+@pytest.mark.parametrize("w", [1, 3, 4, 8, 13, 40])
+@pytest.mark.parametrize("n", [1, 33, 257, 8193])
+def test_gather_rows_writes_each_word_once(n, w, shift):
+    """P1 / P2 on an aligned table and out, with the table one float past
+    its allocation, and with out one float past 16 bytes: each output word
+    written once, a warp's idx loads consecutive words, float4 (every
+    address 16-byte aligned) only at W = 8 with both pointers 16-byte
+    aligned."""
+    table, idx = _rows_case(n, w)
+    view, out_ptr = _pointers(table, n, shift)
+    out, writes, loads, grid, size = gather_rows_model(
+        table, idx, view.data_ptr(), out_ptr)
+    vec4 = w == 8 and shift == "none"
+    assert size == (16 if vec4 else 4)
+    block = pg.threads("P1")
+    assert grid == ((-(-2 * n // block), 1) if vec4 else
+                    (-(-n // block), w))
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(out, pg.gather_rows_plain(
+        view, torch.as_tensor(idx)).numpy())
+    for lanes in loads:  # at W = 8 two threads load each word
+        assert lanes.size <= WARP and _consecutive(np.unique(lanes))
+
+
+@pytest.mark.parametrize("shift", ["none", "table"])
+@pytest.mark.parametrize("w", [1, 3, 4, 8, 13, 40])
+@pytest.mark.parametrize("n", [1, 33, 257, 8193])
+def test_gather_rows_warp_shuffles_each_row_once(n, w, shift):
+    """P4: each output word written once, each row copied by one group
+    whose shuffle source lane loaded that row's index, a warp's idx loads
+    one run of consecutive words; lane pairs of float4 only at W = 8 on
+    aligned pointers."""
+    table, idx = _rows_case(n, w)
+    view, out_ptr = _pointers(table, n, shift)
+    out, writes, loads, copies, blocks = gather_rows_warp_model(
+        table, idx, view.data_ptr(), out_ptr)
+    assert (writes == 1).all() and (copies == 1).all()
+    np.testing.assert_array_equal(out, pg.gather_rows_plain(
+        view, torch.as_tensor(idx)).numpy())
+    runs = pg.macro("P4_ROWS")
+    assert all(run.size <= runs and _consecutive(run) for run in loads)
+    assert np.array_equal(np.concatenate(loads), np.arange(n))
+    assert blocks == -(-n // (runs * pg.threads("P4") // WARP))
+
+
+def test_row_gather_grids_reach_almost_every_sm():
+    """At the probe's shapes P1 / P2 and P4 launch at least 128 blocks (of
+    132 SMs), whole warps each, P1 on float4, P4 at most 32 rows a
+    warp."""
+    x = pg.probe_inputs("cpu")
+    table, idx = x["table"].numpy(), x["idx"].numpy()
+    ptrs = x["table"].data_ptr(), torch.empty(pg.N, pg.W).data_ptr()
+    *_, grid, size = gather_rows_model(table, idx, *ptrs)
+    *_, blocks_p4 = gather_rows_warp_model(table, idx, *ptrs)
+    assert size == 16 and grid[0] >= 128 and blocks_p4 >= 128
+    assert pg.threads("P1") % WARP == 0 and pg.threads("P4") % WARP == 0
+    assert pg.macro("P4_ROWS") <= WARP
 
 
 @pytest.mark.parametrize("sp_at", ["bottom", "top", "mixed"])

@@ -2,8 +2,10 @@
 probe's shapes and on its ``default_rng(0)`` draws, against the probe's own
 numpy references (``tools/probe_pallas_gather.py``: ``table[idx]`` for the
 row gathers, the transposed table for the lane gather, and ``v`` for the
-stack push / read-back). They only move words, so equality is exact. The
-tool itself is not imported: it runs its TPU calls at import.
+stack push / read-back), and at ragged shapes, the row gathers also on a
+table view that starts one float past an allocation. They only move words,
+so equality is exact. The tool itself is not imported: it runs its TPU
+calls at import.
 """
 
 import numpy as np
@@ -92,3 +94,36 @@ def test_plain_stack_push_read_ragged_depths(depth, sp_at):
     got = pg.stack_push_read(torch.as_tensor(sp), torch.as_tensor(v), depth)
     assert got.shape == (n,) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), v)
+
+
+def offset_table(table: np.ndarray, offset: int) -> torch.Tensor:
+    """``table`` as a contiguous view that starts ``offset`` floats into
+    its allocation (an allocation starts 16-byte aligned, so offset 1 does
+    not)."""
+    m, w = table.shape
+    flat = torch.zeros(m * w + offset, dtype=torch.float32)
+    view = flat[offset:].view(m, w)
+    view.copy_(torch.as_tensor(table))
+    return view
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("w", [1, 3, 4, 8, 13, 40])
+@pytest.mark.parametrize("n", [0, 1, 33, 257, 8193])
+def test_plain_gather_rows_ragged_shapes(n, w, offset):
+    """P1 / P2's and P4's plain versions (what their wrappers run on the
+    CPU) at ragged lane counts and widths, indices at the table's first
+    and last rows, on a table that starts at the allocation and one float
+    past it: numpy's row gather."""
+    rng = np.random.default_rng(n * 100 + w)
+    m = 1000
+    table = rng.random((m, w), np.float32)
+    idx = rng.integers(0, m, n).astype(np.int32)
+    idx[:1], idx[-1:] = 0, m - 1
+    view = offset_table(table, offset)
+    assert view.is_contiguous() and (view.data_ptr() % 16 != 0) == offset
+    idx_t = torch.as_tensor(idx)
+    for fn in (pg.gather_rows_plain, pg.gather_rows, pg.gather_rows_warp):
+        got = fn(view, idx_t)
+        assert got.shape == (n, w) and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), table[idx])
