@@ -11,9 +11,10 @@ printing one JSON line:
              csrc/gather_probe2.cu) with nvcc, the launch module
              (csrc/pylaunch.c) with cc and the native BVH builder
              (csrc/bvh_builder.cpp) with g++, all at once; the registers,
-             static shared memory and spills of P1-P5's kernels from
-             ptxas, their threads a block (P1_THREADS ... P5_THREADS),
-             P4's rows a warp (P4_ROWS) and P5's dynamic stack slab;
+             static shared memory and spills of P1-P5's and P6-P9's
+             kernels from ptxas, their threads a block (P1_THREADS ...
+             P5_THREADS), P4's rows a warp (P4_ROWS), P5's dynamic stack
+             slab and P8's index rows a block (P8_ROWS, 128 threads each);
 3. k1      - K1 against its plain PyTorch version on the card, at the main
              path's shapes (131,072 rays x cornell's 36 triangles, camera
              and shadow rays mixed): valid, tri, t, b and any-hit
@@ -64,7 +65,9 @@ printing one JSON line:
              operands beside it); then P9 against its plain version on a
              table of -0, +inf, -inf, NaN and all-negative columns, at
              S = 64, 1, 3 and 65 index rows (NaN in the same places, equal
-             values and sign bits elsewhere);
+             values and sign bits elsewhere); P6, P7 and P8 at S = 64, 1,
+             3, 65 and 0 index rows, and P8 on an idx view one word off
+             16 bytes (its word path) at S = 64, 1, 3 and 65, exact;
 11. materials_golden - configs B, C and D at 64x64, band_rows 16, 2 spp,
              depths 4, 6 and 4 ("ref" MIS) on the card, against the
              committed goldens at tests/test_golden.py's _golden_check bar
@@ -1085,9 +1088,26 @@ def phase_probes2(dev):
                                  f"the special-values table, S = {s}")
         special[s] = dict(nan=int(want.isnan().sum()),
                           inf=int(want.isinf().sum()))
+
+    # P6-P8 at ragged row counts; P8 on an idx one word off 16 bytes
+    ragged = []
+    for s, offset, pids in ([(s, 0, ("P6", "P7", "P8"))
+                             for s in (pg.S, 1, 3, 65, 0)]
+                            + [(s, 1, ("P8",)) for s in (pg.S, 1, 3, 65)]):
+        xr = pg.ragged_inputs(s, dev, offset)
+        if s and xr["idx_i"].data_ptr() % 16 != 4 * offset:
+            raise AssertionError("P8's idx view is not at its offset")
+        for pid in pids:
+            got = pg.PROBES[pid](xr)
+            torch.cuda.synchronize()
+            if got.shape != (s, pg.L) or not torch.equal(
+                    got, pg.PLAIN[pid](xr)):
+                raise AssertionError(f"{pid} differs from its plain version "
+                                     f"at S = {s}, idx offset {offset}")
+        ragged.append(dict(S=s, idx_offset_words=offset, probes=pids))
     out = dict(phase="probes2", C=pg.C, S=pg.S, L=pg.L, launches=launches,
                reps=K1_REPS, per_call=PER_CALL, probes=probes,
-               p9_special=special)
+               p9_special=special, ragged=ragged)
     emit(out)
     return out
 
@@ -1437,6 +1457,8 @@ def phase_build():
                libraries={name: dict(path=path, seconds=sec)
                           for name, (path, sec) in done.items()},
                probe_ptxas=probe_ptxas,
+               probe2_ptxas=_build.ptxas_report(pg2.build()),
+               p8_rows=pg2.macro("P8_ROWS"),
                p1_threads=pg.threads("P1"), p3_threads=pg.threads("P3"),
                p4_threads=pg.threads("P4"), p4_rows=pg.macro("P4_ROWS"),
                p5_threads=pg.threads("P5"),

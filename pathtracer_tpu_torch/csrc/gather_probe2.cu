@@ -18,13 +18,28 @@
 //                  memory and thread l reads row[idx[s, l]]. The Hopper
 //                  form of the TPU's lane shuffle: a warp shuffle reaches
 //                  only 32 lanes.
-//   gather_two_step (P8) the TPU body as written: chunk = idx >> 7,
-//                  lp = idx & 127, cas[s, l] = chunk[s, lp[s, l]],
-//                  t2[s, l] = flat2[cas[s, l], l], out[s, l] = t2[s, lp[s, l]].
-//                  One block per row; chunk, then t2, are staged in shared
-//                  memory, so the three gathers are one kernel. (This is
-//                  not flat[idx]: the tool's decomposition is only right
-//                  where a row's lanes share their chunk.)
+//   gather_two_step (P8) the TPU body: chunk = idx >> 7, lp = idx & 127,
+//                  cas[s, l] = chunk[s, lp[s, l]], t2[s, l] = flat2[cas[s,
+//                  l], l], out[s, l] = t2[s, lp[s, l]]. Substituted, with
+//                  m = lp[s, l]: out[s, l] = flat2[chunk[s, lp[s, m]], m].
+//                  So an output word needs its own index, two more words
+//                  of its row's indices and one flat2 word; neither chunk
+//                  nor t2 has to be exchanged. A block of 128 threads an
+//                  index row (P8_ROWS rows a block): thread l loads
+//                  idx[s, l], then idx[s, m] and idx[s, lp[s, m]] again,
+//                  which hit in the SM's L1 (the block's four warps have
+//                  just asked for the row's four 128-byte lines), then one
+//                  flat2 word, and stores it: no shared memory and no
+//                  barrier. Measured slower on an H100 (probe_variants.py):
+//                  the row staged in shared memory with one barrier and
+//                  two shared reads (by 0.03 us; the TPU body's two
+//                  barriers the same as that), a warp a row (four words a
+//                  lane, int4 in and float4 out, __syncwarp: one warp
+//                  issues the four outputs' address arithmetic on one of
+//                  the SM's four schedulers, 0.05 us slower still) and two
+//                  rows a block. (This is not flat[idx]: the tool's
+//                  decomposition is only right where a row's lanes share
+//                  their chunk.)
 //   onehot_matmul  (P9) out = onehot(idx) @ tbl, (rows, 128) x (128, 128),
 //                  computed without arithmetic. The FP32 product sums, per
 //                  output, one product 1 * tbl[idx[r], j] and 127 products
@@ -75,6 +90,12 @@ constexpr int kP9Rows = 256;                    // rows a block owns
 constexpr int kP9Threads = 1024;
 constexpr int kP9SliceIters = kLanes * kP9Vec / kP9Threads;   // 1
 constexpr int kP9RowIters = kP9Rows * kP9Vec / kP9Threads;    // 2
+// index rows a block of gather_two_step, 128 threads each
+// (probe_variants.py builds other sizes)
+#ifndef P8_ROWS
+#define P8_ROWS 1
+#endif
+static_assert(P8_ROWS >= 1 && P8_ROWS <= 8, "a block holds 1-8 rows");
 
 __global__ void gather_sublane_kernel(const float* __restrict__ data,
                                       const int32_t* __restrict__ idx,
@@ -101,22 +122,25 @@ __global__ void gather_lane_kernel(const float* __restrict__ data,
   out[base + l] = row[src];
 }
 
-__global__ void gather_two_step_kernel(const float* __restrict__ flat2,
-                                       const int32_t* __restrict__ idx,
-                                       int c, float* __restrict__ out) {
-  __shared__ int32_t chunk[kLanes];
-  __shared__ float t2[kLanes];
-  const long base = (long)blockIdx.x * kLanes;
-  const int l = threadIdx.x;
-  const int i = idx[base + l];
-  if (i < 0 || i >= c * kLanes) __trap();
-  const int lp = i & (kLanes - 1);
-  chunk[l] = i >> 7;
-  __syncthreads();
-  const int cas = chunk[lp];  // the chunk of the lane this lane reads
-  t2[l] = flat2[(long)cas * kLanes + l];
-  __syncthreads();
-  out[base + l] = t2[lp];
+// P8: a block of 128 threads an index row, P8_ROWS rows a block (module
+// comment). Each thread range-checks its own index and the one that
+// addresses flat2 (another thread's, which that thread checks too), so no
+// unchecked index reaches memory.
+__global__ void __launch_bounds__(kLanes * P8_ROWS)
+gather_two_step_kernel(const float* __restrict__ flat2,
+                       const int32_t* __restrict__ idx, int rows, int c,
+                       float* __restrict__ out) {
+  const int r = threadIdx.x / kLanes, l = threadIdx.x % kLanes;
+  const int s = blockIdx.x * P8_ROWS + r;
+  if (P8_ROWS > 1 && s >= rows) return;  // a ragged last block
+  const int32_t* row = idx + (long)s * kLanes;
+  const unsigned n = (unsigned)c * kLanes;
+  const int i = __ldg(row + l);
+  if ((unsigned)i >= n) __trap();
+  const int m = i & (kLanes - 1);
+  const int k = __ldg(row + (__ldg(row + m) & (kLanes - 1)));
+  if ((unsigned)k >= n) __trap();
+  out[(long)s * kLanes + l] = __ldg(flat2 + (long)(k >> 7) * kLanes + m);
 }
 
 // inf or NaN: every exponent bit set
@@ -216,8 +240,9 @@ extern "C" int pt_gather_two_step_launch(const float* flat2,
                                          const int32_t* idx, int rows, int c,
                                          float* out, void* stream) {
   if (rows == 0) return 0;
-  gather_two_step_kernel<<<rows, kLanes, 0, (cudaStream_t)stream>>>(
-      flat2, idx, c, out);
+  gather_two_step_kernel<<<(rows + P8_ROWS - 1) / P8_ROWS, kLanes * P8_ROWS,
+                           0, (cudaStream_t)stream>>>(flat2, idx, rows, c,
+                                                      out);
   return (int)cudaGetLastError();
 }
 

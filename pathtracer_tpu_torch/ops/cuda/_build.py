@@ -151,6 +151,13 @@ def build_cuda(name: str, verbose: bool = False, defines: tuple = ()) -> str:
                          verbose=verbose)
 
 
+def macro(name: str, define: str) -> int:
+    """A tuning constant of a source's default build: the value of
+    ``#define <define>`` in ``csrc/<name>``."""
+    with open(os.path.join(CSRC_DIR, name)) as fh:
+        return int(re.search(rf"#define {define} (\d+)", fh.read()).group(1))
+
+
 def load_cuda(name: str, signatures: dict, defines: tuple = ()) -> dict:
     """Build (if needed) and load ``csrc/<name>``, and bind the launcher of
     each kernel of ``signatures`` (as ``bind``). Returns {kernel:

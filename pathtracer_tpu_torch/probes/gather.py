@@ -32,9 +32,6 @@ as the tool's script is: it makes the tool's inputs from
 
 from __future__ import annotations
 
-import os
-import re
-
 import numpy as np
 import torch
 
@@ -60,8 +57,7 @@ _fns = None
 def macro(name: str) -> int:
     """A tuning constant of the default build: the value of ``#define
     name`` in the source."""
-    with open(os.path.join(_build.CSRC_DIR, SOURCE)) as fh:
-        return int(re.search(rf"#define {name} (\d+)", fh.read()).group(1))
+    return _build.macro(SOURCE, name)
 
 
 def threads(kernel: str) -> int:

@@ -6,11 +6,15 @@ table, and a (128, 128) table for the one-hot product.
 
   P6  gather_sublane(data, idx)  out[s, l] = data[idx[s, l], l]
   P7  gather_lane(data, idx)     out[s, l] = data[s, idx[s, l]]
-  P8  gather_two_step(flat2, idx)  the TPU body ``k_two`` as written:
+  P8  gather_two_step(flat2, idx)  the TPU body ``k_two``:
       chunk = idx >> 7, lp = idx & 127, cas[s, l] = chunk[s, lp[s, l]],
-      t2[s, l] = flat2[cas[s, l], l], out[s, l] = t2[s, lp[s, l]]. This
-      is not the tool's own reference ``flat[idx]`` (it agrees only where
-      a row's lanes share their chunk); the port computes what the TPU
+      t2[s, l] = flat2[cas[s, l], l], out[s, l] = t2[s, lp[s, l]]; that
+      is, with m = lp[s, l], out[s, l] = flat2[chunk[s, lp[s, m]], m],
+      which the kernel computes with a block of 128 threads a row, each
+      reading its row's indices again through L1, with no barrier
+      (P8_ROWS rows a block; csrc/gather_probe2.cu). This is not
+      the tool's own reference ``flat[idx]`` (it agrees only where a
+      row's lanes share their chunk); the port computes what the TPU
       kernel computes.
   P9  onehot_matmul(tbl, idx)    onehot(idx) @ tbl, as (S, 128, 128); the
       kernel writes the FP32 product's closed form (a row copy, NaN in a
@@ -44,6 +48,13 @@ SIGNATURES = {"gather_sublane": "ppiipp", "gather_lane": "ppipp",
               "gather_two_step": "ppiipp", "onehot_matmul": "ppipp"}
 
 _fns = None
+
+
+def macro(name: str) -> int:
+    """A tuning constant of the default build: the value of ``#define
+    name`` in the source (P8_ROWS, gather_two_step's index rows a block,
+    128 threads each)."""
+    return _build.macro(SOURCE, name)
 
 
 def build(verbose: bool = False) -> str:
@@ -199,6 +210,31 @@ def probe_inputs(device="cuda") -> dict:
         idx_j=rng.integers(0, L, (S, L)).astype(np.int32))
     arrays["flat2"] = arrays["flat"].reshape(C, L)
     return {k: torch.as_tensor(a, device=device) for k, a in arrays.items()}
+
+
+def ragged_inputs(rows: int, device="cuda", offset: int = 0) -> dict:
+    """P6's, P7's and P8's inputs at ``rows`` index rows, from
+    ``default_rng(rows)``: data_g, idx_g, data_h, idx_h, flat2, idx_i as in
+    ``probe_inputs`` (the same tables' shapes, indices over each table's
+    whole range), P8's first row opening with a chunk's first and last
+    lane, the table's first and last (0, 127, 128 (C - 1), 128 C - 1).
+    ``idx_i`` is a contiguous view ``offset`` words into its allocation:
+    with an offset of 1-3 it is not 16-byte aligned."""
+    rng = np.random.default_rng(rows)
+    arrays = dict(
+        data_g=rng.random((C, L), np.float32),
+        idx_g=rng.integers(0, C, (rows, L)).astype(np.int32),
+        data_h=rng.random((rows, L), np.float32),
+        idx_h=rng.integers(0, L, (rows, L)).astype(np.int32),
+        flat2=rng.random((C, L), np.float32))
+    idx_i = rng.integers(0, C * L, (rows, L)).astype(np.int32)
+    if rows:
+        idx_i[0, :4] = (0, L - 1, (C - 1) * L, C * L - 1)
+    out = {k: torch.as_tensor(a, device=device) for k, a in arrays.items()}
+    out["idx_i"] = torch.zeros(rows * L + offset, dtype=I32,
+                               device=device)[offset:].view(rows, L)
+    out["idx_i"].copy_(torch.as_tensor(idx_i))
+    return out
 
 
 def special_inputs(rows: int = S, device="cuda") -> dict:

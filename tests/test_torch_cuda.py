@@ -10,6 +10,10 @@ JAX is not installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -426,29 +430,68 @@ def test_gather_probe2_matches_plain(dev, pid):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [64, 1, 3, 65, 0])
 def test_gather_sublane_and_lane_ragged_rows(dev, rows):
-    """P6 and P7 through the launch path at the probe's and at ragged row
-    counts: equal to their plain versions, one launch a call (none for
+    """P6, P7 and P8 through the launch path at the probe's and at ragged
+    row counts (P8's indices at a chunk's first and last lane among
+    them): equal to their plain versions, one launch a call (none for
     zero rows)."""
-    rng = np.random.default_rng(rows)
-
-    def t(a):
-        return torch.as_tensor(a, device=dev)
-    data_g = t(rng.random((pg2.C, 128), np.float32))
-    idx_g = t(rng.integers(0, pg2.C, (rows, 128)).astype(np.int32))
-    data_h = t(rng.random((rows, 128), np.float32))
-    idx_h = t(rng.integers(0, 128, (rows, 128)).astype(np.int32))
+    x = pg2.ragged_inputs(rows, dev)
     before = dict(pg2.LAUNCHES)
-    got_g = pg2.gather_sublane(data_g, idx_g)
-    got_h = pg2.gather_lane(data_h, idx_h)
+    got = {pid: pg2.PROBES[pid](x) for pid in ("P6", "P7", "P8")}
     torch.cuda.synchronize()
     launched = int(rows > 0)
-    assert pg2.LAUNCHES == dict(before, gather_sublane=before[
-        "gather_sublane"] + launched, gather_lane=before["gather_lane"]
-        + launched)
-    assert got_g.shape == got_h.shape == (rows, 128)
-    assert got_g.is_contiguous() and got_h.is_contiguous()
-    assert torch.equal(got_g, pg2.gather_sublane_plain(data_g, idx_g))
-    assert torch.equal(got_h, pg2.gather_lane_plain(data_h, idx_h))
+    assert pg2.LAUNCHES == dict(before, **{
+        k: before[k] + launched
+        for k in ("gather_sublane", "gather_lane", "gather_two_step")})
+    for pid, out in got.items():
+        assert out.shape == (rows, 128) and out.is_contiguous()
+        assert torch.equal(out, pg2.PLAIN[pid](x)), pid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("rows", [64, 1, 3, 65])
+def test_gather_two_step_misaligned_idx(dev, rows, offset):
+    """P8 on an idx that is a contiguous view 1-3 words into its
+    allocation (not 16-byte aligned; the kernel moves words, so it takes
+    any alignment): equal to the plain version, one launch a call."""
+    x = pg2.ragged_inputs(rows, dev, offset)
+    assert x["idx_i"].data_ptr() % 16 == 4 * offset
+    before = pg2.LAUNCHES["gather_two_step"]
+    got = pg2.gather_two_step(x["flat2"], x["idx_i"])
+    torch.cuda.synchronize()
+    assert pg2.LAUNCHES["gather_two_step"] == before + 1
+    assert torch.equal(got, pg2.gather_two_step_plain(x["flat2"],
+                                                      x["idx_i"]))
+
+
+# an index out of [0, 128 C) stops P8's kernel: the trap poisons the CUDA
+# context, so it runs in a process of its own
+_P8_TRAP = """
+import sys
+import torch
+from pathtracer_tpu_torch.probes import gather2 as pg2
+bad, offset = int(sys.argv[1]), int(sys.argv[2])
+x = pg2.ragged_inputs(3, torch.device("cuda"), offset)
+x["idx_i"][1, 77] = bad
+pg2.gather_two_step(x["flat2"], x["idx_i"])
+try:
+    torch.cuda.synchronize()
+except RuntimeError as err:
+    print("trapped:", err)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad,offset", [(-1, 0), (128 * pg2.C, 1)])
+def test_gather_two_step_traps_out_of_range(dev, bad, offset):
+    """An index below 0 (idx 16-byte aligned) or at 128 C (idx off 16
+    bytes) stops the kernel with a trap, which the next synchronisation
+    raises."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _P8_TRAP, str(bad),
+                          str(offset)], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert "trapped:" in res.stdout, res.stdout + res.stderr
 
 
 @pytest.mark.cuda

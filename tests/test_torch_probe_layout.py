@@ -1,6 +1,6 @@
 """A numpy model of how kernels P1 / P2, P3, P4 and P5
-(``csrc/gather_probe.cu``) map their threads to the words they read and
-write, held to the plain versions.
+(``csrc/gather_probe.cu``) and P8 (``csrc/gather_probe2.cu``) map their
+threads to the words they read and write, held to the plain versions.
 
 The CUDA kernels cannot run on the CPU, so this file runs their thread
 maps instead, at the default build's block sizes and rows a warp (read
@@ -21,6 +21,10 @@ from the source):
 - P5, ``stack_push_read``: blocks of ``threads("P5")``, each with a
   (depth, threads) slab of shared memory; thread t's stack entry k is slab
   word ``k * threads + t``, so its bank is ``t mod 32`` whatever k.
+- P8, ``gather_two_step``: a block of 128 threads an index row,
+  ``macro("P8_ROWS")`` rows a block; thread l of row s loads idx[s, l],
+  then idx[s, m] and idx[s, idx[s, m] & 127] (m = idx[s, l] & 127), one
+  flat2 word, and stores out[s, l]: no shared memory, no barrier.
 
 Each model checks that every output word is written exactly once at
 ragged shapes and that a warp's index loads are consecutive words; P3's
@@ -28,7 +32,12 @@ stores are consecutive too, and the 32 pushes of a warp of P5 at any stack
 pointers fall in 32 distinct banks. P4's shuffles take each row's index
 from the lane that loaded it, and no row is copied by two groups. P1's
 and P4's float4 paths are taken only at W = 8 with both pointers 16-byte
-aligned, and then every float4 address is 16-byte aligned.
+aligned, and then every float4 address is 16-byte aligned. P8's threads
+read idx only within their own row (the lines their block loads, so the
+second and third reads hit in L1), every index that addresses flat2 is
+range-checked, and a ragged last block's spare rows load and store
+nothing. P8's model is also held to the TPU body ``k_two`` in interpret
+mode.
 """
 
 import numpy as np
@@ -37,6 +46,7 @@ import torch
 
 from pathtracer_tpu_torch.ops.cuda import _build
 from pathtracer_tpu_torch.probes import gather as pg
+from pathtracer_tpu_torch.probes import gather2 as pg2
 
 WARP = 32
 BANKS = 32
@@ -194,6 +204,40 @@ def stack_push_read_model(sp, v, depth):
             warp_words.append((t[first:first + WARP],
                                word[first:first + WARP]))
     return out, writes, warp_words, 4 * depth * block, blocks
+
+
+def gather_two_step_model(flat2, idx):
+    """P8's thread map. Returns (out, writes per output word, per warp the
+    idx words of its first loads and the out words it stores, the block
+    count)."""
+    c, lanes = flat2.shape
+    s = idx.shape[0]
+    rows = pg2.macro("P8_ROWS")
+    blocks = -(-s // rows)
+    flat, words_of = flat2.reshape(-1), idx.reshape(-1).astype(np.int64)
+    out = np.full(s * lanes, np.nan, np.float32)
+    writes = np.zeros(s * lanes, np.int64)
+    warps = []
+    l = np.arange(lanes)  # thread r * 128 + l of a block: row r's lane l
+    for b in range(blocks):
+        for r in range(rows):
+            row = b * rows + r
+            if row >= s:
+                continue  # a ragged last block: the thread returns
+            k0 = row * lanes + l
+            i = words_of[k0]
+            assert ((i >= 0) & (i < c * lanes)).all()  # else a trap
+            m = i & (lanes - 1)
+            k1 = row * lanes + m  # the second and third loads: this
+            k2 = row * lanes + (words_of[k1] & (lanes - 1))  # row's lines
+            assert ((k1 // lanes == row) & (k2 // lanes == row)).all()
+            cas = words_of[k2]
+            assert ((cas >= 0) & (cas < c * lanes)).all()  # else a trap
+            np.add.at(writes, k0, 1)
+            out[k0] = flat[(cas >> 7) * lanes + m]
+            warps += [k0[first:first + WARP]
+                      for first in range(0, lanes, WARP)]
+    return out.reshape(s, lanes), writes, warps, blocks
 
 
 def _consecutive(words):
@@ -361,3 +405,64 @@ def test_ptxas_report_reads_shared_memory(tmp_path):
                       spill_loads=0),
         "_Z1bv": dict(registers=40, smem=4096, stack=8, spill_stores=4,
                       spill_loads=4)}
+
+
+def _two_step_case(s, c, pattern):
+    """(C, 128) flat2 and (S, 128) indices: over the table's whole range
+    ("random"), every row's lanes in one chunk ("one chunk"), or only the
+    first and last lanes of chunks ("ends"); the first row opens with a
+    chunk's first and last lane, the table's first and last word."""
+    rng = np.random.default_rng(1000 * s + c)
+    flat2 = rng.random((c, pg2.L), np.float32)
+    lane = rng.integers(0, pg2.L, (s, pg2.L))
+    chunk = {"random": rng.integers(0, c, (s, pg2.L)),
+             "one chunk": rng.integers(0, c, (s, 1)),
+             "ends": rng.integers(0, c, (s, pg2.L))}[pattern]
+    if pattern == "ends":
+        lane = (pg2.L - 1) * (lane % 2)
+    idx = (chunk * pg2.L + lane).astype(np.int32)
+    if s:
+        idx[0, :4] = (0, pg2.L - 1, (c - 1) * pg2.L, c * pg2.L - 1)
+    return flat2, idx
+
+
+@pytest.mark.parametrize("pattern", ["random", "one chunk", "ends"])
+@pytest.mark.parametrize("c", [1, 7, 548])
+@pytest.mark.parametrize("s", [0, 1, 3, 64, 65])
+def test_gather_two_step_writes_each_word_once(s, c, pattern):
+    """P8 at ragged row counts and table sizes: each output word written
+    once, each warp's first loads 32 consecutive idx words and its stores
+    32 consecutive out words; equal to the plain version (and, where a
+    row's lanes share their chunk, to flat[idx])."""
+    flat2, idx = _two_step_case(s, c, pattern)
+    out, writes, warps, blocks = gather_two_step_model(flat2, idx)
+    assert (writes == 1).all() and len(warps) == 4 * s
+    assert blocks == -(-s // pg2.macro("P8_ROWS"))
+    assert all(w.size == WARP and _consecutive(w) for w in warps)
+    want = pg2.gather_two_step_plain(torch.as_tensor(flat2),
+                                     torch.as_tensor(idx))
+    np.testing.assert_array_equal(out, want.numpy())
+    if pattern == "one chunk" and s:
+        np.testing.assert_array_equal(out[1:], flat2.reshape(-1)[idx[1:]])
+
+
+def test_gather_two_step_model_matches_tpu_body():
+    """At the probe's inputs (S = 64, C = 548) P8's thread map equals the
+    TPU body ``k_two`` run by ``pl.pallas_call(interpret=True)``."""
+    from test_torch_probes2 import _interpret
+    x = pg2.probe_inputs("cpu")
+    out, writes, *_ = gather_two_step_model(x["flat2"].numpy(),
+                                            x["idx_i"].numpy())
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(out, _interpret("P8", x))
+
+
+def test_gather_two_step_grid():
+    """At the probe's shapes: 128 threads a row (four whole warps), 64 /
+    P8_ROWS blocks."""
+    x = pg2.probe_inputs("cpu")
+    *_, warps, blocks = gather_two_step_model(x["flat2"].numpy(),
+                                              x["idx_i"].numpy())
+    rows = pg2.macro("P8_ROWS")
+    assert len(warps) == 4 * pg2.S and blocks * rows == pg2.S
+    assert pg2.L % WARP == 0 and 1 <= rows <= 8

@@ -135,6 +135,49 @@ def test_p8_equals_flat_gather_when_rows_share_a_chunk():
     assert torch.equal(got, flat2.reshape(-1)[idx.long()])
 
 
+def _p8_closed_form(flat2, idx):
+    """out[s, l] = flat2[chunk[s, lp[s, m]], m] with m = lp[s, l]: the
+    TPU body substituted, what the card kernel computes word by word."""
+    chunk, lp = idx >> 7, idx & 127
+    m = lp
+    read = np.take_along_axis(chunk, np.take_along_axis(lp, m, 1), 1)
+    return flat2[read, m]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("rows", [0, 1, 3, 65])
+def test_p8_plain_ragged_rows(rows, offset):
+    """The plain P8 at ragged row counts (idx a view at a word offset or
+    not): equal to the substituted closed form, and to the TPU body
+    ``k_two`` in interpret mode where there is a row."""
+    x = pg.ragged_inputs(rows, "cpu", offset)
+    before = dict(pg.LAUNCHES)
+    got = pg.gather_two_step(x["flat2"], x["idx_i"])
+    assert pg.LAUNCHES == before and got.shape == (rows, L)
+    flat2, idx = x["flat2"].numpy(), x["idx_i"].numpy()
+    np.testing.assert_array_equal(got.numpy(), _p8_closed_form(flat2, idx))
+    if rows:
+        body = pl.pallas_call(
+            k_two, out_shape=jax.ShapeDtypeStruct((rows, L), jnp.float32),
+            interpret=True)(jnp.asarray(flat2), jnp.asarray(idx))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(body))
+
+
+@pytest.mark.parametrize("c", [1, 7, 548])
+def test_p8_plain_table_sizes(c):
+    """The plain P8 on (C, 128) tables of 1, 7 and 548 rows, the indices
+    opening with each chunk's first and last lane (as many chunks as 384
+    indices hold): the closed form."""
+    rng = np.random.default_rng(c)
+    flat2 = rng.random((c, L), np.float32)
+    idx = rng.integers(0, c * L, (3, L)).astype(np.int32)
+    ends = np.arange(c)[:, None] * L + np.array([0, L - 1])
+    idx.reshape(-1)[:ends.size] = ends.reshape(-1)[:3 * L]
+    got = pg.gather_two_step_plain(torch.as_tensor(flat2),
+                                   torch.as_tensor(idx))
+    np.testing.assert_array_equal(got.numpy(), _p8_closed_form(flat2, idx))
+
+
 def test_probe_wrappers_reject_bad_inputs(x):
     with pytest.raises(TypeError, match="int32"):
         pg.gather_sublane(x["data_g"], x["idx_g"].long())
