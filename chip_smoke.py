@@ -94,6 +94,22 @@ printing one JSON line:
              time, K1's or K2's share of it and the launches (last, as
              tracing slows later launches).
 
+Between phases 12 and 13, the classroom (``data/classroom_proc.glb``:
+glTF, four PNG textures in the mip pool, ray differentials, K2):
+
+14. classroom_golden - 64x36, 2 spp, depth 5, "onesample" MIS on the
+             card against the port's own CPU film at RMSE < 1e-3 and
+             alpha rtol 1e-5, exact K2 launch count, no K1;
+15. classroom_main - 1920x1080, 2 spp, depth 5, "onesample": load_gltf
+             and TracedScene.create seconds (each synchronised), table
+             rows and depth, then a warm-up render and three timed renders
+             (as phase 5; exact K2 count, no K1), peak device memory,
+             finite film with positive weight everywhere; then one render
+             under torch.profiler (host and device activity): the device's
+             busy share of its wall time, K2's share of the device time
+             and the share of the texture lookup's ops (those under
+             ``lookup_width``'s ``texture_lookup`` range).
+
 "Timed" is three figures on CUDA events and the host clock: ``ms``, per
 call over 100 back-to-back calls (the median of 5 such runs);
 ``ms_single``, the median of 30 single calls (the figure of earlier
@@ -153,6 +169,9 @@ PROFILE_ATTEMPTS = 3
 # ~673,000 device events, costly to process on the host; K1's share is
 # that of every sample
 PROFILE_CORNELL_SPP = 2
+CLASSROOM = os.path.join(ROOT, "data", "classroom_proc.glb")
+CLASS_RES = (1920, 1080)
+CLASS_SPP = 2
 
 # the H100 SXM's published peaks (NVIDIA data sheet; 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -444,10 +463,10 @@ def k1_render_inputs(dev, bounce: int = 2, resolution=(640, 480)):
                                             mis_mode="onesample"), spp=1)
     seen, wave_bounce = [], im._wave_bounce
 
-    def record(scene_, cfg, b, st, draw, draw2):
+    def record(scene_, cfg, b, st, draw, draw2, **kw):
         if b == bounce:
             seen.append((st["o"], st["d"], st["active"]))
-        return wave_bounce(scene_, cfg, b, st, draw, draw2)
+        return wave_bounce(scene_, cfg, b, st, draw, draw2, **kw)
     im._wave_bounce = record
     try:
         integ.render(cam, scene)
@@ -1300,13 +1319,141 @@ def phase_materials_main(dev, smi: str):
     return out
 
 
-def render_profile(cam, scene, spp: int, kernel: str) -> dict:
+def classroom_scene(dev, resolution=CLASS_RES):
+    """Classroom's camera and TracedScene on ``dev``, with the seconds of
+    load_gltf (glTF parse, PNG decode, mip pool, upload) and of
+    TracedScene.create (BVH build, reorder, 32-wide collapse, upload),
+    each synchronised."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator import TracedScene
+    from pathtracer_tpu_torch.scene.gltf import load_gltf
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    sync()
+    t0 = time.perf_counter()
+    cam, sd, _ = load_gltf(CLASSROOM, resolution=resolution, device=dev)
+    sync()
+    t1 = time.perf_counter()
+    scene = TracedScene.create(sd)
+    sync()
+    return cam, scene, t1 - t0, time.perf_counter() - t1
+
+
+def phase_classroom_golden(dev):
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    cfg = PathConfig(max_depth=5, mis_mode="onesample")
+    films = {}
+    for where in (torch.device("cpu"), dev):
+        cam, scene, _, _ = classroom_scene(where, resolution=(64, 36))
+        integ = PathIntegrator(cfg, spp=2)
+        k1_before, k2_before = k1.LAUNCHES, k2.LAUNCHES
+        film = integ.render(cam, scene)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        _, n_bands = integ.band_layout(cam)
+        launches = (k1.LAUNCHES - k1_before, k2.LAUNCHES - k2_before)
+        expect = (0, 0) if where.type == "cpu" else \
+            (0, n_bands * integ.spp * (2 * cfg.max_depth + 1))
+        if launches != expect:
+            raise AssertionError(f"classroom golden on {where} launched (K1, "
+                                 f"K2) {launches} times, expected {expect}")
+        films[where.type] = (film.cpu().numpy(), launches[1],
+                             integ.last_ray_count)
+    got, want = films["cuda"][0], films["cpu"][0]
+    if not (np.isfinite(got).all() and (got[..., 3] > 0).all()):
+        raise AssertionError("classroom golden film must be finite with "
+                             "positive weight")
+    np.testing.assert_allclose(got[..., 3], want[..., 3], rtol=1e-5)
+    rmse = float(np.sqrt(np.mean((got[..., :3] - want[..., :3]) ** 2)))
+    if not rmse < 1e-3:
+        raise AssertionError(f"classroom golden RMSE {rmse} >= 1e-3")
+    diff = np.abs(got[..., :3] - want[..., :3]).max(axis=-1)
+    out = dict(phase="classroom_golden", rmse=rmse,
+               alpha_max_rel=float(np.max(np.abs(got[..., 3] - want[..., 3])
+                                          / np.abs(want[..., 3]))),
+               pixels_differing=int((diff > 0).sum()),
+               max_pixel_diff=float(diff.max()), launches=films["cuda"][1],
+               rays_card=films["cuda"][2], rays_cpu=films["cpu"][2],
+               film_mean_rgb=[float(v) for v in got[..., :3].mean((0, 1))])
+    emit(out)
+    return out
+
+
+def phase_classroom_main(dev, smi: str):
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cam, scene, load_s, create_s = classroom_scene(dev)
+    cfg = PathConfig(max_depth=5, mis_mode="onesample")
+    integ = PathIntegrator(cfg, spp=CLASS_SPP)
+    _, n_bands = integ.band_layout(cam)
+    expect = n_bands * integ.spp * (2 * cfg.max_depth + 1)
+
+    t0 = time.perf_counter()
+    integ.render(cam, scene)  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    film, runs = timed_renders(integ, cam, scene, {k2: expect, k1: 0},
+                               "classroom")
+    launches = k2.LAUNCHES
+    w, h = CLASS_RES
+    if tuple(film.shape) != (h, w, 4):
+        raise AssertionError(f"film shape {tuple(film.shape)}")
+    if not bool(torch.isfinite(film).all()):
+        raise AssertionError("film has non-finite values")
+    if not bool((film[..., 3] > 0).all()):
+        raise AssertionError("film weight must be positive everywhere")
+    peak = torch.cuda.max_memory_allocated(dev)
+    table = scene.bw_rows
+    out = dict(phase="classroom_main", resolution=list(CLASS_RES),
+               triangles=int(scene.tri_pack.shape[0]),
+               textures=int(scene.data.tex.n_levels.shape[0]),
+               pool_texels=int(scene.data.tex.data.shape[0]),
+               table_rows=int(table.shape[0]),
+               table_bytes=table.numel() * table.element_size(),
+               depth=scene.bw_depth, spp=integ.spp,
+               max_depth=cfg.max_depth, mis_mode=cfg.mis_mode,
+               bands=n_bands, **runs, warmup_seconds=warm_s,
+               load_seconds=load_s, create_seconds=create_s,
+               launches=launches, expected_launches=expect,
+               k1_launches=k1.LAUNCHES, peak_mem_bytes=peak,
+               bad_samples=integ.bad_sample_count,
+               film_mean_rgb=[float(v) for v in
+                              film[..., :3].mean(dim=(0, 1)).cpu()],
+               card=smi)
+    out["profile"] = render_profile(cam, scene, CLASS_SPP, "bvhw_kernel",
+                                    annotation="texture_lookup",
+                                    warmup=False)
+    emit(out)
+    return out
+
+
+def render_profile(cam, scene, spp: int, kernel: str,
+                   annotation: str | None = None, warmup: bool = True) -> dict:
     """One render (depth 5, "onesample") under torch.profiler: the device
     time of all its kernels, the share of it of the kernels whose name
     contains ``kernel``, the launches, and the device's busy share of the
     traced render's wall time (the trace slows the host, so the share is
     a lower bound), after one untraced warm-up render of the same
-    configuration."""
+    configuration (unless ``warmup`` is false). With ``annotation``, the
+    host's ops are traced too, and the device time of the kernels that
+    ops inside the ``record_function`` ranges of that name launched is
+    reported with its share (``annotated_device_ms``, ``annotation_share``).
+    """
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1315,26 +1462,80 @@ def render_profile(cam, scene, spp: int, kernel: str) -> dict:
     integ = PathIntegrator(PathConfig(max_depth=5, mis_mode="onesample"),
                            spp=spp)
     _, n_bands = integ.band_layout(cam)
-    integ.render(cam, scene)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    if warmup:
+        integ.render(cam, scene)
+        torch.cuda.synchronize()
+    activities = [ProfilerActivity.CUDA]
+    if annotation is not None:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         integ.render(cam, scene)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    k_events = [e for e in events if kernel in e.key]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    k_ms = sum(e.self_device_time_total for e in k_events) / 1e3
-    if device_ms <= 0 or not k_events:
+    t_parse = time.perf_counter()
+    if annotation is None:
+        events = prof.key_averages()
+        k_events = [e for e in events if kernel in e.key]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        k_ms = sum(e.self_device_time_total for e in k_events) / 1e3
+        launches = sum(e.count for e in events)
+        k_launches = sum(e.count for e in k_events)
+        extra = {}
+    else:
+        device_ms, k_ms, launches, k_launches, extra = annotated_device_ms(
+            prof.profiler.kineto_results.events(), kernel, annotation)
+        extra["annotation_share"] = extra["annotated_device_ms"] / device_ms
+    if device_ms <= 0 or not k_launches:
         raise AssertionError("profiler saw no device time for the render")
-    launches = sum(e.count for e in events)
     return dict(device_ms=device_ms, kernel=kernel, kernel_device_ms=k_ms,
-                kernel_share=k_ms / device_ms,
-                kernel_launches=sum(e.count for e in k_events),
+                kernel_share=k_ms / device_ms, kernel_launches=k_launches,
                 launches=launches,
                 launches_per_band_frame=launches / (n_bands * integ.spp),
-                traced_wall_ms=wall_ms, device_busy_share=device_ms / wall_ms)
+                traced_wall_ms=wall_ms, device_busy_share=device_ms / wall_ms,
+                **extra, parse_seconds=time.perf_counter() - t_parse)
+
+
+def annotated_device_ms(events, kernel: str, annotation: str):
+    """From a host-and-device trace's raw events (torch.profiler's Kineto
+    events, read without building its event tree, which takes minutes
+    for a whole render): the device time and count of every device
+    event, of those whose name contains ``kernel``, and of the kernels
+    launched by host ops that start inside a ``record_function`` range
+    named ``annotation`` (a kernel names its launching aten op by
+    correlation id). The device-side copies of the ranges are not work
+    and are left out. Returns (device_ms, kernel_ms, launches,
+    kernel_launches, {annotation, annotation_ranges, annotated_device_ms,
+    annotated_launches})."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    host, device = [], []
+    for e in events:
+        (host if e.device_type() == DeviceType.CPU else device).append(e)
+    ranges = sorted((e.start_ns(), e.end_ns()) for e in host
+                    if e.name() == annotation)
+    if not ranges:
+        raise AssertionError(f"the trace holds no {annotation} range")
+    starts = [r[0] for r in ranges]
+    inside = set()
+    for e in host:  # the ops themselves, not the runtime's launch calls
+        t = e.start_ns()
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t < ranges[i][1] and e.name().startswith("aten::"):
+            inside.add(e.correlation_id())
+    device = [e for e in device
+              if not e.is_user_annotation() and e.name() != annotation]
+    ns = [(e.duration_ns(), kernel in e.name(),
+           e.linked_correlation_id() in inside) for e in device]
+    a_ns = [d for d, _, a in ns if a]
+    k_ns = [d for d, k, _ in ns if k]
+    return (sum(d for d, _, _ in ns) / 1e6, sum(k_ns) / 1e6, len(ns),
+            len(k_ns), dict(annotation=annotation,
+                            annotation_ranges=len(ranges),
+                            annotated_device_ms=sum(a_ns) / 1e6,
+                            annotated_launches=len(a_ns)))
 
 
 def cornell_render_profile(dev, spp: int = PROFILE_CORNELL_SPP) -> dict:
@@ -1502,6 +1703,8 @@ def main() -> int:
     probe2_out = phase_probes2(dev)
     phase_materials_golden(dev)
     mat_out = phase_materials_main(dev, smi)
+    phase_classroom_golden(dev)
+    class_out = phase_classroom_main(dev, smi)
     prof_out = phase_profile(dev, k1_sets)
 
     def times(d, device_ms, library_device_ms=None):
@@ -1537,7 +1740,8 @@ def main() -> int:
              max_abs_err=max(k2_out["max_abs_err_t"],
                              k2_out["max_abs_err_b"]),
              launches_by_path=dict(box_main=box_out["launches"],
-                                   materials_main=mat_out["launches"]),
+                                   materials_main=mat_out["launches"],
+                                   classroom_main=class_out["launches"]),
              bounce=times(k2_out["bounce"],
                           prof_out["k2_bounce_kernel_device_ms"]),
              **times(k2_out, prof_out["k2_kernel_device_ms"]))]

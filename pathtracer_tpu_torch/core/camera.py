@@ -1,7 +1,9 @@
 """Perspective camera (host numpy) and batched ray generation (tensors).
 
 Port of ``pathtracer_tpu/core/camera.py``: raster-space sample positions
-(N, 2) in, world-space ray origins/directions (N, 3) out.
+(N, 2) in, world-space ray origins/directions (N, 3) out, and with
+``generate_rays_diff`` the two auxiliary directions of the ray
+differentials that pick the texture mip level.
 """
 
 from __future__ import annotations
@@ -94,13 +96,17 @@ class Camera:
         return (t(self.raster_to_camera), t(self.cam_to_world[:3, :3]),
                 t(self.cam_to_world[:3, 3]))
 
+    def diff_params(self, device) -> torch.Tensor:
+        """(2, 3) float32 camera-space offsets of a +1 raster x and y step
+        (dx_camera, dy_camera), consumed by generate_rays_diff."""
+        return torch.as_tensor(
+            np.stack([self.dx_camera, self.dy_camera]).astype(np.float32),
+            device=device)
 
-def generate_rays(raster_to_camera, cam_rot, cam_pos, p_film):
-    """Batched pinhole raygen.
 
-    p_film: (..., 2) raster-space sample positions. Returns (origins
-    (..., 3), directions (..., 3) normalized, world space).
-    """
+def _camera_points_and_dirs(raster_to_camera, cam_rot, p_film):
+    """Camera-space image-plane points of ``p_film`` (..., 2) and the
+    normalised world-space directions through them."""
     x, y = p_film[..., 0], p_film[..., 1]
     ph = torch.stack([x, y, torch.zeros_like(x), torch.ones_like(x)], dim=-1)
     pc = ph @ raster_to_camera.T
@@ -112,4 +118,38 @@ def generate_rays(raster_to_camera, cam_rot, cam_pos, p_film):
     d_world = d_cam @ cam_rot.T
     d_world = d_world / torch.linalg.vector_norm(d_world, dim=-1,
                                                  keepdim=True)
+    return p_camera, d_world
+
+
+def generate_rays(raster_to_camera, cam_rot, cam_pos, p_film):
+    """Batched pinhole raygen.
+
+    p_film: (..., 2) raster-space sample positions. Returns (origins
+    (..., 3), directions (..., 3) normalized, world space).
+    """
+    _, d_world = _camera_points_and_dirs(raster_to_camera, cam_rot, p_film)
     return cam_pos.expand(d_world.shape), d_world
+
+
+def generate_rays_diff(raster_to_camera, cam_rot, cam_pos, p_film, dxdy_cam,
+                       diff_scale: float):
+    """Pinhole raygen with ray differentials.
+
+    dxdy_cam: (2, 3) camera-space offsets of a +1 raster x / y step
+    (Camera.diff_params); diff_scale: 1/sqrt(spp), the differentials'
+    scale. The auxiliary rays share the main origin, so returns (origins,
+    directions, x-step directions, y-step directions), each (..., 3).
+    """
+    p_camera, d_world = _camera_points_and_dirs(raster_to_camera, cam_rot,
+                                                p_film)
+
+    def aux(dcam):
+        v = p_camera + dcam
+        v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+        v = v @ cam_rot.T
+        # normalised again after the rotation, as the reference does
+        v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+        return d_world + (v - d_world) * diff_scale
+
+    return (cam_pos.expand(d_world.shape), d_world, aux(dxdy_cam[0]),
+            aux(dxdy_cam[1]))

@@ -1,9 +1,11 @@
 """Wavefront path integrator: NEE + MIS + Russian roulette, fully batched.
 
 Port of ``pathtracer_tpu/integrator.py`` in its fused form, for opaque
-scenes of every material model (constant and checker textures) under
-area, point, distant and environment lights, with the Sobol sampler and
-both MIS modes ("ref" and "onesample"). The bounce loop is a
+scenes of every material model (constant, checker and image textures,
+normal maps) under area, point, distant and environment lights, with the
+Sobol sampler and both MIS modes ("ref" and "onesample"). Camera rays
+carry ray differentials when the scene binds a texture, so the first
+hit's texture lookups filter by footprint. The bounce loop is a
 Python loop over SoA wavefront state; PyTorch runs it eagerly. Every
 closest-hit and shadow query goes to one of two kernels, as in the
 reference: scenes of at most 128 triangles to the brute-force
@@ -15,9 +17,8 @@ tensors and runs its plain version for CPU tensors.
 Left out, as they exist only for the TPU: ``tuning.py``/``tuned.json``,
 the wavefront sort, the one-hot MXU row gather (``table[idx]`` here), the
 lane-bounce budget, the segmented renderer and the traversal's chunk and
-interleave knobs. Image textures, normal maps, alpha masks, other
-samplers and the all-lights strategy raise NotImplementedError naming
-their ROADMAP item.
+interleave knobs. Alpha masks, checkpoints, other samplers and the
+all-lights strategy raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from .core import math as pm
-from .core.camera import Camera, generate_rays
+from .core.camera import Camera, generate_rays, generate_rays_diff
 from .core.filter import filter_f1d as make_filter_f1d
 from .accel.bvh import build_bvh
 from .accel.bvhw import STACKW, bvhw_from_binary
@@ -44,8 +45,8 @@ from .scene.scene import (LIGHT_AREA, MAT_GLASS, MAT_MATTE, MAT_MIRROR,
                           SceneData, pack_light_attr, pack_mat_attr,
                           pack_tri_attr, reorder_triangles)
 
-_ITEM_10B = "ROADMAP Queue 1 item 10b (Sponza: image textures, normal " \
-    "maps, alpha path)"
+_ITEM_3 = "ROADMAP Queue 1 item 3 (10b-ii: the alpha path, then the " \
+    "Sponza film)"
 
 # static per-bounce dimension layout (after camera dims 0,1)
 DIMS_PER_BOUNCE = 8
@@ -103,7 +104,8 @@ class TracedScene:
     table ``bw_rows`` (R, 256) that K2 reads, and its depth ``bw_depth``;
     their ``data`` is in BVH leaf order. The static flags say which
     material types, light types, texture channels (kd, ks, metallic,
-    roughness) and environment the bounce has to evaluate.
+    roughness), image textures, normal maps and environment the bounce
+    has to evaluate.
     """
 
     data: SceneData
@@ -118,6 +120,8 @@ class TracedScene:
     bw_depth: int = STACKW
     has_tex: bool = False
     tex_channels: tuple = (False, False, False, False)
+    image_tex: bool = False
+    has_normal_maps: bool = False
     has_env: bool = False
 
     @property
@@ -153,6 +157,7 @@ class TracedScene:
         brute-force route)."""
         _check_scene(sd)
         device = sd.device
+        sd = dataclasses.replace(sd, tex=sd.tex.to(device))
         f = int(sd.p0.shape[0])
         n_lights = int(sd.n_lights)
         used = np.unique(sd.material_id.cpu().numpy())
@@ -160,10 +165,12 @@ class TracedScene:
         def t(a):
             return torch.as_tensor(np.array(a, np.float32), device=device)
 
-        tex_channels = tuple(
-            bool((tx.cpu().numpy()[used] >= 0).any())
-            for tx in (sd.mat_kd_tx, sd.mat_ks_tx, sd.mat_metallic_tx,
-                       sd.mat_rough_tx))
+        bound = [tx.cpu().numpy()[used]
+                 for tx in (sd.mat_kd_tx, sd.mat_ks_tx, sd.mat_metallic_tx,
+                            sd.mat_rough_tx)]
+        tex_channels = tuple(bool((tx >= 0).any()) for tx in bound)
+        kind = sd.txd_kind.cpu().numpy()
+        image_tex = any(bool((kind[tx[tx >= 0]] == 2).any()) for tx in bound)
         p = [sd.p0.cpu().numpy(), sd.p1.cpu().numpy(), sd.p2.cpu().numpy()]
         tri_pack = np.concatenate(p + [np.zeros((f, 3), np.float32)], axis=1)
         return TracedScene(
@@ -179,23 +186,17 @@ class TracedScene:
             bw_rows=None if bw_rows is None
             else t(bw_rows).contiguous(),
             bw_depth=int(bw_depth), has_tex=any(tex_channels),
-            tex_channels=tex_channels, has_env=bool(sd.has_env))
+            tex_channels=tex_channels, image_tex=image_tex,
+            has_normal_maps=bool(
+                (sd.mat_normal_tx.cpu().numpy()[used] >= 0).any()),
+            has_env=bool(sd.has_env))
 
 
 def _check_scene(sd: SceneData) -> None:
     """Raise NotImplementedError for what the port does not render yet:
-    image textures, normal maps and alpha masks."""
-    used = np.unique(sd.material_id.cpu().numpy())
-    kind = sd.txd_kind.cpu().numpy()
-    for name in ("mat_kd_tx", "mat_ks_tx", "mat_metallic_tx",
-                 "mat_rough_tx"):
-        tx = getattr(sd, name).cpu().numpy()[used]
-        if (kind[tx[tx >= 0]] == 2).any():
-            raise NotImplementedError(f"image textures: {_ITEM_10B}")
-    if (sd.mat_normal_tx.cpu().numpy()[used] >= 0).any():
-        raise NotImplementedError(f"normal maps: {_ITEM_10B}")
+    alpha masks."""
     if bool((sd.tri_alpha_txd >= 0).any()):
-        raise NotImplementedError(f"alpha masks: {_ITEM_10B}")
+        raise NotImplementedError(f"alpha masks: {_ITEM_3}")
 
 
 def _lane_bounds(o, t_max, live):
@@ -318,16 +319,20 @@ def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
     return ld + torch.where(branch2[..., None], contrib2, 0.0)
 
 
-def trace_wave(scene, cfg: PathConfig, draw, draw2, o, d, lane_valid=None):
+def trace_wave(scene, cfg: PathConfig, draw, draw2, o, d, rxd=None,
+               ryd=None, lane_valid=None):
     """Trace one wavefront of rays to completion.
 
     draw(dim) / draw2(dim) give one / two sampler dimensions for the whole
-    wave. Returns (L (N, 3), ray count, non-finite sample count), the two
-    counts as 0-d tensors.
+    wave; rxd / ryd are the camera rays' differential directions (None:
+    none), used at the first hit only. Returns (L (N, 3), ray count,
+    non-finite sample count), the two counts as 0-d tensors.
     """
     st = _wave_init(scene, cfg, o, d, lane_valid=lane_valid)
     for bounce in range(cfg.max_depth + 1):
-        st = _wave_bounce(scene, cfg, bounce, st, draw, draw2)
+        st = _wave_bounce(scene, cfg, bounce, st, draw, draw2,
+                          rxd=rxd if bounce == 0 else None,
+                          ryd=ryd if bounce == 0 else None)
     out, n_bad = _wave_radiance(cfg, st)
     return out, st["rays"], n_bad
 
@@ -376,8 +381,9 @@ def _wave_radiance(cfg, st):
     return out, n_bad
 
 
-def _wave_bounce(scene, cfg, bounce, st, draw, draw2):
-    """ONE wavefront bounce: intersect, Le, NEE, BSDF sample, RR."""
+def _wave_bounce(scene, cfg, bounce, st, draw, draw2, rxd=None, ryd=None):
+    """ONE wavefront bounce: intersect, Le, NEE, BSDF sample, RR. rxd /
+    ryd: the camera rays' differential directions (bounce 0 only)."""
     sd = scene.data
     do_nee, one_sample, pick_prob = _wave_flags(scene, cfg)
     last = bounce == cfg.max_depth
@@ -405,6 +411,12 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2):
         le_hit, hl = ia.hit_emission(scene.tri_attr, hit, -d)
     else:
         it = ia.make_interaction(sd, o, d, hit, scene.tri_attr)
+        # the camera rays' differentials -> UV derivatives for the mip
+        # filter width; rays past the first hit carry none
+        duv = ia.compute_duv(it, o, rxd, ryd) \
+            if (bounce == 0 and rxd is not None) else None
+        if scene.has_normal_maps:
+            it = ia.apply_normal_mapping(sd, it, duv=duv)
         le_hit = ia.emitted_radiance(it, -d)
         hl = it["area_light"]
     if one_sample:
@@ -443,8 +455,9 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2):
 
     cont = found
     mp = bx.gather_params(sd, it["material"], it["uv"], scene.mat_attr,
-                          has_tex=scene.has_tex,
-                          tex_channels=scene.tex_channels)
+                          has_tex=scene.has_tex, duv=duv,
+                          tex_channels=scene.tex_channels,
+                          image_tex=scene.image_tex)
     wo = -d
 
     # --- NEE for materials with non-specular lobes
@@ -528,14 +541,18 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
                 b_base, scramble, frame_lo, frame_hi, frame_delta,
                 inv_lo, inv_hi, r2c, cam_rot, cam_pos, filter_f1d,
                 sobol_pack, sobol_scale: float, sobol_off_x: float,
-                sobol_off_y: float, filter_radius: float = 2.0):
+                sobol_off_y: float, filter_radius: float = 2.0,
+                dxdy_cam=None, diff_scale: float = 1.0):
     """Render ``spp`` sampler frames for one row band into the padded film
     (in place). Returns (film_pad, ray count, non-finite count).
 
     band_shape = (Th, Tw); px/py: (Th*Tw,) absolute pixel coords;
     valid_lanes: (Th*Tw,) bool (padding rows carry zero weight); b_base /
     scramble: (Th*Tw,) int64 Sobol words; frame_*: host per-frame Sobol
-    constants (sobol.frame_statics).
+    constants (sobol.frame_statics); dxdy_cam: the camera's (2, 3)
+    raster-step offsets (Camera.diff_params) that turn on ray
+    differentials where the scene binds a texture or normal map, None for
+    none; diff_scale: their scale, 1/sqrt(spp) of the whole render.
     """
     _check_config(cfg)
     th, tw = band_shape
@@ -566,9 +583,14 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
         jy = torch.clamp(s01[..., 1] * sobol_scale + sobol_off_y - pyf,
                          0.0, one_minus)
         p_film = torch.stack([pxf + jx, pyf + jy], dim=-1)
-        o, d = generate_rays(r2c, cam_rot, cam_pos, p_film)
+        if dxdy_cam is not None and (scene.has_tex or scene.has_normal_maps):
+            o, d, rxd, ryd = generate_rays_diff(r2c, cam_rot, cam_pos,
+                                                p_film, dxdy_cam, diff_scale)
+        else:
+            o, d = generate_rays(r2c, cam_rot, cam_pos, p_film)
+            rxd = ryd = None
         radiance, rays, n_bad = trace_wave(scene, cfg, draw, draw2, o, d,
-                                           lane_valid=valid_lanes)
+                                           rxd, ryd, lane_valid=valid_lanes)
         tile = splat_tile(radiance.reshape(th, tw, 3), jx.reshape(th, tw),
                           jy.reshape(th, tw), valid, filter_f1d,
                           radius=filter_radius)
@@ -581,12 +603,18 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
 
 class PathIntegrator:
     """Host-side render loop: builds the sample-bounds pixel grid, cuts it into
-    row bands of about WAVE_LANES rays, and renders each band."""
+    row bands of about WAVE_LANES rays, and renders each band.
+
+    ``no_diff`` turns the camera rays' differentials off, so every texture
+    lookup takes level 0: the reference's environment switch
+    ``PTPU_NO_DIFF``, here an explicit argument (ROADMAP Queue 3)."""
 
     def __init__(self, cfg: PathConfig = PathConfig(), spp: int = 4,
-                 filter_kind: str = "gaussian", band_rows: int | None = None):
+                 filter_kind: str = "gaussian", band_rows: int | None = None,
+                 no_diff: bool = False):
         _check_config(cfg)
         self.cfg = cfg
+        self.no_diff = no_diff
         self.spp = pm.round_up_pow2(spp)
         f1d, self.filter_radius = make_filter_f1d(filter_kind)
         self.filter_f1d = tuple(float(v) for v in f1d)
@@ -607,10 +635,13 @@ class PathIntegrator:
         return band, -(-hs // band)
 
     def render_progressive(self, camera: Camera, scene,
-                           chunk_spp: int | None = None,
-                           callback=None) -> torch.Tensor:
+                           chunk_spp: int | None = None, callback=None,
+                           checkpoint: str | None = None) -> torch.Tensor:
         """Render in sample-index chunks, calling ``callback(film, done)``
-        after each chunk with the (H, W, 4) film so far."""
+        after each chunk with the (H, W, 4) film so far. ``checkpoint``
+        (saving and resuming the film) is not ported yet and raises."""
+        if checkpoint is not None:
+            raise NotImplementedError(f"checkpoint: {_ITEM_3}")
         if not isinstance(scene, TracedScene):
             scene = TracedScene.create(scene)
         dev = scene.device
@@ -626,6 +657,9 @@ class PathIntegrator:
         inv_lo, inv_hi = sb.vdc_inv_rows(domain, dev)
         sobol_pack = sb.sm32_device(dev)
         r2c, cam_rot, cam_pos = camera.ray_params(dev)
+        diff = not self.no_diff and (scene.has_tex or scene.has_normal_maps)
+        dxdy_cam = camera.diff_params(dev) if diff else None
+        diff_scale = float(np.float32(1.0 / np.sqrt(self.spp)))
         film_pad = film_pad_new(w, h, extra_rows=band, device=dev)
 
         # per-band pixel statics (host, once)
@@ -663,7 +697,8 @@ class PathIntegrator:
                     float(np.float32(domain.resolution)),
                     float(np.float32(domain.p_min[0])),
                     float(np.float32(domain.p_min[1])),
-                    filter_radius=self.filter_radius)
+                    filter_radius=self.filter_radius, dxdy_cam=dxdy_cam,
+                    diff_scale=diff_scale)
                 stats.append((rays, n_bad))
             for rays, n_bad in stats:
                 self.last_ray_count += float(rays)

@@ -15,14 +15,18 @@ import torch
 from .core.camera import Camera
 from .integrator import TracedScene
 from .scene.scene import SceneData
+from .scene.texture import TexturePool
 
 
 def scene_from_reference(sd, device="cuda") -> SceneData:
     """The reference's ``SceneData`` -> this package's ``SceneData`` of
-    tensors on ``device`` (its texture pool has no counterpart here)."""
-    return SceneData(**{
-        f.name: torch.as_tensor(np.array(getattr(sd, f.name)), device=device)
-        for f in dataclasses.fields(SceneData)})
+    tensors on ``device``, its texture pool leaf for leaf."""
+    def leaves(obj, cls):
+        return {f.name: torch.as_tensor(np.array(getattr(obj, f.name)),
+                                        device=device)
+                for f in dataclasses.fields(cls) if f.name != "tex"}
+    return SceneData(tex=TexturePool(**leaves(sd.tex, TexturePool)),
+                     **leaves(sd, SceneData))
 
 
 def traced_scene_from_reference(ts, device="cuda"):

@@ -15,8 +15,9 @@ per-hit (ss, ts, ns) frame.
   DISNEY     Burley diffuse + GGX reflection with the Disney Fresnel
   ROUGHGLASS GGX reflection (kd) + GGX transmission (ks)
 
-Textures: constant and checker descriptors. Image textures, with their
-mip pool and filter widths, are ROADMAP Queue 1 item 10b.
+Textures: constant, checker and image descriptors; an image descriptor
+reads the mip pool (``scene/texture.py``) at the filter width of the
+camera rays' differentials.
 """
 
 from __future__ import annotations
@@ -31,12 +32,11 @@ from ..scene.scene import (MA_ETA, MA_K, MA_KD, MA_KS, MA_MISC, MA_REMAP,
                            MA_ROUGH, MA_TYPE, MAT_DISNEY, MAT_GLASS,
                            MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_ROUGHGLASS,
                            MAT_SUBSTRATE, pack_mat_attr)
+from ..scene.texture import lookup_width
 
 INV_PI = float(np.float32(1.0 / np.pi))
 ALL_MATERIALS = (MAT_MATTE, MAT_MIRROR, MAT_GLASS, MAT_METAL, MAT_SUBSTRATE,
                  MAT_DISNEY, MAT_ROUGHGLASS)
-
-_IMAGE_TEXTURES = "ROADMAP Queue 1 item 10b (image textures, mip pool)"
 
 
 def select(preds, vals, default):
@@ -264,13 +264,19 @@ def tr_pdf(wo, wh, ax, ay):
 
 
 # ---------------------------------------------------------------- textures
-def eval_texture(scene, txd_id, uv, fallback):
-    """Evaluate texture descriptors ``txd_id`` (N,) at uv (N, 2): constant
-    and checker kinds over their UV map (su, sv, ou, ov); ``fallback``
-    (N, 3) where txd_id < 0. A scene holding an image descriptor raises
-    (ROADMAP Queue 1 item 10b)."""
-    if bool((scene.txd_kind == 2).any()):
-        raise NotImplementedError(f"image textures: {_IMAGE_TEXTURES}")
+def eval_texture(scene, txd_id, uv, fallback, duv=None, image=True):
+    """Evaluate texture descriptors ``txd_id`` (N,) at uv (N, 2) over
+    their UV map (su, sv, ou, ov): constant, checker, and image through
+    the mip pool; ``fallback`` (N, 3) where txd_id < 0.
+
+    duv = (dudx, dvdx, dudy, dvdy), the screen-space UV derivatives
+    (interaction.compute_duv): the filter width is the largest of them
+    scaled by the UV map; without them the width is 0 (level 0). An image
+    descriptor scales its texels by ``txd_scale`` after the sRGB decode
+    and broadcasts ``txd_channel`` when it is >= 0. ``image=False``, for a
+    scene that binds no image descriptor, skips the pool lookup, whose
+    result no lane would select.
+    """
     safe = torch.clamp_min(txd_id, 0).long()
     kind = scene.txd_kind[safe]
     uvm = scene.txd_uv[safe]
@@ -281,17 +287,39 @@ def eval_texture(scene, txd_id, uv, fallback):
     checker_v = torch.where((parity == 0.0)[..., None],
                             scene.txd_rgb0[safe], scene.txd_rgb1[safe])
     val = torch.where((kind == 1)[..., None], checker_v, const_v)
+    if image:
+        if duv is None:
+            width = 0.0
+        else:
+            dudx, dvdx, dudy, dvdy = duv
+            su, sv = uvm[..., 0], uvm[..., 1]
+            width = torch.maximum(
+                torch.maximum(torch.abs(su * dudx), torch.abs(sv * dvdx)),
+                torch.maximum(torch.abs(su * dudy), torch.abs(sv * dvdy)))
+        img_v = lookup_width(scene.tex, scene.txd_image[safe],
+                             torch.stack([st0, st1], dim=-1), width)
+        img_v = torch.where(scene.txd_srgb[safe][..., None],
+                            pm.inverse_gamma_correct(img_v), img_v)
+        img_v = img_v * scene.txd_scale[safe]
+        ch = scene.txd_channel[safe]
+        ch_v = torch.take_along_dim(
+            img_v, torch.clamp_min(ch, 0).long()[..., None], dim=-1)
+        img_v = torch.where((ch >= 0)[..., None], ch_v.expand_as(img_v),
+                            img_v)
+        val = torch.where((kind == 2)[..., None], img_v, val)
     return torch.where((txd_id >= 0)[..., None], val, fallback)
 
 
 # ---------------------------------------------------------------- materials
 def gather_params(scene, mat_id, uv=None, mat_attr=None, has_tex=True,
-                  tex_channels=None):
+                  duv=None, tex_channels=None, image_tex=True):
     """Per-ray material parameters from the packed (M, MA_WIDTH) material
     table (built from ``scene`` when omitted). With uv given and
     ``has_tex``, the texture-bound parameters (kd, ks, metallic,
     roughness; ``tex_channels`` says which any material binds) evaluate
-    their descriptors."""
+    their descriptors at the UV derivatives ``duv`` (None: width 0);
+    ``image_tex=False`` says no bound descriptor is an image
+    (eval_texture's ``image``)."""
     if mat_attr is None:
         mat_attr = torch.as_tensor(pack_mat_attr(scene), device=mat_id.device)
     mid = mat_id.long()
@@ -309,16 +337,19 @@ def gather_params(scene, mat_id, uv=None, mat_attr=None, has_tex=True,
     rough_d = misc[:, 1]
     if uv is not None and has_tex:
         ck, cs, cm, cr = tex_channels or (True,) * 4
+        kw = dict(duv=duv, image=image_tex)
         if ck:
-            kd = eval_texture(scene, scene.mat_kd_tx[mid], uv, kd)
+            kd = eval_texture(scene, scene.mat_kd_tx[mid], uv, kd, **kw)
         if cs:
-            ks = eval_texture(scene, scene.mat_ks_tx[mid], uv, ks)
+            ks = eval_texture(scene, scene.mat_ks_tx[mid], uv, ks, **kw)
         if cm:
             metallic = eval_texture(scene, scene.mat_metallic_tx[mid], uv,
-                                    metallic[..., None].expand(-1, 3))[..., 0]
+                                    metallic[..., None].expand(-1, 3),
+                                    **kw)[..., 0]
         if cr:
             rough_d = eval_texture(scene, scene.mat_rough_tx[mid], uv,
-                                   rough_d[..., None].expand(-1, 3))[..., 0]
+                                   rough_d[..., None].expand(-1, 3),
+                                   **kw)[..., 0]
     # Disney derives its own alphas: max(0.001, roughness^2)
     alpha_d = torch.clamp_min(rough_d * rough_d, 0.001)
     is_disney = mtype == MAT_DISNEY

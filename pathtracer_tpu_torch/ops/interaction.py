@@ -1,8 +1,10 @@
 """Surface interaction construction from hit records (SoA tensors).
 
-Port of ``pathtracer_tpu/ops/interaction.py`` without ray differentials
-and normal mapping (ROADMAP Queue 1 item 10b). Per-hit triangle data is one
-packed row fetch, ``tri_attr[tri]``.
+Port of ``pathtracer_tpu/ops/interaction.py``: the interaction frame,
+the screen-space UV derivatives of the camera rays' differentials
+(``compute_duv``) and the tangent-space normal maps
+(``apply_normal_mapping``). Per-hit triangle data is one packed row
+fetch, ``tri_attr[tri]``.
 """
 
 from __future__ import annotations
@@ -13,14 +15,15 @@ from ..core import math as pm
 from ..scene.scene import (TA_DPDU, TA_HASN, TA_KE, TA_LID, TA_MAT, TA_N0,
                            TA_N1, TA_N2, TA_NG0, TA_NGF, TA_P0, TA_P1, TA_P2,
                            TA_UV0, TA_UV1, TA_UV2, TA_DPDV)
+from .bsdf import eval_texture
 from .intersect import GAMMA7
 
 
 def make_interaction(scene, o, d, hit, tri_attr):
     """Build SoA interaction data for a batch of hits.
 
-    scene: SceneData (unused by the untextured slice; kept for the
-    reference's signature); o, d: (N, 3); hit: dict from intersect;
+    scene: SceneData (unused; kept for the reference's signature); o, d:
+    (N, 3); hit: dict from intersect;
     tri_attr: (F, TA_WIDTH) packed rows. Entries are garbage where
     hit["valid"] is False (the caller masks).
     """
@@ -70,6 +73,90 @@ def make_interaction(scene, o, d, hit, tri_attr):
         tri=tri,
     )
 
+
+def compute_duv(it, o, rxd, ryd):
+    """Screen-space (u, v) derivatives at hits.
+
+    Intersects the two auxiliary camera rays (shared origin o, directions
+    rxd / ryd) with the tangent plane at the hit, then solves [dpdu dpdv]
+    [du dv]^T = dp in the two dimensions the normal leaves most stable.
+    Returns (dudx, dvdx, dudy, dvdy), zeros where a plane hit is not
+    finite, the system is singular (|det| < 1e-10) or the solution is not
+    finite. The dimension pick tests n.z, the reference's recorded
+    deviation from the code it was modelled on (which compares n.y twice).
+    """
+    n = it["ng"]
+    p = it["p"]
+    d_plane = pm.dot(n, p)
+
+    def plane_hit(rd):
+        t = -(pm.dot(n, o) - d_plane) / pm.dot(n, rd)
+        return o + t[..., None] * rd, torch.isfinite(t)
+
+    px, okx = plane_hit(rxd)
+    py, oky = plane_hit(ryd)
+    dpdx = px - p
+    dpdy = py - p
+
+    an = torch.abs(n)
+    use_x = (an[..., 0] > an[..., 1]) & (an[..., 0] > an[..., 2])
+    use_y = ~use_x & (an[..., 1] > an[..., 2])
+    dim0 = torch.where(use_x, 1, 0)
+    dim1 = torch.where(use_x | use_y, 2, 1)
+
+    def take(v, k):
+        return torch.where(k == 0, v[..., 0],
+                           torch.where(k == 1, v[..., 1], v[..., 2]))
+
+    a00 = take(it["dpdu"], dim0)
+    a01 = take(it["dpdv"], dim0)
+    a10 = take(it["dpdu"], dim1)
+    a11 = take(it["dpdv"], dim1)
+    det = a00 * a11 - a01 * a10
+    ok_det = torch.abs(det) >= 1e-10
+    inv_det = 1.0 / torch.where(ok_det, det, 1.0)
+    ok = okx & oky
+
+    def solve(dp):
+        b0, b1 = take(dp, dim0), take(dp, dim1)
+        du = (a11 * b0 - a01 * b1) * inv_det
+        dv = (a00 * b1 - a10 * b0) * inv_det
+        good = ok & ok_det & torch.isfinite(du) & torch.isfinite(dv)
+        return torch.where(good, du, 0.0), torch.where(good, dv, 0.0)
+
+    dudx, dvdx = solve(dpdx)
+    dudy, dvdy = solve(dpdy)
+    return dudx, dvdx, dudy, dvdy
+
+
+def apply_normal_mapping(scene, it, duv=None):
+    """Perturb the shading frame by the materials' tangent-space normal
+    maps: n' = normalize(n_tex in the (ss, ts, ns) frame), then the
+    tangent frame rebuilt around it; lanes whose material binds no map
+    keep their frame."""
+    ntx = scene.mat_normal_tx[it["material"].long()]
+    has = ntx >= 0
+    flat = torch.tensor([0.5, 0.5, 1.0], device=it["ns"].device)
+    rgb = eval_texture(scene, ntx, it["uv"], flat.expand(it["ns"].shape),
+                       duv=duv)
+    n_tan = pm.normalize(2.0 * rgb - 1.0)
+    ns_new = pm.normalize(
+        n_tan[..., 0:1] * it["ss"] + n_tan[..., 1:2] * it["ts"]
+        + n_tan[..., 2:3] * it["ns"])
+    ss0 = it["ss"]
+    ts = pm.cross(ss0, ns_new)
+    ts_len = pm.norm_sq(ts)
+    ts_n = ts / pm.sqrt(torch.clamp_min(ts_len, 1e-30))[..., None]
+    ss = torch.where((ts_len > 0.0)[..., None], pm.cross(ts_n, ns_new), ss0)
+    cs_u, _ = pm.coordinate_system(ns_new)
+    ss = torch.where((ts_len > 0.0)[..., None], ss, cs_u)
+    out = dict(it)
+    out["ns"] = torch.where(has[..., None], ns_new, it["ns"])
+    out["ss"] = torch.where(has[..., None], ss, it["ss"])
+    out["ts"] = torch.where(has[..., None], pm.cross(ns_new, ss), it["ts"])
+    out["ng"] = torch.where(has[..., None],
+                            pm.face_forward(it["ng"], ns_new), it["ng"])
+    return out
 
 def emitted_radiance(it, w):
     """Le at a hit toward w (one-sided area light); zero where the hit is

@@ -5,8 +5,9 @@ table, light table (area, point, distant and infinite lights), constant
 and checker texture descriptors and the environment map with its 2D
 importance tables, as tensors. SceneBuilder accumulates all of it on the
 host in numpy; reorder_triangles puts the soup in BVH leaf order. Image
-textures, with their mip pool, and alpha masks are ROADMAP Queue 1 item
-10b: the port's SceneData has no texture pool.
+textures live in the mip pool of ``scene/texture.py`` (``SceneData.tex``).
+Alpha masks are built (``add_mesh``'s ``alpha_txd``), but the integrator
+refuses them until ROADMAP Queue 1 item 3 (10b-ii) ports the alpha path.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from ..core.sampling import Distribution2D
 from ..utils.image import bilinear_sample
+from .texture import TexturePool, TexturePoolBuilder
 
 # material type codes (same values as the JAX package)
 MAT_MATTE = 0
@@ -38,8 +40,8 @@ LIGHT_INFINITE = 3
 @dataclasses.dataclass
 class SceneData:
     """Scene tensors, all on one device. Field names and meanings match
-    the JAX package's SceneData (its texture pool ``tex`` has no
-    counterpart here: image textures are ROADMAP Queue 1 item 10b)."""
+    the JAX package's SceneData; ``tex`` is the texture pool, a
+    dataclass of tensors itself."""
 
     # triangle soup (F, ...)
     p0: torch.Tensor
@@ -74,7 +76,7 @@ class SceneData:
     light_vec: torch.Tensor
 
     # texture descriptors (K, ...): kind 0 = constant, 1 = checker,
-    # 2 = image (refused: item 10b)
+    # 2 = image (txd_image: its id in the pool ``tex``)
     txd_kind: torch.Tensor
     txd_rgb0: torch.Tensor
     txd_rgb1: torch.Tensor
@@ -83,6 +85,7 @@ class SceneData:
     txd_image: torch.Tensor
     txd_channel: torch.Tensor
     txd_srgb: torch.Tensor
+    tex: TexturePool
 
     # per-material texture bindings (-1 = constant table value)
     mat_kd_tx: torch.Tensor
@@ -276,8 +279,6 @@ def reorder_triangles(scene: SceneData, order) -> SceneData:
         **{name: getattr(scene, name)[idx] for name in _TRIANGLE_FIELDS})
 
 
-_IMAGE_TEXTURES = "ROADMAP Queue 1 item 10b (image textures, mip pool)"
-
 _DEFAULT_MATERIAL = dict(
     mtype=MAT_MATTE, kd=(0.5, 0.5, 0.5), ks=(0.0, 0.0, 0.0),
     eta=(1.5, 1.5, 1.5), k=(0.0, 0.0, 0.0), rough=(0.0, 0.0),
@@ -316,6 +317,7 @@ class SceneBuilder:
     lights and the environment -> SceneData."""
 
     def __init__(self) -> None:
+        self.tex_pool = TexturePoolBuilder()
         self.txds: list[dict] = []
         self.tri_p: list[np.ndarray] = []  # (f,3,3) per mesh
         self.tri_n: list[np.ndarray] = []
@@ -323,6 +325,7 @@ class SceneBuilder:
         self.tri_uv: list[np.ndarray] = []
         self.tri_mat: list[np.ndarray] = []
         self.tri_light: list[np.ndarray] = []
+        self.tri_alpha: list[np.ndarray] = []
         self.materials: list[dict] = []
         self.lights: list[dict] = []
         self.env: dict | None = None
@@ -342,14 +345,22 @@ class SceneBuilder:
     def add_texture_image(self, image, scale=(1, 1, 1), uv=(1, 1, 0, 0),
                           wrap: int = 0, channel: int = -1,
                           srgb: bool = False) -> int:
-        raise NotImplementedError(f"image textures: {_IMAGE_TEXTURES}")
+        """Image texture descriptor over the UV map, backed by the mip
+        pool: ``scale`` multiplies the texels, ``channel`` >= 0 broadcasts
+        one of them, ``srgb`` decodes them to linear."""
+        tex_id = self.tex_pool.add(image, wrap)
+        self.txds.append(dict(_NO_TEXTURE, kind=2, scale=scale, uv=uv,
+                              image=tex_id, channel=channel, srgb=srgb))
+        return len(self.txds) - 1
 
     def add_mesh(self, positions: np.ndarray, indices: np.ndarray,
                  normals: np.ndarray | None, uvs: np.ndarray | None,
-                 material_id: int, emission: np.ndarray | None = None) -> None:
+                 material_id: int, emission: np.ndarray | None = None,
+                 alpha_txd: int = -1) -> None:
         """Add a world-space triangle mesh: positions (V,3), indices (F,3),
         normals (V,3) or None, uvs (V,2) or None. With ``emission`` set,
-        every triangle becomes one diffuse area light."""
+        every triangle becomes one diffuse area light. ``alpha_txd`` is
+        the descriptor of the mesh's alpha cutout mask (-1: none)."""
         positions = np.asarray(positions, np.float32)
         indices = np.asarray(indices, np.int64)
         f = indices.shape[0]
@@ -368,6 +379,7 @@ class SceneBuilder:
             default_uv = np.array([[0, 0], [1, 0], [1, 1]], np.float32)
             self.tri_uv.append(np.broadcast_to(default_uv, (f, 3, 2)).copy())
         self.tri_mat.append(np.full(f, material_id, np.int32))
+        self.tri_alpha.append(np.full(f, alpha_txd, np.int32))
         if emission is not None:
             light_ids = []
             for i in range(f):
@@ -443,7 +455,7 @@ class SceneBuilder:
             has_normals=np.asarray(has_n),
             uv0=f32(uv[:, 0]), uv1=f32(uv[:, 1]), uv2=f32(uv[:, 2]),
             material_id=i32(mat), area_light_id=i32(lid), tri_ng=f32(ng),
-            tri_alpha_txd=np.full(len(mat), -1, np.int32),
+            tri_alpha_txd=np.concatenate(self.tri_alpha),
             mat_type=i32([m["mtype"] for m in mats]),
             mat_kd=f32([m["kd"] for m in mats]),
             mat_ks=f32([m["ks"] for m in mats]),
@@ -485,5 +497,6 @@ class SceneBuilder:
                 env_marg_cdf=f32(np.zeros(2)),
                 env_marg_int=np.float32(0.0),
                 env_to_world=f32(np.eye(3)), world_to_env=f32(np.eye(3)))
-        return SceneData(**{k: torch.as_tensor(np.asarray(v), device=device)
-                            for k, v in fields.items()})
+        return SceneData(tex=self.tex_pool.build(device), **{
+            k: torch.as_tensor(np.asarray(v), device=device)
+            for k, v in fields.items()})

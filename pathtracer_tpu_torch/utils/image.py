@@ -1,9 +1,10 @@
-"""Image I/O: PNG write, Radiance HDR read, and the bilinear resampler of
-the environment map's importance table.
+"""Image I/O: PNG write and read, JPEG read, Radiance HDR read, and the
+bilinear resampler of the environment map's importance table.
 
 The port's own copy of the numpy functions of
-``pathtracer_tpu/utils/image.py`` it needs (PNG via zlib, HDR via a small
-RLE decoder); no dependency beyond numpy.
+``pathtracer_tpu/utils/image.py`` (PNG via zlib, HDR via a small RLE
+decoder). Only ``read_jpeg`` needs more than numpy: it imports Pillow
+when it is called.
 """
 
 from __future__ import annotations
@@ -32,6 +33,96 @@ def write_png(path: str, rgb8: np.ndarray) -> None:
            + chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(png)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Minimal PNG reader for 8-bit RGB/RGBA: (H, W, 3) or (H, W, 4)
+    uint8. Every filter type (none, sub, up, average, Paeth)."""
+    with open(path, "rb") as f:
+        return _decode_png(f.read())
+
+
+def _decode_png(data: bytes) -> np.ndarray:
+    """``read_png`` on the file's bytes."""
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos = 8
+    idat = b""
+    w = h = bit_depth = color_type = None
+    while pos < len(data):
+        (ln,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + ln]
+        if tag == b"IHDR":
+            w, h, bit_depth, color_type = struct.unpack(">IIBB", body[:10])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + ln
+    assert bit_depth == 8 and color_type in (2, 6)
+    nch = 3 if color_type == 2 else 4
+    raw = zlib.decompress(idat)
+    stride = w * nch
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    pos = 0
+    for y in range(h):
+        ft = raw[pos]
+        row = np.frombuffer(raw[pos + 1:pos + 1 + stride],
+                            np.uint8).astype(np.int32)
+        pos += 1 + stride
+        if ft == 0:
+            cur = row
+        elif ft == 1:
+            cur = row.copy()
+            for x in range(nch, stride):
+                cur[x] = (cur[x] + cur[x - nch]) & 0xFF
+        elif ft == 2:
+            cur = (row + prev) & 0xFF
+        elif ft == 3:
+            cur = row.copy()
+            for x in range(stride):
+                left = cur[x - nch] if x >= nch else 0
+                cur[x] = (cur[x] + (left + prev[x]) // 2) & 0xFF
+        elif ft == 4:
+            cur = row.copy()
+            for x in range(stride):
+                a = cur[x - nch] if x >= nch else 0
+                b = prev[x]
+                c = prev[x - nch] if x >= nch else 0
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+                cur[x] = (cur[x] + pred) & 0xFF
+        else:
+            raise ValueError(f"unsupported PNG filter {ft}")
+        out[y] = cur.astype(np.uint8)
+        prev = cur
+    return out.reshape(h, w, nch)
+
+
+def read_jpeg(path_or_bytes) -> np.ndarray:
+    """Decode a JPEG (a path or the file's bytes) -> (H, W, 3) uint8 RGB
+    through Pillow, imported here and nowhere at module load: glTF's
+    other mandated image format; grayscale and CMYK convert to RGB."""
+    import io
+
+    from PIL import Image
+
+    src = io.BytesIO(path_or_bytes) if isinstance(path_or_bytes, bytes) \
+        else path_or_bytes
+    with Image.open(src) as im:
+        return np.asarray(im.convert("RGB"), np.uint8)
+
+
+def decode_image_bytes(data: bytes, mime: str = "") -> np.ndarray:
+    """Decode an embedded image buffer (PNG or JPEG) -> (H, W, 3|4)
+    uint8, dispatching on the magic bytes, not the (often wrong) glTF
+    mimeType."""
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return _decode_png(data)
+    if data[:2] == b"\xff\xd8":
+        return read_jpeg(data)
+    raise ValueError(f"unsupported image format (mime={mime!r}, "
+                     f"magic={data[:4]!r})")
 
 
 def read_hdr(path: str) -> np.ndarray:

@@ -27,7 +27,7 @@ from pathtracer_tpu_torch.interop import (camera_from_reference,
 from pathtracer_tpu_torch.ops.cuda import bvhw_cu
 from pathtracer_tpu_torch.ops.cuda import intersect_cu
 from pathtracer_tpu_torch.scene import procedural
-from pathtracer_tpu_torch.scene.scene import SceneData
+from torch_leaves import assert_scene_equal
 
 torch.set_num_threads(1)
 
@@ -62,11 +62,7 @@ def test_box_field_scene_matches_jax():
                                        device="cpu")
     jcam, jsd = jbox_field(RES, n_boxes=40)
     assert sd.p0.shape[0] == 40 * 12 + 12
-    for f in dataclasses.fields(SceneData):
-        got = getattr(sd, f.name).numpy()
-        want = np.asarray(getattr(jsd, f.name))
-        assert got.dtype == want.dtype, f.name
-        np.testing.assert_array_equal(got, want, err_msg=f.name)
+    assert_scene_equal(sd, jsd)
     for f in dataclasses.fields(cam):
         np.testing.assert_array_equal(np.asarray(getattr(cam, f.name)),
                                       np.asarray(getattr(jcam, f.name)),

@@ -13,8 +13,6 @@ watertight test, which the port matches bit for bit (checked below through
 the port's brute force on the same lanes).
 """
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,7 +34,8 @@ from pathtracer_tpu_torch.interop import (scene_from_reference,
                                           traced_scene_from_reference)
 from pathtracer_tpu_torch.ops import intersect as pi
 from pathtracer_tpu_torch.ops.cuda import bvhw_cu
-from pathtracer_tpu_torch.scene.scene import SceneData, reorder_triangles
+from pathtracer_tpu_torch.scene.scene import reorder_triangles
+from torch_leaves import assert_scene_equal
 
 torch.set_num_threads(1)
 
@@ -258,11 +257,7 @@ def test_reorder_triangles_matches_jax():
     order = np.random.default_rng(2).permutation(int(sd.p0.shape[0]))
     got = reorder_triangles(sd, order)
     want = jreorder(jsd, order)
-    for f in dataclasses.fields(SceneData):
-        a = getattr(got, f.name).numpy()
-        b = np.asarray(getattr(want, f.name))
-        assert a.dtype == b.dtype, f.name
-        np.testing.assert_array_equal(a, b, err_msg=f.name)
+    assert_scene_equal(got, want)
     # the area lights still point at their (moved) emissive triangles
     lt = got.light_tri.numpy()
     assert (lt >= 0).all()
@@ -279,10 +274,7 @@ def test_traced_scene_bvh_matches_jax():
     assert ts.bw_rows is not None and ts.bw_depth == jts.bw_depth
     assert ts.bw_rows.numpy().tobytes() == \
         np.asarray(jts.bw_rows).tobytes()
-    for f in dataclasses.fields(SceneData):
-        np.testing.assert_array_equal(getattr(ts.data, f.name).numpy(),
-                                      np.asarray(getattr(jts.data, f.name)),
-                                      err_msg=f.name)
+    assert_scene_equal(ts.data, jts.data)
     for name in ("tri_attr", "light_attr", "mat_attr"):
         np.testing.assert_array_equal(getattr(ts, name).numpy(),
                                       np.asarray(getattr(jts, name)),

@@ -22,7 +22,7 @@ from pathtracer_tpu_torch.integrator import (PathConfig, PathIntegrator,
                                              TracedScene)
 from pathtracer_tpu_torch.ops.cuda import bvhw_cu, intersect_cu
 from pathtracer_tpu_torch.scene import procedural
-from pathtracer_tpu_torch.scene.scene import SceneData
+from torch_leaves import assert_scene_equal
 
 torch.set_num_threads(1)
 
@@ -51,11 +51,7 @@ def test_config_scene_matches_jax(config):
     name = CONFIGS[config][0]
     cam, sd = getattr(procedural, name)((32, 24), device="cpu")
     jcam, jsd = getattr(jprocedural, name)((32, 24))
-    for f in dataclasses.fields(SceneData):
-        got = getattr(sd, f.name).numpy()
-        want = np.asarray(getattr(jsd, f.name))
-        assert got.dtype == want.dtype, f.name
-        np.testing.assert_array_equal(got, want, err_msg=f.name)
+    assert_scene_equal(sd, jsd)
     for f in dataclasses.fields(cam):
         np.testing.assert_array_equal(np.asarray(getattr(cam, f.name)),
                                       np.asarray(getattr(jcam, f.name)),

@@ -53,7 +53,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_ab.py",
+@pytest.mark.parametrize("script", ["chip_smoke.py", "bench_torch.py",
+                                    "kernel_ab.py",
                                     "host_steps.py", "k1_variants.py",
                                     "k2_variants.py", "probe_variants.py"])
 def test_card_scripts_import_no_jax(script):
@@ -102,8 +103,15 @@ cam, sd = box_field_scene((8, 6), n_boxes=30, device="cpu")
 assert sd.p0.shape[0] > 128
 film = PathIntegrator(PathConfig(max_depth=2), spp=1).render(cam, sd)
 assert torch.isfinite(film).all() and (film[..., 3] > 0).all()
+from pathtracer_tpu_torch.scene.gltf import load_gltf
+cam, sd, _ = load_gltf("data/classroom_proc.glb", resolution=(8, 6),
+                       device="cpu")
+film = PathIntegrator(PathConfig(max_depth=1), spp=1).render(cam, sd)
+assert torch.isfinite(film).all() and (film[..., 3] > 0).all()
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "pathtracer_tpu")]
+# Pillow is imported only to read a JPEG, which no asset holds
+assert "PIL" not in sys.modules
 print("ok")
 """
 
@@ -112,8 +120,8 @@ def test_copy_of_the_port_renders_without_the_jax_package(tmp_path):
     shutil.copytree(PORT, tmp_path / "pathtracer_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     os.makedirs(tmp_path / "data")
-    shutil.copy(os.path.join(ROOT, "data", "cornell-box.xml"),
-                tmp_path / "data")
+    for name in ("cornell-box.xml", "classroom_proc.glb"):
+        shutil.copy(os.path.join(ROOT, "data", name), tmp_path / "data")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN],
                          cwd=tmp_path, env=env, capture_output=True,
@@ -137,12 +145,41 @@ def test_copies_lie_in_the_port_and_equal_the_originals(name):
         assert a.read() == b.read()
 
 
+@pytest.mark.parametrize("module", ["utils/logging.py", "utils/image.py",
+                                    "scene/texture.py", "scene/gltf.py"])
+def test_copied_modules_lie_in_the_port_and_import_torch_or_numpy(module):
+    """The port's own copies of the JAX package's host modules (the
+    loggers, the image decoders, the texture pool and the glTF importer)
+    lie in the port and import only the standard library, numpy, torch
+    and the port; Pillow only inside ``read_jpeg``."""
+    path = os.path.join(PORT, module)
+    assert os.path.isfile(path)
+    assert os.path.isfile(os.path.join(JAX_PKG, module))
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    top = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top.add(node.module.split(".")[0])
+    allowed = {"__future__", "base64", "dataclasses", "json", "logging",
+               "os", "struct", "zlib", "numpy", "torch"}
+    assert top <= allowed, top - allowed
+    imports = {name.split(".")[0] for name in _imported(path)}
+    assert ("PIL" in imports) == (module == "utils/image.py")
+
+
 def test_default_device_is_the_card():
     """Without a CUDA card, a call that does not ask for the CPU raises
     rather than quietly building CPU tensors."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default call succeeds")
+    from pathtracer_tpu_torch.scene.gltf import load_gltf
     from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
     with pytest.raises((AssertionError, RuntimeError)):
         load_mitsuba(os.path.join(ROOT, "data", "cornell-box.xml"),
                      resolution=(8, 8))
+    with pytest.raises((AssertionError, RuntimeError)):
+        load_gltf(os.path.join(ROOT, "data", "classroom_proc.glb"),
+                  resolution=(8, 8))

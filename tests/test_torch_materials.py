@@ -170,16 +170,31 @@ def test_eval_texture_constant_and_checker(scenes):
     assert (got.numpy()[txd < 0] == fb[txd < 0]).all()
 
 
-def test_image_texture_raises(scenes):
-    b = PSceneBuilder()
-    with pytest.raises(NotImplementedError, match="10b"):
-        b.add_texture_image(np.zeros((2, 2, 3), np.float32))
-    import dataclasses
-    psd = dataclasses.replace(scenes[1],
-                              txd_kind=torch.tensor([2, 1, 0], dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="10b"):
-        pbx.eval_texture(psd, torch.zeros(4, dtype=torch.int32),
-                         torch.zeros(4, 2), torch.zeros(4, 3))
+def test_image_texture_raises():
+    """Image descriptors build and evaluate as the reference's do (their
+    lookup is held in tests/test_torch_textures.py); what still raises is
+    an image used as an alpha mask, whose path is ROADMAP Queue 1 item 3
+    (10b-ii)."""
+    img = np.random.default_rng(3).random((4, 4, 3)).astype(np.float32)
+    builders = {}
+    for name, cls in (("jax", JSceneBuilder), ("port", PSceneBuilder)):
+        b = cls()
+        tx = b.add_texture_image(img, scale=(0.5, 1.0, 2.0))
+        b.add_material(mtype=MAT_MATTE, kd_tx=tx)
+        b.add_mesh(np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32),
+                   np.array([[0, 1, 2]]), None, None, 0, alpha_txd=tx)
+        builders[name] = b.build() if name == "jax" else \
+            b.build(device="cpu")
+    uv = np.random.default_rng(4).uniform(0, 1, (8, 2)).astype(np.float32)
+    want = jbx.eval_texture(builders["jax"], jnp.zeros(8, jnp.int32),
+                            jnp.asarray(uv), jnp.zeros((8, 3)))
+    got = pbx.eval_texture(builders["port"], torch.zeros(8, dtype=torch.int32),
+                           _t(uv), torch.zeros(8, 3))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    from pathtracer_tpu_torch.integrator import TracedScene
+    with pytest.raises(NotImplementedError, match="alpha masks.*item 3"):
+        TracedScene.create(builders["port"])
 
 
 @pytest.mark.parametrize("present", _CASES,

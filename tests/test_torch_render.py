@@ -22,7 +22,7 @@ from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
 from pathtracer_tpu_torch.interop import (camera_from_reference,
                                           scene_from_reference)
 from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
-from pathtracer_tpu_torch.scene.scene import SceneData
+from torch_leaves import assert_scene_equal
 
 torch.set_num_threads(1)
 
@@ -42,19 +42,14 @@ def test_load_mitsuba_matches_reference():
                                      device="cpu")
     jcam, jsd, jsettings = jload_mitsuba(CORNELL, resolution=(64, 48))
     assert settings == jsettings
-    for f in dataclasses.fields(SceneData):
-        got = getattr(sd, f.name).numpy()
-        want = np.asarray(getattr(jsd, f.name))
-        assert got.dtype == want.dtype, f.name
-        np.testing.assert_array_equal(got, want, err_msg=f.name)
+    assert_scene_equal(sd, jsd)
     for f in dataclasses.fields(cam):
         np.testing.assert_array_equal(np.asarray(getattr(cam, f.name)),
                                       np.asarray(getattr(jcam, f.name)),
                                       err_msg=f.name)
     # interop gives the same SceneData from the reference's own
     sd2 = scene_from_reference(jsd, device="cpu")
-    for f in dataclasses.fields(SceneData):
-        assert torch.equal(getattr(sd2, f.name), getattr(sd, f.name)), f.name
+    assert_scene_equal(sd2, sd)
 
 
 def test_cornell_32_matches_golden_and_jax_film():

@@ -103,3 +103,15 @@ def test_unknown_mitsuba_shape_names_item_9b(tmp_path):
     with pytest.raises(NotImplementedError, match="shape type 'sphere'.*"
                        "item 9b"):
         load_mitsuba(str(xml), device="cpu")
+
+
+def test_checkpoint_names_item_3(cornell):
+    """``render_progressive`` takes the reference's ``checkpoint``
+    argument; saving and resuming are ROADMAP Queue 1 item 3's."""
+    cam, _, scenes = cornell
+    integ = PathIntegrator(PathConfig(max_depth=1), spp=1)
+    with pytest.raises(NotImplementedError, match="checkpoint.*item 3"):
+        integ.render_progressive(cam, scenes[None], chunk_spp=None,
+                                 callback=None, checkpoint="x")
+    film = integ.render_progressive(cam, scenes[None], None, None, None)
+    assert film.shape == (32, 32, 4)
