@@ -13,6 +13,9 @@ Run from the repository root: ``python3 bench_torch.py``. Legs:
   "onesample", 2 spp through ``render_progressive(chunk_spp=1)``: the
   first chunk is dropped and the second timed (``bench.py`` times Sponza
   so), once a render;
+- ``sponza``: ``data/sponza_proc.glb`` (the alpha split: 1,320 masked
+  triangles through their own BVH32 table, with re-spawn retries), the
+  same way, with the retry loops' host syncs in each timed chunk;
 - ``graft_entry``: the port's twin of ``__graft_entry__.entry()``, one
   64x64, depth 3, 1 spp cornell band through ``render_band``.
 
@@ -107,35 +110,53 @@ def leg_box_field(dev, smi: str) -> dict:
                   mis_mode="onesample", setup_seconds=setup)
 
 
-def leg_classroom(dev, smi: str) -> dict:
-    from pathtracer_tpu_torch.integrator import (PathConfig, PathIntegrator,
-                                                 TracedScene)
+def _chunk_timed_leg(leg: str, path: str, dev, smi: str) -> dict:
+    """A glTF scene at 1920x1080, depth 5, "onesample", 2 spp through
+    ``render_progressive(chunk_spp=1)``: the first chunk dropped, the
+    second timed, RENDERS times; set-up seconds and table sizes."""
+    from pathtracer_tpu_torch import integrator as pint
     from pathtracer_tpu_torch.scene.gltf import load_gltf
 
     t0 = _sync()
-    cam, sd, _ = load_gltf("data/classroom_proc.glb",
-                           resolution=(1920, 1080), device=dev)
+    cam, sd, _ = load_gltf(path, resolution=(1920, 1080), device=dev)
     t1 = _sync()
-    scene = TracedScene.create(sd)
+    scene = pint.TracedScene.create(sd)
     t2 = _sync()
-    integ = PathIntegrator(PathConfig(max_depth=5, mis_mode="onesample"),
-                           spp=2)
-    rays, seconds = [], []
+    integ = pint.PathIntegrator(
+        pint.PathConfig(max_depth=5, mis_mode="onesample"), spp=2)
+    rays, seconds, syncs = [], [], []
     for _ in range(RENDERS):
-        marks = []  # (host time, rays so far) after each chunk's sync
+        marks = []  # (host time, rays so far, retry syncs) after each chunk
 
         def mark(_film, _done):
-            marks.append((time.perf_counter(), integ.last_ray_count))
+            marks.append((time.perf_counter(), integ.last_ray_count,
+                          pint.RETRY_COUNTS["syncs"]))
 
         integ.render_progressive(cam, scene, chunk_spp=1, callback=mark)
-        (ta, ra), (tb, rb) = marks
+        (ta, ra, sa), (tb, rb, sb) = marks
         rays.append(rb - ra)
         seconds.append(tb - ta)
-    return _rates("classroom", rays, seconds, smi, resolution=[1920, 1080],
+        syncs.append(sb - sa)
+    extra = {}
+    if scene.has_alpha:
+        extra = dict(n_opaque=scene.n_opaque,
+                     alpha_table_rows=int(scene.bwa_rows.shape[0]),
+                     retry_syncs_timed_chunk=syncs)
+    return _rates(leg, rays, seconds, smi, resolution=[1920, 1080],
                   spp=2, timed_spp=1, max_depth=5, mis_mode="onesample",
                   load_seconds=t1 - t0, create_seconds=t2 - t1,
                   triangles=int(sd.p0.shape[0]),
-                  table_rows=int(scene.bw_rows.shape[0]))
+                  table_rows=int(scene.bw_rows.shape[0]), **extra)
+
+
+def leg_classroom(dev, smi: str) -> dict:
+    return _chunk_timed_leg("classroom", "data/classroom_proc.glb", dev, smi)
+
+
+def leg_sponza(dev, smi: str) -> dict:
+    """Sponza, the reference's flagship leg (``bench.py:79-95``): its
+    1,320 masked triangles through their own table, with re-spawns."""
+    return _chunk_timed_leg("sponza", "data/sponza_proc.glb", dev, smi)
 
 
 def graft_entry(device="cuda"):
@@ -199,7 +220,8 @@ def leg_graft_entry(dev, smi: str) -> dict:
                   spp=1, max_depth=3, mis_mode="ref", setup_seconds=setup)
 
 
-LEGS = (leg_cornell, leg_box_field, leg_classroom, leg_graft_entry)
+LEGS = (leg_cornell, leg_box_field, leg_classroom, leg_sponza,
+        leg_graft_entry)
 
 
 def main() -> int:

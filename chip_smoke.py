@@ -85,7 +85,8 @@ printing one JSON line:
              whole image (valid, tri, t and b identical, closest and any
              hit);
 13. profile - device times from a torch.profiler trace: K1's and K2's
-             (both ray sets each, closest and any hit), P1-P9's and their
+             (both ray sets each and K2 on Sponza's alpha table, closest and
+             any hit), P1-P9's and their
              library calls', P1-P5's at one lane (N = 1) and P6-P9's at
              one index row (S = 1): each kernel's launch floor,
              ``floor_device_ms`` in the kernels line;
@@ -94,8 +95,9 @@ printing one JSON line:
              time, K1's or K2's share of it and the launches (last, as
              tracing slows later launches).
 
-Between phases 12 and 13, the classroom (``data/classroom_proc.glb``:
-glTF, four PNG textures in the mip pool, ray differentials, K2):
+Between phases 12 and 13 (which runs last but one), the classroom
+(``data/classroom_proc.glb``: glTF, four PNG textures in the mip pool, ray
+differentials, K2):
 
 14. classroom_golden - 64x36, 2 spp, depth 5, "onesample" MIS on the
              card against the port's own CPU film at RMSE < 1e-3 and
@@ -109,6 +111,36 @@ glTF, four PNG textures in the mip pool, ray differentials, K2):
              busy share of its wall time, K2's share of the device time
              and the share of the texture lookup's ops (those under
              ``lookup_width``'s ``texture_lookup`` range).
+
+Then Sponza (``data/sponza_proc.glb``: 123,592 triangles, 1,320 of them
+alpha-masked and split out behind their own BVH32 table, re-spawn
+retries) and the alpha routes it does not take:
+
+16. sponza_golden - 48x27, 2 spp, depth 1, "ref" MIS (the golden's
+             configuration) on the card against the port's CPU film (RMSE
+             < 1e-3, alpha rtol 1e-5) and against
+             tests/golden_sponza_48.npz at the reference's bar (weights
+             rtol 1e-5, mean within 3 %, under 10 % of channels more than
+             5 % off), exact K2 count (main table and alpha table), no K1;
+             then K2 on the alpha subset's table against its plain version
+             on 131,072 rays through the foliage (half aimed at masked
+             triangles, half in random directions), closest and any hit,
+             ``torch.equal``, timed;
+17. sponza_main - 1920x1080, 2 spp, depth 5, "onesample", as phase 15:
+             load and create seconds, both tables' rows and depths,
+             Mrays/s (three renders), peak memory, K2 launches a render
+             split between the main table and the alpha table, the retry
+             loops' host syncs and passes a band-frame;
+18. alpha_routes - at 131,072 lanes: the dense pass (512 masked
+             triangles), closest and any hit, ms and peak bytes; the binary
+             tree of an all-masked scene (1,024 triangles) against the
+             dense pass on the same rays (equal hits and occlusion), ms of
+             both; the brute-force route (K1 with re-spawn retries, exact
+             K1 count); each held to the CPU on its first 16,384 lanes;
+19. sponza_profile - after phase 13: one phase-17 render under
+             torch.profiler (host and device): busy share, K2's share, and
+             the texture lookup's share split between shading and
+             ``_alpha_cut``.
 
 "Timed" is three figures on CUDA events and the host clock: ``ms``, per
 call over 100 back-to-back calls (the median of 5 such runs);
@@ -172,6 +204,16 @@ PROFILE_CORNELL_SPP = 2
 CLASSROOM = os.path.join(ROOT, "data", "classroom_proc.glb")
 CLASS_RES = (1920, 1080)
 CLASS_SPP = 2
+SPONZA = os.path.join(ROOT, "data", "sponza_proc.glb")
+SPONZA_GOLDEN = os.path.join(ROOT, "tests", "golden_sponza_48.npz")
+SPONZA_RES = (1920, 1080)
+SPONZA_SPP = 2
+# lanes of the alpha routes' calls (a whole wave), and of the CPU's share
+# of them that the card's answers are held to (lanes are independent)
+ALPHA_RAYS = 1 << 17
+ALPHA_CPU_RAYS = 1 << 14
+# timed calls of a plain-torch alpha route (host loops, a sync a pass)
+ALPHA_ROUTE_REPS = 5
 
 # the H100 SXM's published peaks (NVIDIA data sheet; 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -288,21 +330,32 @@ def host_us(fn, calls: int = HOST_CALLS, chunk: int = HOST_CHUNK) -> float:
 def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
     """RENDER_REPS timed renders of a main path (after the caller's
     warm-up), each with every kernel count of ``expect`` ({wrapper module:
-    launches}) set to 0 just before it and checked just after it. Returns
-    the last film and the renders' figures: Mrays/s as the median, min and
-    max of the renders, with each render's seconds."""
+    launches on the scene's main table, or K1's}) and the integrator's
+    ``RETRY_COUNTS`` set to 0 just before it and checked just after it;
+    K2's count must also hold one launch for each query of an alpha
+    subset's table (``RETRY_COUNTS["alpha_tree"]``, which depends on the
+    data). Returns the last film and the renders' figures: Mrays/s as the
+    median, min and max of the renders, with each render's seconds, and
+    each render's retry counts."""
     import torch
-    seconds = []
+
+    from pathtracer_tpu_torch import integrator as pint
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    seconds, retry = [], []
     for _ in range(RENDER_REPS):
         for mod in expect:
             mod.LAUNCHES = 0  # the main path's run starts here
+        for key in pint.RETRY_COUNTS:
+            pint.RETRY_COUNTS[key] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         film = integ.render(cam, scene)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
+        retry.append(dict(pint.RETRY_COUNTS))
         got = {mod.__name__.rsplit(".", 1)[-1]: mod.LAUNCHES for mod in expect}
-        want = {mod.__name__.rsplit(".", 1)[-1]: n
+        want = {mod.__name__.rsplit(".", 1)[-1]:
+                n + (pint.RETRY_COUNTS["alpha_tree"] if mod is k2 else 0)
                 for mod, n in expect.items()}
         if got != want:
             raise AssertionError(f"{what} render launched {got}, expected "
@@ -313,7 +366,7 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
                       seconds_runs=seconds,
                       mrays_per_s=statistics.median(rates),
                       mrays_per_s_min=min(rates), mrays_per_s_max=max(rates),
-                      renders=RENDER_REPS)
+                      renders=RENDER_REPS, retry_counts_runs=retry)
 
 
 def timings(kernel, plain=None, library=None, plain_calls: int = PER_CALL,
@@ -1319,11 +1372,11 @@ def phase_materials_main(dev, smi: str):
     return out
 
 
-def classroom_scene(dev, resolution=CLASS_RES):
-    """Classroom's camera and TracedScene on ``dev``, with the seconds of
-    load_gltf (glTF parse, PNG decode, mip pool, upload) and of
-    TracedScene.create (BVH build, reorder, 32-wide collapse, upload),
-    each synchronised."""
+def classroom_scene(dev, resolution=CLASS_RES, path=CLASSROOM):
+    """A glTF scene's (classroom's by default) camera and TracedScene on
+    ``dev``, with the seconds of load_gltf (glTF parse, PNG decode, mip
+    pool, upload) and of TracedScene.create (BVH build, reorder, 32-wide
+    collapse, alpha split, upload), each synchronised."""
     import torch
 
     from pathtracer_tpu_torch.integrator import TracedScene
@@ -1334,7 +1387,7 @@ def classroom_scene(dev, resolution=CLASS_RES):
             torch.cuda.synchronize()
     sync()
     t0 = time.perf_counter()
-    cam, sd, _ = load_gltf(CLASSROOM, resolution=resolution, device=dev)
+    cam, sd, _ = load_gltf(path, resolution=resolution, device=dev)
     sync()
     t1 = time.perf_counter()
     scene = TracedScene.create(sd)
@@ -1442,8 +1495,401 @@ def phase_classroom_main(dev, smi: str):
     return out
 
 
+def foliage_rays(scene, n: int, dev, seed: int = 0):
+    """Rays through a scene's masked triangles: half aimed at random
+    points of random masked triangles from 0.5 to 3 units away, half from
+    the same origins in random directions (most miss the foliage). Returns
+    (o, d, t_inf, t_any) on ``dev``, t_any a random bound in [0.5, 6)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sd = scene.data
+    masked = np.nonzero(sd.tri_alpha_txd.cpu().numpy() >= 0)[0]
+    tri = rng.choice(masked, n)
+    w = rng.dirichlet([1, 1, 1], n).astype(np.float32)
+    p = [x.cpu().numpy()[tri] for x in (sd.p0, sd.p1, sd.p2)]
+    target = w[:, 0:1] * p[0] + w[:, 1:2] * p[1] + w[:, 2:3] * p[2]
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = target - d * rng.uniform(0.5, 3.0, (n, 1))
+    d_rnd = rng.normal(size=(n // 2, 3))
+    d[n // 2:] = d_rnd / np.linalg.norm(d_rnd, axis=-1, keepdims=True)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return (t(o), t(d), torch.full((n,), torch.inf, device=dev),
+            t(rng.uniform(0.5, 6.0, n)))
+
+
+def phase_sponza_golden(dev):
+    import types
+
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch import integrator as pint
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    cfg = PathConfig(max_depth=1)  # the golden's configuration ("ref")
+    films = {}
+    for where in (torch.device("cpu"), dev):
+        cam, scene, _, _ = classroom_scene(where, resolution=(48, 27),
+                                           path=SPONZA)
+        integ = PathIntegrator(cfg, spp=2)
+        k1_before, k2_before = k1.LAUNCHES, k2.LAUNCHES
+        for key in pint.RETRY_COUNTS:
+            pint.RETRY_COUNTS[key] = 0
+        film = integ.render(cam, scene)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        _, n_bands = integ.band_layout(cam)
+        launches = (k1.LAUNCHES - k1_before, k2.LAUNCHES - k2_before)
+        # the main table: closest, shadow and BSDF-branch queries at each
+        # bounce but the last, its closest; plus the alpha table's queries
+        expect = (0, 0) if where.type == "cpu" else \
+            (0, n_bands * integ.spp * (3 * cfg.max_depth + 1)
+             + pint.RETRY_COUNTS["alpha_tree"])
+        if launches != expect:
+            raise AssertionError(f"Sponza golden on {where} launched (K1, "
+                                 f"K2) {launches} times, expected {expect}")
+        films[where.type] = (film.cpu().numpy(), launches[1],
+                             integ.last_ray_count, dict(pint.RETRY_COUNTS))
+    got, want = films["cuda"][0], films["cpu"][0]
+    if not (np.isfinite(got).all() and (got[..., 3] > 0).all()):
+        raise AssertionError("Sponza golden film must be finite with "
+                             "positive weight")
+    np.testing.assert_allclose(got[..., 3], want[..., 3], rtol=1e-5)
+    rmse = float(np.sqrt(np.mean((got[..., :3] - want[..., :3]) ** 2)))
+    if not rmse < 1e-3:
+        raise AssertionError(f"Sponza card vs CPU RMSE {rmse} >= 1e-3")
+    # the reference's test_sponza_glb_golden bar against the JAX film
+    ref = np.load(SPONZA_GOLDEN)["film"]
+    np.testing.assert_allclose(got[..., 3], ref[..., 3], rtol=1e-5)
+    f, r = got[..., :3], ref[..., :3]
+    mean_rel = float(abs(f.mean() - r.mean()) / r.mean())
+    off = float((np.abs(f - r) / (np.abs(r) + 5e-2) > 0.05).mean())
+    if not (abs(f.mean() - r.mean()) < 0.03 * r.mean() + 1e-4
+            and off < 0.10):
+        raise AssertionError(f"Sponza film against its golden: mean off by "
+                             f"{mean_rel}, {off} of channels > 5 % off")
+    # K2 on the alpha subset's table against its plain traversal
+    o, d, t_inf, t_any = foliage_rays(scene, ALPHA_RAYS, dev)
+    alpha_table = types.SimpleNamespace(bw_rows=scene.bwa_rows,
+                                        bw_depth=scene.bwa_depth)
+    k2_alpha = k2_ray_set("foliage", alpha_table, o, d, t_inf, t_any,
+                          check_k1=False)
+    out = dict(phase="sponza_golden", rmse=rmse,
+               alpha_max_rel=float(np.max(np.abs(got[..., 3] - want[..., 3])
+                                          / np.abs(want[..., 3]))),
+               rmse_vs_golden=float(np.sqrt(np.mean((f - r) ** 2))),
+               mean_rel_vs_golden=mean_rel, channels_off_5pct=off,
+               launches=films["cuda"][1], retry_counts=films["cuda"][3],
+               rays_card=films["cuda"][2], rays_cpu=films["cpu"][2],
+               alpha_table_rows=int(scene.bwa_rows.shape[0]),
+               alpha_table_depth=scene.bwa_depth, k2_alpha=k2_alpha)
+    emit(out)
+    return out, (scene.bwa_rows, scene.bwa_depth, o, d, t_inf, t_any)
+
+
+def phase_sponza_main(dev, smi: str):
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cam, scene, load_s, create_s = classroom_scene(dev, SPONZA_RES, SPONZA)
+    cfg = PathConfig(max_depth=5, mis_mode="onesample")
+    integ = PathIntegrator(cfg, spp=SPONZA_SPP)
+    _, n_bands = integ.band_layout(cam)
+    expect = n_bands * integ.spp * (2 * cfg.max_depth + 1)
+
+    t0 = time.perf_counter()
+    integ.render(cam, scene)  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    film, runs = timed_renders(integ, cam, scene, {k2: expect, k1: 0},
+                               "Sponza")
+    retry = runs["retry_counts_runs"][-1]
+    band_frames = n_bands * integ.spp
+    w, h = SPONZA_RES
+    if tuple(film.shape) != (h, w, 4):
+        raise AssertionError(f"film shape {tuple(film.shape)}")
+    if not bool(torch.isfinite(film).all()):
+        raise AssertionError("film has non-finite values")
+    if not bool((film[..., 3] > 0).all()):
+        raise AssertionError("film weight must be positive everywhere")
+    if not retry["alpha_tree"] > 0:
+        raise AssertionError("Sponza render never queried its alpha table")
+    peak = torch.cuda.max_memory_allocated(dev)
+    table = scene.bw_rows
+    f = int(scene.tri_pack.shape[0])
+    out = dict(phase="sponza_main", resolution=list(SPONZA_RES),
+               triangles=f, n_opaque=scene.n_opaque,
+               masked=f - scene.n_opaque,
+               textures=int(scene.data.tex.n_levels.shape[0]),
+               pool_texels=int(scene.data.tex.data.shape[0]),
+               table_rows=int(table.shape[0]),
+               table_bytes=table.numel() * table.element_size(),
+               depth=scene.bw_depth,
+               alpha_table_rows=int(scene.bwa_rows.shape[0]),
+               alpha_depth=scene.bwa_depth, spp=integ.spp,
+               max_depth=cfg.max_depth, mis_mode=cfg.mis_mode,
+               bands=n_bands, **runs, warmup_seconds=warm_s,
+               load_seconds=load_s, create_seconds=create_s,
+               launches=k2.LAUNCHES, expected_main_launches=expect,
+               k2_launches_main=k2.LAUNCHES - retry["alpha_tree"],
+               k2_launches_alpha=retry["alpha_tree"],
+               k1_launches=k1.LAUNCHES,
+               retry_syncs_per_band_frame=retry["syncs"] / band_frames,
+               retry_passes_per_band_frame=retry["passes"] / band_frames,
+               peak_mem_bytes=peak, bad_samples=integ.bad_sample_count,
+               film_mean_rgb=[float(v) for v in
+                              film[..., :3].mean(dim=(0, 1)).cpu()],
+               card=smi)
+    emit(out)
+    return out, cam, scene
+
+
+def phase_sponza_profile(cam, scene):
+    """One Sponza render of phase 17 under torch.profiler, host and
+    device (``render_profile``): the busy share, K2's share, and the
+    texture lookup's share split between shading and ``_alpha_cut``. It
+    runs after phase 13: its trace is the largest, and the traces phase
+    13 takes after one this large held no device time."""
+    out = dict(phase="sponza_profile",
+               **render_profile(cam, scene, SPONZA_SPP, "bvhw_kernel",
+                                annotation="texture_lookup", warmup=False,
+                                within="alpha_cut"))
+    out["lookup_in_shading_device_ms"] = (
+        out["annotated_device_ms"] - out["annotated_within_device_ms"])
+    emit(out)
+    return out
+
+
+def alpha_sheets(dev, nx: int, nz: int, sheets: int, floor: bool,
+                 seed: int = 7):
+    """A synthetic alpha scene on ``dev``: ``sheets`` stacked sheets (y =
+    1, 1.55, ...) of nx x nz masked unit quads (2 triangles each) over an
+    optional floor, under a point light. The mask (8x8, numpy ``seed``)
+    has half its texels 0 and the rest in [0.2, 1)."""
+    import numpy as np
+
+    from pathtracer_tpu_torch.scene.scene import MAT_MATTE, SceneBuilder
+
+    rng = np.random.default_rng(seed)
+    alpha = np.where(rng.random((8, 8)) < 0.5, 0.0,
+                     rng.uniform(0.2, 1.0, (8, 8))).astype(np.float32)
+    idx = np.array([[0, 1, 2], [0, 2, 3]])
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    b = SceneBuilder()
+    floor_m = b.add_material(mtype=MAT_MATTE, kd=(0.8, 0.8, 0.8))
+    leaf_m = b.add_material(mtype=MAT_MATTE, kd=(0.2, 0.8, 0.2))
+    a_txd = b.add_texture_image(np.repeat(alpha[..., None], 3, -1))
+    if floor:
+        b.add_mesh(np.array([[-12, 0, -12], [12, 0, -12], [12, 0, 12],
+                             [-12, 0, 12]], np.float32), idx, None, uv,
+                   floor_m)
+    for gy in range(sheets):
+        y = 1.0 + 0.55 * gy
+        for i in range(nx):
+            for j in range(nz):
+                cx, cz = -nx / 2 + i + 0.3 * gy, -nz / 2 + j + 0.2 * gy
+                b.add_mesh(np.array([[cx, y, cz], [cx + 1, y, cz],
+                                     [cx + 1, y, cz + 1], [cx, y, cz + 1]],
+                                    np.float32), idx, None, uv, leaf_m,
+                           alpha_txd=a_txd)
+    b.add_point_light((0.0, 4.0, 0.0), (60.0, 60.0, 60.0))
+    return b.build(device=dev)
+
+
+def sheet_rays(n: int, extent: float, dev, seed: int = 3):
+    """Rays down through the sheets from y = 3 (tilted), and shadow
+    feelers from the floor up to the light. Returns (o, d, t_inf, o2, d2,
+    t2) on ``dev``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    o = np.stack([rng.uniform(-extent, extent, n), np.full(n, 3.0),
+                  rng.uniform(-extent, extent, n)], -1)
+    d = np.stack([rng.normal(0, 0.15, n), -np.ones(n),
+                  rng.normal(0, 0.15, n)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o2 = np.stack([rng.uniform(-extent, extent, n), np.full(n, 0.01),
+                   rng.uniform(-extent, extent, n)], -1)
+    d2 = np.array([0.0, 4.0, 0.0]) - o2
+    t2 = np.linalg.norm(d2, axis=-1) * 0.999
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return (t(o), t(d), torch.full((n,), torch.inf, device=dev), t(o2),
+            t(d2), t(t2))
+
+
+def peak_call(fn):
+    """(result, peak device bytes above what was allocated before) of one
+    synchronised call of ``fn``."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def held_to_cpu(card, cpu, what: str) -> dict:
+    """A card hit record (or occlusion) against the CPU's on the CPU's
+    lanes (the first ones): valid, tri and occlusion equal, t and b within
+    rtol 1e-5 / atol 1e-6. Returns the largest differences."""
+    import torch
+
+    if isinstance(cpu, torch.Tensor):
+        if not torch.equal(card[:cpu.shape[0]].cpu(), cpu):
+            raise AssertionError(f"{what}: occlusion differs card vs CPU")
+        return dict(lanes=cpu.shape[0], occluded=int(cpu.sum()))
+    n = cpu["valid"].shape[0]
+    got = {k: v[:n].cpu() for k, v in card.items()}
+    for key in ("valid", "tri"):
+        if not torch.equal(got[key], cpu[key]):
+            raise AssertionError(f"{what}: {key} differs card vs CPU")
+    for key in ("t", "b"):
+        torch.testing.assert_close(got[key], cpu[key], rtol=1e-5, atol=1e-6)
+    return dict(lanes=n, hits=int(cpu["valid"].sum()),
+                max_abs_err=max_abs_err([(got["t"], cpu["t"]),
+                                         (got["b"], cpu["b"])]))
+
+
+def phase_alpha_routes(dev):
+    """The alpha routes Sponza does not take, at a whole wave's 131,072
+    lanes: the dense pass (512 masked triangles: the split route's subset
+    below its own table), the binary tree of an all-masked scene against
+    the dense pass on the same rays, and the brute-force route (K1 with
+    re-spawn retries), each held to the CPU on its first 16,384 lanes."""
+    import torch
+
+    from pathtracer_tpu_torch import integrator as pint
+    from pathtracer_tpu_torch.accel.bvh import _alpha_test_inline
+    from pathtracer_tpu_torch.integrator import TracedScene
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.ops.intersect import intersect_alpha_dense
+
+    cpu = torch.device("cpu")
+    n, nc = ALPHA_RAYS, ALPHA_CPU_RAYS
+    rays = {dev: sheet_rays(n, 9.0, dev)}
+    rays[cpu] = tuple(x[:nc].cpu().contiguous() for x in rays[dev])
+    out = dict(phase="alpha_routes", lanes=n, cpu_lanes=nc)
+
+    # the dense pass: 512 masked triangles over a floor
+    scenes = {where: TracedScene.create(alpha_sheets(where, 16, 16, 1, True))
+              for where in (dev, cpu)}
+    if not (scenes[dev].split_alpha and scenes[dev].bwa_rows is None
+            and scenes[dev].n_opaque == 2):
+        raise AssertionError("512 masked triangles must take the dense pass")
+
+    def dense(where, any_hit=False):
+        o, d, t_inf, o2, d2, t2 = rays[where]
+        if any_hit:
+            return pint._alpha_set_intersect(scenes[where], o2, d2, t2,
+                                             any_hit=True)
+        return pint._alpha_set_intersect(scenes[where], o, d, t_inf)
+
+    hit, peak = peak_call(lambda: dense(dev))
+    occ, peak_any = peak_call(lambda: dense(dev, True))
+    out["dense"] = dict(
+        masked=512, ms=time_ms(lambda: dense(dev), reps=ALPHA_ROUTE_REPS),
+        ms_anyhit=time_ms(lambda: dense(dev, True), reps=ALPHA_ROUTE_REPS),
+        peak_bytes=peak, peak_bytes_anyhit=peak_any,
+        closest=held_to_cpu(hit, dense(cpu), "dense closest"),
+        anyhit=held_to_cpu(occ, dense(cpu, True), "dense any hit"))
+
+    # the binary tree of an all-masked scene (1,024 triangles in two
+    # sheets) against the dense pass over the same triangles
+    scene = TracedScene.create(alpha_sheets(dev, 16, 16, 2, False),
+                               use_bvh=True)
+    if scene.bvh_nodes is None or scene.bw_rows is not None:
+        raise AssertionError("an all-masked scene must keep its binary tree")
+    o, d, t_inf, o2, d2, t2 = rays[dev]
+    sd = scene.data
+
+    def all_dense(o_, d_, t_, any_hit=False):
+        return intersect_alpha_dense(
+            o_, d_, t_, sd.p0, sd.p1, sd.p2, 0,
+            lambda pid, b: _alpha_test_inline(scene.alpha_pack,
+                                              scene.alpha_texels, pid, b),
+            any_hit=any_hit)
+
+    tree = pint._scene_intersect(scene, o, d, t_inf)
+    flat = all_dense(o, d, t_inf)
+    if not torch.equal(tree["valid"], flat["valid"]):
+        raise AssertionError("binary tree and dense pass: valid differs")
+    hit = tree["valid"]
+    if not torch.equal(tree["t"][hit], flat["t"][hit]):
+        raise AssertionError("binary tree and dense pass: t differs")
+    ties = hit & (tree["tri"] != flat["tri"])
+    occ_tree = pint._scene_intersect_p(scene, o2, d2, t2)
+    if not torch.equal(occ_tree, all_dense(o2, d2, t2, True)):
+        raise AssertionError("binary tree and dense pass: occlusion differs")
+    scene_cpu = TracedScene.create(alpha_sheets(cpu, 16, 16, 2, False),
+                                   use_bvh=True)
+    oc, dc, tc, o2c, d2c, t2c = rays[cpu]
+    out["binary"] = dict(
+        masked=int(sd.p0.shape[0]), nodes=int(scene.bvh_nodes.shape[0]),
+        ms=time_ms(lambda: pint._scene_intersect(scene, o, d, t_inf),
+                   reps=ALPHA_ROUTE_REPS),
+        ms_anyhit=time_ms(lambda: pint._scene_intersect_p(scene, o2, d2, t2),
+                          reps=ALPHA_ROUTE_REPS),
+        dense_ms=time_ms(lambda: all_dense(o, d, t_inf),
+                         reps=ALPHA_ROUTE_REPS),
+        dense_ms_anyhit=time_ms(lambda: all_dense(o2, d2, t2, True),
+                                reps=ALPHA_ROUTE_REPS),
+        hits=int(hit.sum()), tri_ties=int(ties.sum()),
+        closest=held_to_cpu(tree, pint._scene_intersect(scene_cpu, oc, dc,
+                                                        tc), "binary"),
+        anyhit=held_to_cpu(occ_tree, pint._scene_intersect_p(
+            scene_cpu, o2c, d2c, t2c), "binary any hit"))
+
+    # the brute-force route: K1 and re-spawn retries, 258 triangles
+    scenes = {where: TracedScene.create(alpha_sheets(where, 8, 8, 2, True),
+                                        use_bvh=False)
+              for where in (dev, cpu)}
+
+    def brute(where):
+        o, d, t_inf, o2, d2, t2 = rays[where]
+        return (pint._scene_intersect(scenes[where], o, d, t_inf),
+                pint._scene_intersect_p(scenes[where], o2, d2, t2))
+
+    k1.LAUNCHES = 0  # the brute-force route's run starts here
+    for key in pint.RETRY_COUNTS:
+        pint.RETRY_COUNTS[key] = 0
+    hit, occ = brute(dev)
+    torch.cuda.synchronize()
+    launches, passes = k1.LAUNCHES, pint.RETRY_COUNTS["passes"]
+    if launches != 2 + passes or passes == 0:
+        raise AssertionError(f"brute-force alpha route launched K1 "
+                             f"{launches} times for {passes} re-spawn "
+                             f"passes, expected {passes} + 2 (and some)")
+    hit_cpu, occ_cpu = brute(cpu)
+    out["brute"] = dict(
+        triangles=int(scenes[dev].tri_pack.shape[0]), k1_launches=launches,
+        retry_passes=passes,
+        ms=time_ms(lambda: brute(dev), reps=ALPHA_ROUTE_REPS),
+        closest=held_to_cpu(hit, hit_cpu, "brute"),
+        anyhit=held_to_cpu(occ, occ_cpu, "brute any hit"))
+    emit(out)
+    return out
+
+
 def render_profile(cam, scene, spp: int, kernel: str,
-                   annotation: str | None = None, warmup: bool = True) -> dict:
+                   annotation: str | None = None, warmup: bool = True,
+                   within: str | None = None) -> dict:
     """One render (depth 5, "onesample") under torch.profiler: the device
     time of all its kernels, the share of it of the kernels whose name
     contains ``kernel``, the launches, and the device's busy share of the
@@ -1452,7 +1898,9 @@ def render_profile(cam, scene, spp: int, kernel: str,
     configuration (unless ``warmup`` is false). With ``annotation``, the
     host's ops are traced too, and the device time of the kernels that
     ops inside the ``record_function`` ranges of that name launched is
-    reported with its share (``annotated_device_ms``, ``annotation_share``).
+    reported with its share (``annotated_device_ms``, ``annotation_share``);
+    with ``within`` too, that of the kernels of ops inside ranges of that
+    name, and of those inside both (``annotated_device_ms``'s split).
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1484,8 +1932,13 @@ def render_profile(cam, scene, spp: int, kernel: str,
         extra = {}
     else:
         device_ms, k_ms, launches, k_launches, extra = annotated_device_ms(
-            prof.profiler.kineto_results.events(), kernel, annotation)
+            prof.profiler.kineto_results.events(), kernel, annotation,
+            within)
         extra["annotation_share"] = extra["annotated_device_ms"] / device_ms
+        if within is not None:
+            extra["within_share"] = extra["within_device_ms"] / device_ms
+            extra["annotated_within_share"] = \
+                extra["annotated_within_device_ms"] / device_ms
     if device_ms <= 0 or not k_launches:
         raise AssertionError("profiler saw no device time for the render")
     return dict(device_ms=device_ms, kernel=kernel, kernel_device_ms=k_ms,
@@ -1496,17 +1949,21 @@ def render_profile(cam, scene, spp: int, kernel: str,
                 **extra, parse_seconds=time.perf_counter() - t_parse)
 
 
-def annotated_device_ms(events, kernel: str, annotation: str):
+def annotated_device_ms(events, kernel: str, annotation: str,
+                        within: str | None = None):
     """From a host-and-device trace's raw events (torch.profiler's Kineto
     events, read without building its event tree, which takes minutes
     for a whole render): the device time and count of every device
     event, of those whose name contains ``kernel``, and of the kernels
     launched by host ops that start inside a ``record_function`` range
     named ``annotation`` (a kernel names its launching aten op by
-    correlation id). The device-side copies of the ranges are not work
+    correlation id). With ``within``, the same for ranges of that name
+    and for ops inside both (ranges of one name do not overlap; the two
+    names' may nest). The device-side copies of the ranges are not work
     and are left out. Returns (device_ms, kernel_ms, launches,
     kernel_launches, {annotation, annotation_ranges, annotated_device_ms,
-    annotated_launches})."""
+    annotated_launches, and with ``within`` within_ranges,
+    within_device_ms, annotated_within_device_ms})."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -1514,28 +1971,44 @@ def annotated_device_ms(events, kernel: str, annotation: str):
     host, device = [], []
     for e in events:
         (host if e.device_type() == DeviceType.CPU else device).append(e)
-    ranges = sorted((e.start_ns(), e.end_ns()) for e in host
-                    if e.name() == annotation)
-    if not ranges:
-        raise AssertionError(f"the trace holds no {annotation} range")
-    starts = [r[0] for r in ranges]
-    inside = set()
-    for e in host:  # the ops themselves, not the runtime's launch calls
-        t = e.start_ns()
-        i = bisect.bisect_right(starts, t) - 1
-        if i >= 0 and t < ranges[i][1] and e.name().startswith("aten::"):
-            inside.add(e.correlation_id())
+
+    def inside(name):
+        """(ranges, correlation ids of the ops starting in one)."""
+        ranges = sorted((e.start_ns(), e.end_ns()) for e in host
+                        if e.name() == name)
+        if not ranges:
+            raise AssertionError(f"the trace holds no {name} range")
+        starts = [r[0] for r in ranges]
+        ids = set()
+        for e in host:  # the ops themselves, not the runtime's launch calls
+            t = e.start_ns()
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t < ranges[i][1] and e.name().startswith("aten::"):
+                ids.add(e.correlation_id())
+        return len(ranges), ids
+
+    n_ranges, ids = inside(annotation)
+    n_within, ids_w = inside(within) if within is not None else (0, set())
+    names = {annotation, within}
     device = [e for e in device
-              if not e.is_user_annotation() and e.name() != annotation]
+              if not e.is_user_annotation() and e.name() not in names]
     ns = [(e.duration_ns(), kernel in e.name(),
-           e.linked_correlation_id() in inside) for e in device]
-    a_ns = [d for d, _, a in ns if a]
-    k_ns = [d for d, k, _ in ns if k]
-    return (sum(d for d, _, _ in ns) / 1e6, sum(k_ns) / 1e6, len(ns),
-            len(k_ns), dict(annotation=annotation,
-                            annotation_ranges=len(ranges),
-                            annotated_device_ms=sum(a_ns) / 1e6,
-                            annotated_launches=len(a_ns)))
+           e.linked_correlation_id() in ids,
+           e.linked_correlation_id() in ids_w) for e in device]
+    a_ns = [d for d, _, a, _ in ns if a]
+    k_ns = [d for d, k, _, _ in ns if k]
+    extra = dict(annotation=annotation, annotation_ranges=n_ranges,
+                 annotated_device_ms=sum(a_ns) / 1e6,
+                 annotated_launches=len(a_ns))
+    if within is not None:
+        extra.update(
+            within=within, within_ranges=n_within,
+            within_device_ms=sum(d for d, _, _, w in ns if w) / 1e6,
+            annotated_within_device_ms=sum(
+                d for d, _, a, w in ns if a and w) / 1e6,
+            annotated_within_launches=sum(1 for _, _, a, w in ns if a and w))
+    return (sum(d for d, _, _, _ in ns) / 1e6, sum(k_ns) / 1e6, len(ns),
+            len(k_ns), extra)
 
 
 def cornell_render_profile(dev, spp: int = PROFILE_CORNELL_SPP) -> dict:
@@ -1556,12 +2029,14 @@ def box_render_profile(dev) -> dict:
     return render_profile(cam, scene, 2, "bvhw_kernel")
 
 
-def phase_profile(dev, k1_sets: dict):
+def phase_profile(dev, k1_sets: dict, alpha_set: tuple):
     """Device times from a torch.profiler trace: K1's and K2's at the
-    shapes of phases 3 and 6, P1-P9's and their library calls' at the
-    probes' shapes (all the device work of a call); then a whole box-field
-    render. It runs last: an active CUPTI trace slows every later launch
-    of the host-bound render."""
+    shapes of phases 3 and 6 (K2 also on Sponza's alpha table, phase 16's
+    rays), P1-P9's and their library calls' at the probes' shapes (all the
+    device work of a call); then a whole cornell and box-field render. It
+    runs after every timed render (only the Sponza profile follows): an
+    active CUPTI trace slows every later launch of the host-bound
+    render."""
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
     from pathtracer_tpu_torch.probes import gather as pg
@@ -1586,6 +2061,13 @@ def phase_profile(dev, k1_sets: dict):
     k2_any_ms = kernel_device_ms(
         lambda: k2.bvhw_intersect(scene.bw_rows, o, d, t_any, any_hit=True,
                                   stackw=scene.bw_depth), "bvhw_kernel")
+    table, stackw, o, d, t_inf, t_any = alpha_set
+    k2_alpha_ms = kernel_device_ms(
+        lambda: k2.bvhw_intersect(table, o, d, t_inf, stackw=stackw),
+        "bvhw_kernel")
+    k2_alpha_any_ms = kernel_device_ms(
+        lambda: k2.bvhw_intersect(table, o, d, t_any, any_hit=True,
+                                  stackw=stackw), "bvhw_kernel")
     scene, o, d, t_live, t_any = k2_bounce_inputs(dev)
     k2_bounce_ms = kernel_device_ms(
         lambda: k2.bvhw_intersect(scene.bw_rows, o, d, t_live,
@@ -1615,6 +2097,8 @@ def phase_profile(dev, k1_sets: dict):
                k2_anyhit_kernel_device_ms=k2_any_ms,
                k2_bounce_kernel_device_ms=k2_bounce_ms,
                k2_bounce_anyhit_kernel_device_ms=k2_bounce_any_ms,
+               k2_alpha_kernel_device_ms=k2_alpha_ms,
+               k2_alpha_anyhit_kernel_device_ms=k2_alpha_any_ms,
                probe_kernel_device_ms=probe_ms,
                probe_floor_device_ms=floor_ms,
                library_device_ms=library_ms, reps=K1_REPS,
@@ -1705,7 +2189,11 @@ def main() -> int:
     mat_out = phase_materials_main(dev, smi)
     phase_classroom_golden(dev)
     class_out = phase_classroom_main(dev, smi)
-    prof_out = phase_profile(dev, k1_sets)
+    sponza_gold, alpha_set = phase_sponza_golden(dev)
+    sponza_out, sponza_cam, sponza_scene = phase_sponza_main(dev, smi)
+    routes_out = phase_alpha_routes(dev)
+    prof_out = phase_profile(dev, k1_sets, alpha_set)
+    phase_sponza_profile(sponza_cam, sponza_scene)
 
     def times(d, device_ms, library_device_ms=None):
         """The kernels line's times of one kernel from its phase's
@@ -1728,6 +2216,10 @@ def main() -> int:
              source="pathtracer_tpu_torch/csrc/intersect.cu",
              replaces="pathtracer_tpu/ops/pallas/intersect_pl.py:52",
              launches=main_out["launches"],
+             launches_by_path=dict(main=main_out["launches"],
+                                   alpha_brute=routes_out["brute"][
+                                       "k1_launches"],
+                                   sponza_main=sponza_out["k1_launches"]),
              max_abs_err=k1_out["max_abs_err"],
              render=times(k1_out["render"],
                           prof_out["k1_render_kernel_device_ms"]),
@@ -1739,11 +2231,17 @@ def main() -> int:
              launches=box_out["launches"],
              max_abs_err=max(k2_out["max_abs_err_t"],
                              k2_out["max_abs_err_b"]),
-             launches_by_path=dict(box_main=box_out["launches"],
-                                   materials_main=mat_out["launches"],
-                                   classroom_main=class_out["launches"]),
+             launches_by_path=dict(
+                 box_main=box_out["launches"],
+                 materials_main=mat_out["launches"],
+                 classroom_main=class_out["launches"],
+                 sponza_main=sponza_out["launches"],
+                 sponza_main_table=sponza_out["k2_launches_main"],
+                 sponza_alpha_table=sponza_out["k2_launches_alpha"]),
              bounce=times(k2_out["bounce"],
                           prof_out["k2_bounce_kernel_device_ms"]),
+             alpha_table=times(sponza_gold["k2_alpha"],
+                               prof_out["k2_alpha_kernel_device_ms"]),
              **times(k2_out, prof_out["k2_kernel_device_ms"]))]
     for pid, kernel, line in (("P1", "gather_rows", 65),
                               ("P2", "gather_rows", 78),

@@ -14,16 +14,29 @@ traversal ``ops/cuda/bvhw_cu.bvhw_intersect`` (K2) over the table that
 ``TracedScene.create`` builds. Each wrapper launches its kernel for CUDA
 tensors and runs its plain version for CPU tensors.
 
+Alpha masks (cutouts) take the reference's routes. On the BVH route the
+masked triangles leave the main table: after the main tree's hit, the
+alpha subset is intersected up to that hit's t, through a BVH32 table of
+its own (K2, above 512 masked triangles) with re-spawn retries past
+zero-alpha texels (``_alpha_cut``), or densely below
+(``ops/intersect.intersect_alpha_dense``). A scene whose every triangle is
+masked keeps the binary tree and tests the masks inline
+(``accel/bvh.bvh_intersect``). On the brute-force route (K1) the retries
+wrap every query. Each retry loop ends early, at one host sync a pass
+(``RETRY_COUNTS``). ``render_progressive`` saves and resumes the film in
+the reference's checkpoint file.
+
 Left out, as they exist only for the TPU: ``tuning.py``/``tuned.json``,
 the wavefront sort, the one-hot MXU row gather (``table[idx]`` here), the
 lane-bounce budget, the segmented renderer and the traversal's chunk and
-interleave knobs. Alpha masks, checkpoints, other samplers and the
-all-lights strategy raise NotImplementedError naming their ROADMAP item.
+interleave knobs. Other samplers and the all-lights strategy raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -31,8 +44,9 @@ import torch
 from .core import math as pm
 from .core.camera import Camera, generate_rays, generate_rays_diff
 from .core.filter import filter_f1d as make_filter_f1d
-from .accel.bvh import build_bvh
-from .accel.bvhw import STACKW, bvhw_from_binary
+from .accel.bvh import (_alpha_test_inline, _pack_nodes, build_bvh,
+                        bvh_intersect)
+from .accel.bvhw import STACKW, build_bvhw, bvhw_from_binary
 from .core.film import (film_crop, film_pad_accumulate, film_pad_new,
                         sample_bounds, splat_halfwidth, splat_tile)
 from .ops import bsdf as bx
@@ -41,12 +55,12 @@ from .ops import lights as lt
 from .ops import sobol as sb
 from .ops.cuda.bvhw_cu import bvhw_intersect
 from .ops.cuda.intersect_cu import intersect
+from .ops.intersect import GAMMA7, intersect_alpha_dense
 from .scene.scene import (LIGHT_AREA, MAT_GLASS, MAT_MATTE, MAT_MIRROR,
-                          SceneData, pack_light_attr, pack_mat_attr,
-                          pack_tri_attr, reorder_triangles)
-
-_ITEM_3 = "ROADMAP Queue 1 item 3 (10b-ii: the alpha path, then the " \
-    "Sponza film)"
+                          TA_ALPHA, TA_NG0, TA_P0, TA_P1, TA_P2, TA_UV0,
+                          TA_UV1, TA_UV2, SceneData, pack_alpha_tri,
+                          pack_light_attr, pack_mat_attr, pack_tri_attr,
+                          reorder_triangles)
 
 # static per-bounce dimension layout (after camera dims 0,1)
 DIMS_PER_BOUNCE = 8
@@ -58,6 +72,23 @@ DIM_RR = 7
 
 # rays per wave: one row band of the sample rectangle
 WAVE_LANES = 1 << 17
+
+# the alpha split (the reference's rules): above DENSE_CAP masked
+# triangles the subset is put in the order of its own SAH tree (the
+# reference's byte bound of the dense pass, 768 MB of an (N x A) f32 grid
+# at a 131,072-lane wave: 1,536); above ALPHA_TREE_MIN it is traced
+# through a BVH32 table of its own
+DENSE_CAP = min(4096, (768 << 20) // ((1 << 17) * 4))
+ALPHA_TREE_MIN = 512
+# re-spawn passes past zero-alpha texels: up to this many stacked cutout
+# layers a ray; the next one reads as opaque (the reference's cap)
+ALPHA_RETRIES = 3
+# the alpha path's host work, summed over a process: "syncs", the host
+# syncs of the retry loops' early exit (one each time a loop asks whether
+# any lane is still cut); "passes", the retry traversals they ran;
+# "alpha_tree", the queries of the alpha subset's BVH32 table (one K2
+# launch each on the card)
+RETRY_COUNTS = dict(syncs=0, passes=0, alpha_tree=0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +137,16 @@ class TracedScene:
     material types, light types, texture channels (kd, ks, metallic,
     roughness), image textures, normal maps and environment the bounce
     has to evaluate.
+
+    Alpha masks (``has_alpha``): on the BVH route with some triangles
+    masked (``split_alpha``), the masked ones sit last, from ``n_opaque``
+    on, and ``bw_rows`` covers the opaque ones; above 512 masked
+    triangles ``bwa_rows`` (depth ``bwa_depth``) is the subset's own
+    BVH32 table, whose triangle ids ``bwa_map`` turns into scene ids.
+    With every triangle masked, ``bvh_nodes`` (M, 8) holds the binary
+    tree (leaves of ``max_leaf``) and no BVH32 table is built. The BVH
+    route's mask test reads ``alpha_pack`` (F, 16) and ``alpha_texels``
+    (scene/scene.py pack_alpha_tri).
     """
 
     data: SceneData
@@ -123,39 +164,89 @@ class TracedScene:
     image_tex: bool = False
     has_normal_maps: bool = False
     has_env: bool = False
+    has_alpha: bool = False
+    split_alpha: bool = False
+    n_opaque: int = -1
+    alpha_pack: torch.Tensor | None = None
+    alpha_texels: torch.Tensor | None = None
+    bwa_rows: torch.Tensor | None = None
+    bwa_map: torch.Tensor | None = None
+    bwa_depth: int = STACKW
+    bvh_nodes: torch.Tensor | None = None
+    max_leaf: int = 4
 
     @property
     def device(self) -> torch.device:
         return self.tri_pack.device
 
+    @property
+    def use_bvh(self) -> bool:
+        """Whether queries go through a tree (K2's table or the binary
+        tree) rather than the brute-force K1."""
+        return self.bw_rows is not None or self.bvh_nodes is not None
+
     @staticmethod
     def create(sd: SceneData, use_bvh: bool | None = None,
                max_leaf: int = 4) -> "TracedScene":
         """Pack the scene on its own device. With ``use_bvh`` (by default
-        above 128 triangles, the reference's rule) it takes the BVH route,
-        kernel K2: the binary SAH build, the triangles reordered into its
-        leaf order, and the 32-wide collapse. Without it, the brute-force
-        route, kernel K1, which takes any number of triangles."""
+        above 128 triangles, the reference's rule) it takes the BVH route:
+        the binary SAH build, the triangles reordered into its leaf order,
+        and the 32-wide collapse for kernel K2; masked triangles are split
+        out (class docstring). Without it, the brute-force route, kernel
+        K1, which takes any number of triangles."""
+        f = int(sd.p0.shape[0])
         if use_bvh is None:
-            use_bvh = int(sd.p0.shape[0]) > 128
+            use_bvh = f > 128
         if not use_bvh:
             return TracedScene.from_tables(sd)
-        _check_scene(sd)  # before the build, not only after it
-        bvh = build_bvh(sd.p0.cpu().numpy(), sd.p1.cpu().numpy(),
-                        sd.p2.cpu().numpy(), max_leaf)
-        sd = reorder_triangles(sd, bvh.order)
-        table, depth = bvhw_from_binary(
-            bvh, sd.p0.cpu().numpy(), sd.p1.cpu().numpy(),
-            sd.p2.cpu().numpy())
-        return TracedScene.from_tables(sd, table, depth)
+        p0, p1, p2 = (x.cpu().numpy() for x in (sd.p0, sd.p1, sd.p2))
+        amask = sd.tri_alpha_txd.cpu().numpy() >= 0
+        n_alpha = int(amask.sum())
+        if n_alpha == f:
+            # every triangle masked: nothing to split out, the binary
+            # tree with its inline mask test
+            bvh = build_bvh(p0, p1, p2, max_leaf)
+            nodes = _pack_nodes(bvh.bounds_min, bvh.bounds_max, bvh.offset,
+                                bvh.n_prims, bvh.axis)
+            return TracedScene.from_tables(
+                reorder_triangles(sd, bvh.order), bvh_nodes=nodes,
+                max_leaf=max_leaf)
+        # the main tree over the opaque triangles; the masked ones last,
+        # above DENSE_CAP in the order of their own SAH tree
+        op_idx = np.nonzero(~amask)[0]
+        al_idx = np.nonzero(amask)[0]
+        n_op = len(op_idx)
+        bvh = build_bvh(p0[op_idx], p1[op_idx], p2[op_idx], max_leaf)
+        if n_alpha > DENSE_CAP:
+            al_idx = al_idx[build_bvh(p0[al_idx], p1[al_idx], p2[al_idx],
+                                      max_leaf).order]
+        sd = reorder_triangles(sd, np.concatenate([op_idx[bvh.order],
+                                                   al_idx]))
+        p0, p1, p2 = (x.cpu().numpy() for x in (sd.p0, sd.p1, sd.p2))
+        table, depth = bvhw_from_binary(bvh, p0[:n_op], p1[:n_op],
+                                        p2[:n_op])
+        if n_alpha == 0:
+            return TracedScene.from_tables(sd, table, depth)
+        bwa_rows = bwa_map = None
+        bwa_depth = STACKW
+        if n_alpha > ALPHA_TREE_MIN:
+            bwa_rows, order_a, bwa_depth = build_bvhw(
+                p0[n_op:], p1[n_op:], p2[n_op:])
+            bwa_map = np.asarray(n_op + order_a, np.int32)
+        return TracedScene.from_tables(
+            sd, table, depth, split_alpha=True, n_opaque=n_op,
+            bwa_rows=bwa_rows, bwa_map=bwa_map, bwa_depth=bwa_depth)
 
     @staticmethod
-    def from_tables(sd: SceneData, bw_rows=None,
-                    bw_depth: int = STACKW) -> "TracedScene":
-        """Pack a scene whose triangles are already in the order of the
-        BVH32 table ``bw_rows`` (a host array; None for the
-        brute-force route)."""
-        _check_scene(sd)
+    def from_tables(sd: SceneData, bw_rows=None, bw_depth: int = STACKW, *,
+                    split_alpha: bool = False, n_opaque: int = -1,
+                    bwa_rows=None, bwa_map=None, bwa_depth: int = STACKW,
+                    bvh_nodes=None, max_leaf: int = 4) -> "TracedScene":
+        """Pack a scene whose triangles are already in the order of its
+        tables (host arrays): the BVH32 table ``bw_rows`` (None for the
+        brute-force route and for the all-masked binary tree
+        ``bvh_nodes``), and for a split alpha subset its table
+        ``bwa_rows`` and id map ``bwa_map`` (class docstring)."""
         device = sd.device
         sd = dataclasses.replace(sd, tex=sd.tex.to(device))
         f = int(sd.p0.shape[0])
@@ -165,6 +256,10 @@ class TracedScene:
         def t(a):
             return torch.as_tensor(np.array(a, np.float32), device=device)
 
+        def opt(a, dtype=np.float32):
+            return None if a is None else torch.as_tensor(
+                np.array(a, dtype), device=device).contiguous()
+
         bound = [tx.cpu().numpy()[used]
                  for tx in (sd.mat_kd_tx, sd.mat_ks_tx, sd.mat_metallic_tx,
                             sd.mat_rough_tx)]
@@ -173,6 +268,9 @@ class TracedScene:
         image_tex = any(bool((kind[tx[tx >= 0]] == 2).any()) for tx in bound)
         p = [sd.p0.cpu().numpy(), sd.p1.cpu().numpy(), sd.p2.cpu().numpy()]
         tri_pack = np.concatenate(p + [np.zeros((f, 3), np.float32)], axis=1)
+        # the mask-test rows follow the tree's triangle order (BVH route)
+        a_pack, a_texels = pack_alpha_tri(sd) \
+            if bw_rows is not None or bvh_nodes is not None else (None, None)
         return TracedScene(
             data=sd, tri_attr=t(pack_tri_attr(sd)),
             light_attr=t(pack_light_attr(sd)), mat_attr=t(pack_mat_attr(sd)),
@@ -183,20 +281,18 @@ class TracedScene:
             light_set=tuple(sorted(set(
                 sd.light_type.cpu().numpy().tolist())))
             if n_lights > 0 else (),
-            bw_rows=None if bw_rows is None
-            else t(bw_rows).contiguous(),
-            bw_depth=int(bw_depth), has_tex=any(tex_channels),
+            bw_rows=opt(bw_rows), bw_depth=int(bw_depth),
+            has_tex=any(tex_channels),
             tex_channels=tex_channels, image_tex=image_tex,
             has_normal_maps=bool(
                 (sd.mat_normal_tx.cpu().numpy()[used] >= 0).any()),
-            has_env=bool(sd.has_env))
-
-
-def _check_scene(sd: SceneData) -> None:
-    """Raise NotImplementedError for what the port does not render yet:
-    alpha masks."""
-    if bool((sd.tri_alpha_txd >= 0).any()):
-        raise NotImplementedError(f"alpha masks: {_ITEM_3}")
+            has_env=bool(sd.has_env),
+            has_alpha=bool((sd.tri_alpha_txd >= 0).any()),
+            split_alpha=bool(split_alpha), n_opaque=int(n_opaque),
+            alpha_pack=opt(a_pack), alpha_texels=opt(a_texels),
+            bwa_rows=opt(bwa_rows), bwa_map=opt(bwa_map, np.int32),
+            bwa_depth=int(bwa_depth), bvh_nodes=opt(bvh_nodes),
+            max_leaf=int(max_leaf))
 
 
 def _lane_bounds(o, t_max, live):
@@ -211,24 +307,194 @@ def _lane_bounds(o, t_max, live):
     return t_max.contiguous()
 
 
+def _any(mask) -> bool:
+    """A retry loop's early-exit test: one host sync."""
+    RETRY_COUNTS["syncs"] += 1
+    return bool(mask.any())
+
+
+def _select(cond, a, b):
+    """Per-lane choice between two hit records."""
+    return {key: torch.where(cond.reshape(cond.shape + (1,) * (a[key].dim()
+                                                              - 1)),
+                             a[key], b[key]) for key in b}
+
+
+def _alpha_cut(scene, hit):
+    """Lanes whose valid hit lands on a zero-alpha texel of a masked
+    triangle: the mask through ``eval_texture`` at width 0 (its scale and
+    sRGB included) at the interpolated uv, cut iff exactly 0. Returns
+    (cut (N,) bool, p_hit, p_error, ng) for the re-spawn."""
+    with torch.profiler.record_function("alpha_cut"):
+        rows = scene.tri_attr[hit["tri"].long()]
+        txd = rows[:, TA_ALPHA].to(torch.int32)
+        b = hit["b"]
+        b0, b1, b2 = b[:, 0:1], b[:, 1:2], b[:, 2:3]
+        uv_hit = (b0 * rows[:, TA_UV0] + b1 * rows[:, TA_UV1]
+                  + b2 * rows[:, TA_UV2])
+        ones = torch.ones((b.shape[0], 3), dtype=torch.float32,
+                          device=b.device)
+        alpha = bx.eval_texture(scene.data, txd, uv_hit, ones)[:, 0]
+        cut = hit["valid"] & (txd >= 0) & (alpha == 0.0)
+        p0, p1, p2 = rows[:, TA_P0], rows[:, TA_P1], rows[:, TA_P2]
+        p_hit = b0 * p0 + b1 * p1 + b2 * p2
+        p_err = GAMMA7 * (torch.abs(b0 * p0) + torch.abs(b1 * p1)
+                          + torch.abs(b2 * p2))
+        return cut, p_hit, p_err, rows[:, TA_NG0]
+
+
+def _walk_closest(scene, query, o, d, t_max):
+    """Closest un-cut hit: ``query(o, t_max)``, then up to ALPHA_RETRIES
+    re-spawns past zero-alpha texels, each re-walking only the cut lanes
+    (the others enter with t_max 0). Returns (hit, t_base): ``valid``
+    cleared where a lane is still cut, its t measured from the last
+    re-spawn origin, which lies ``t_base`` along d from ``o``."""
+    hit = query(o, t_max)
+    cut, p_hit, p_err, ng = _alpha_cut(scene, hit)
+    t_base = torch.zeros_like(t_max)
+    for _ in range(ALPHA_RETRIES):
+        if not _any(cut):
+            break
+        RETRY_COUNTS["passes"] += 1
+        o = torch.where(cut[:, None], ia.spawn_ray(p_hit, p_err, ng, d), o)
+        t_base = torch.where(cut, t_base + hit["t"], t_base)
+        t_max = torch.where(cut, torch.clamp_min(t_max - hit["t"], 0.0),
+                            t_max)
+        hit = _select(cut, query(o, torch.where(cut, t_max, 0.0)), hit)
+        cut, p_hit, p_err, ng = _alpha_cut(scene, hit)
+    hit["valid"] = hit["valid"] & ~cut
+    return hit, t_base
+
+
+def _walk_occlusion(scene, query, o, d, t_max):
+    """Occlusion walked past cut layers: ``query``'s closest hits (as in
+    ``_walk_closest``), occluded at the first un-cut one; a layer still
+    cut when the retries run out reads as opaque."""
+    hit = query(o, t_max)
+    cut, p_hit, p_err, ng = _alpha_cut(scene, hit)
+    occluded = hit["valid"] & ~cut
+    searching = cut
+    for _ in range(ALPHA_RETRIES):
+        if not _any(searching):
+            break
+        RETRY_COUNTS["passes"] += 1
+        o = torch.where(searching[:, None],
+                        ia.spawn_ray(p_hit, p_err, ng, d), o)
+        t_max = torch.where(searching,
+                            torch.clamp_min(t_max - hit["t"], 0.0), t_max)
+        hit = query(o, torch.where(searching, t_max, 0.0))
+        cut, p_hit, p_err, ng = _alpha_cut(scene, hit)
+        occluded = occluded | (searching & hit["valid"] & ~cut)
+        searching = searching & cut
+    return occluded | searching
+
+
+def _alpha_tree_isect(scene, o, d, t_max):
+    """One closest-hit query of the alpha subset's BVH32 table (K2),
+    masked triangles read as opaque, ids mapped to the scene's (a miss
+    keeps id 0)."""
+    RETRY_COUNTS["alpha_tree"] += 1
+    h = bvhw_intersect(scene.bwa_rows, o, d, t_max, stackw=scene.bwa_depth)
+    h["tri"] = torch.where(
+        h["valid"], scene.bwa_map[torch.clamp_min(h["tri"], 0).long()], 0)
+    return h
+
+
+def _alpha_tree_closest(scene, o, d, t_max):
+    """Closest un-cut hit in the alpha subset through its table. The t is
+    summed over the re-spawns, approximate (~1e-4 relative); it only
+    prunes the main hit, and shading recomputes p from b."""
+    hit, t_base = _walk_closest(
+        scene, lambda o_, t_: _alpha_tree_isect(scene, o_, d, t_), o, d,
+        t_max)
+    hit["t"] = torch.where(hit["valid"], t_base + hit["t"], 0.0)
+    return hit
+
+
+def _alpha_tree_anyhit(scene, o, d, t_max):
+    """Occlusion by the alpha subset through its table."""
+    return _walk_occlusion(
+        scene, lambda o_, t_: _alpha_tree_isect(scene, o_, d, t_), o, d,
+        t_max)
+
+
+def _alpha_set_intersect(scene, o, d, t_max, any_hit=False):
+    """Closest (or any) hit against the split-out alpha subset: its BVH32
+    table with re-spawn retries when it has one, else the dense pass with
+    the inline mask test."""
+    if scene.bwa_rows is not None:
+        if any_hit:
+            return _alpha_tree_anyhit(scene, o, d, t_max)
+        return _alpha_tree_closest(scene, o, d, t_max)
+    n_op = scene.n_opaque
+    sd = scene.data
+    return intersect_alpha_dense(
+        o, d, t_max, sd.p0[n_op:], sd.p1[n_op:], sd.p2[n_op:], n_op,
+        lambda pid, b: _alpha_test_inline(scene.alpha_pack,
+                                          scene.alpha_texels, pid, b),
+        any_hit=any_hit)
+
+
+def _closest_raw(scene, o, d, t_max):
+    """One closest-hit query of the scene's route, without the retries of
+    the brute-force route: the main table, then the alpha subset pruned
+    by the main hit's t; or the binary tree with its inline mask test; or
+    K1."""
+    if scene.bw_rows is not None:
+        hit = bvhw_intersect(scene.bw_rows, o, d, t_max,
+                             stackw=scene.bw_depth)
+        if not scene.split_alpha:
+            return hit
+        hit_a = _alpha_set_intersect(
+            scene, o, d, torch.where(hit["valid"], hit["t"], t_max))
+        # a valid alpha hit is closer than the main one (pruned by its t)
+        merged = _select(hit_a["valid"], hit_a, hit)
+        merged["valid"] = hit["valid"] | hit_a["valid"]
+        return merged
+    if scene.bvh_nodes is not None:
+        return bvh_intersect(scene.bvh_nodes, scene.max_leaf,
+                             scene.tri_pack, o, d, t_max,
+                             alpha_pack=scene.alpha_pack,
+                             alpha_texels=scene.alpha_texels)
+    return intersect(o, d, t_max, scene.tri_pack)
+
+
 def _scene_intersect(scene, o, d, t_max, live=None):
     """Closest hit of every lane (K2 on the BVH route, K1 otherwise);
-    lanes outside ``live`` get a miss (``_lane_bounds``)."""
+    lanes outside ``live`` get a miss (``_lane_bounds``). On the
+    brute-force route with alpha masks, cut lanes re-spawn past the
+    surface up to ALPHA_RETRIES times; their t is then measured from the
+    last re-spawn origin, as in the reference (no consumer reads it)."""
     o, d, t_max = o.contiguous(), d.contiguous(), _lane_bounds(o, t_max, live)
-    if scene.bw_rows is not None:
-        return bvhw_intersect(scene.bw_rows, o, d, t_max,
-                              stackw=scene.bw_depth)
-    return intersect(o, d, t_max, scene.tri_pack)
+    if not scene.has_alpha or scene.use_bvh:
+        return _closest_raw(scene, o, d, t_max)
+    return _walk_closest(
+        scene, lambda o_, t_: _closest_raw(scene, o_, d, t_), o, d,
+        t_max)[0]
 
 
 def _scene_intersect_p(scene, o, d, t_max, live=None):
     """Any hit of every lane within t_max; lanes outside ``live`` report
-    none."""
+    none. On the split BVH route, lanes the main table already occludes
+    skip the alpha pass; on the brute-force route with alpha masks,
+    closest hits are walked past cut layers."""
     o, d, t_max = o.contiguous(), d.contiguous(), _lane_bounds(o, t_max, live)
     if scene.bw_rows is not None:
-        return bvhw_intersect(scene.bw_rows, o, d, t_max, any_hit=True,
-                              stackw=scene.bw_depth)
-    return intersect(o, d, t_max, scene.tri_pack, any_hit=True)
+        occ = bvhw_intersect(scene.bw_rows, o, d, t_max, any_hit=True,
+                             stackw=scene.bw_depth)
+        if scene.split_alpha:
+            occ = occ | _alpha_set_intersect(
+                scene, o, d, torch.where(occ, 0.0, t_max), any_hit=True)
+        return occ
+    if scene.bvh_nodes is not None:
+        return bvh_intersect(scene.bvh_nodes, scene.max_leaf,
+                             scene.tri_pack, o, d, t_max, any_hit=True,
+                             alpha_pack=scene.alpha_pack,
+                             alpha_texels=scene.alpha_texels)
+    if not scene.has_alpha:
+        return intersect(o, d, t_max, scene.tri_pack, any_hit=True)
+    return _walk_occlusion(
+        scene, lambda o_, t_: _closest_raw(scene, o_, d, t_), o, d, t_max)
 
 
 def _to_local(it, w):
@@ -638,10 +904,16 @@ class PathIntegrator:
                            chunk_spp: int | None = None, callback=None,
                            checkpoint: str | None = None) -> torch.Tensor:
         """Render in sample-index chunks, calling ``callback(film, done)``
-        after each chunk with the (H, W, 4) film so far. ``checkpoint``
-        (saving and resuming the film) is not ported yet and raises."""
-        if checkpoint is not None:
-            raise NotImplementedError(f"checkpoint: {_ITEM_3}")
+        after each chunk with the (H, W, 4) film so far.
+
+        With ``checkpoint`` (a path; ``.npz`` is appended where it lacks
+        it), the padded film, the next sample frame and the spp are saved
+        there after every chunk, before the callback runs (the reference
+        calls it first), and a render whose film shape and spp match the
+        file's resumes from it. The file is the reference's, so each
+        package resumes the other's."""
+        if checkpoint and not checkpoint.endswith(".npz"):
+            checkpoint = checkpoint + ".npz"
         if not isinstance(scene, TracedScene):
             scene = TracedScene.create(scene)
         dev = scene.device
@@ -661,6 +933,14 @@ class PathIntegrator:
         dxdy_cam = camera.diff_params(dev) if diff else None
         diff_scale = float(np.float32(1.0 / np.sqrt(self.spp)))
         film_pad = film_pad_new(w, h, extra_rows=band, device=dev)
+        s_start = 0
+        if checkpoint and os.path.exists(checkpoint):
+            with np.load(checkpoint) as ck:
+                if ck["film_pad"].shape == tuple(film_pad.shape) and \
+                        int(ck["spp"]) == self.spp:
+                    film_pad = torch.as_tensor(
+                        np.asarray(ck["film_pad"], np.float32), device=dev)
+                    s_start = int(ck["next_frame"])
 
         # per-band pixel statics (host, once)
         bands = []
@@ -680,7 +960,7 @@ class PathIntegrator:
                           t(b_base.astype(np.int64), torch.int64),
                           t(scramble.astype(np.int64), torch.int64)))
 
-        for s0 in range(0, self.spp, chunk):
+        for s0 in range(s_start, self.spp, chunk):
             n_frames = min(chunk, self.spp - s0)
             frames = [sb.frame_statics(domain, s0 + i)
                       for i in range(n_frames)]
@@ -703,6 +983,9 @@ class PathIntegrator:
             for rays, n_bad in stats:
                 self.last_ray_count += float(rays)
                 self.bad_sample_count += float(n_bad)
+            if checkpoint:
+                np.savez(checkpoint, film_pad=film_pad.cpu().numpy(),
+                         next_frame=s0 + n_frames, spp=self.spp)
             if callback is not None:
                 callback(film_crop(film_pad, w, h), s0 + n_frames)
         return film_crop(film_pad, w, h)

@@ -31,14 +31,24 @@ def scene_from_reference(sd, device="cuda") -> SceneData:
 
 def traced_scene_from_reference(ts, device="cuda"):
     """The reference's ``TracedScene`` -> this package's, on ``device``:
-    its (reordered) SceneData and, for BVH scenes, its BVH32 table
-    ``bw_rows`` and depth ``bw_depth``, so both packages trace one
-    identical table."""
-    bw_rows = getattr(ts, "bw_rows", None)
+    its (reordered) SceneData and its tables, so both packages trace
+    identical trees: the BVH32 table ``bw_rows`` and depth ``bw_depth``;
+    for a split alpha subset the flag, ``n_opaque`` and the subset's table
+    ``bwa_rows``, map ``bwa_map`` and depth ``bwa_depth``; where every
+    triangle is masked, the binary tree's node rows and leaf size."""
+    def host(name):
+        a = getattr(ts, name)
+        return None if a is None else np.asarray(a)
+    # the binary tree's rows: only where no BVH32 table replaced it
+    nodes = None if ts.bvh is None or ts.bw_rows is not None \
+        else np.asarray(ts.bvh.nodes)
     return TracedScene.from_tables(
-        scene_from_reference(ts.data, device),
-        None if bw_rows is None else np.asarray(bw_rows),
-        int(ts.bw_depth))
+        scene_from_reference(ts.data, device), host("bw_rows"),
+        int(ts.bw_depth), split_alpha=bool(ts.split_alpha),
+        n_opaque=int(ts.n_opaque), bwa_rows=host("bwa_rows"),
+        bwa_map=host("bwa_map"), bwa_depth=int(ts.bwa_depth),
+        bvh_nodes=nodes,
+        max_leaf=4 if ts.bvh is None else int(ts.bvh.max_leaf))
 
 
 def camera_from_reference(cam) -> Camera:

@@ -4,7 +4,10 @@ Port of ``pathtracer_tpu/ops/intersect.py`` (the brute-force forms). This
 is the plain PyTorch version of kernel K1 (``ops/cuda/intersect_cu.py``):
 an (N rays x F triangles) grid of watertight tests, closest hit by argmin
 (the lowest triangle index wins ties, as torch.argmin returns the first
-minimum) and any-hit by OR.
+minimum) and any-hit by OR. ``intersect_alpha_dense`` is the dense route
+of an alpha-masked subset: the same grid, then the mask test of each
+lane's closest candidates in turn. It stays plain PyTorch on the card, as
+the reference computes it outside Pallas.
 """
 
 from __future__ import annotations
@@ -183,3 +186,88 @@ def intersect_p_brute(o, d, t_max, p0, p1, p2):
     """Any-hit (shadow) test. Returns (N,) bool."""
     _, _, hit = watertight_hits(o, d, t_max, p0, p1, p2)
     return torch.any(hit, dim=-1)
+
+
+# Bounded closest-first rounds of the dense alpha pass: a ray crossing
+# more than this many stacked zero-alpha layers reads the next one as
+# opaque (the reference's cap, kept).
+ALPHA_DENSE_RETRIES = 8
+# ray-triangle pairs a block of the dense pass's grid holds at a time: the
+# watertight test's (lanes, A) temporaries stay ~16 MB each, and only the
+# (N, A) distance matrix lives across blocks
+DENSE_BLOCK = 1 << 22
+
+
+def _hit_distances(o, d, t_max, p0, p1, p2):
+    """(N, A) f32: each pair's hit distance, inf where it does not hit.
+    Built in blocks of lanes (lanes are independent, so the numbers are
+    those of one whole grid), without the (N, A, 3) barycentrics."""
+    n, a = o.shape[0], p0.shape[0]
+    out = torch.empty((n, a), dtype=torch.float32, device=o.device)
+    step = max(1, DENSE_BLOCK // max(a, 1))
+    for i in range(0, n, step):
+        t, _, hit = watertight_hits(o[i:i + step], d[i:i + step],
+                                    t_max[i:i + step], p0, p1, p2)
+        out[i:i + step] = torch.where(hit, t, torch.inf)
+    return out
+
+
+def intersect_alpha_dense(o, d, t_max, p0, p1, p2, tri_base: int,
+                          alpha_test, any_hit: bool = False):
+    """Dense intersection of an alpha-masked triangle subset.
+
+    The (N rays x A triangles) watertight grid, then up to
+    ALPHA_DENSE_RETRIES rounds: each lane's closest remaining candidate
+    (``torch.argmin``, the first minimum) is mask-tested and, if cut,
+    removed from its pool. A candidate still pending when the rounds run
+    out reads as opaque. One host sync a round ends the loop early once no
+    lane searches.
+
+    o, d: (N, 3); t_max: (N,); p0/p1/p2: (A, 3) the subset; tri_base: the
+    global id of subset triangle 0; alpha_test(tri_ids, bary) -> (N,) bool,
+    True where the candidate survives (``accel/bvh._alpha_test_inline``).
+    Returns dict(valid, t, tri (i32), b), zeros on a miss, or (N,) bool
+    with ``any_hit``.
+    """
+    t_mask = _hit_distances(o, d, t_max, p0, p1, p2)
+    n = o.shape[0]
+    dev = o.device
+    rows = torch.arange(n, device=dev)
+    t_inf = torch.full((n,), torch.inf, device=dev)
+
+    def bary_of(j):
+        # one candidate a lane: three (N, 3) row gathers instead of an
+        # (N, A, 3) barycentric tensor
+        return watertight_hit_diag(o, d, t_inf, p0[j], p1[j], p2[j])[1]
+
+    out = dict(valid=torch.zeros((n,), dtype=torch.bool, device=dev),
+               t=torch.zeros((n,), device=dev),
+               tri=torch.zeros((n,), dtype=torch.int32, device=dev),
+               b=torch.zeros((n, 3), device=dev))
+    searching = torch.ones((n,), dtype=torch.bool, device=dev)
+    for _ in range(ALPHA_DENSE_RETRIES):
+        if not bool(searching.any()):
+            break
+        j = torch.argmin(t_mask, dim=-1)
+        t_j = t_mask[rows, j]
+        valid = torch.isfinite(t_j) & searching
+        b_j = bary_of(j)
+        tri_j = (j + tri_base).to(torch.int32)
+        survive = valid & alpha_test(tri_j, b_j)
+        out = dict(valid=out["valid"] | survive,
+                   t=torch.where(survive, t_j, out["t"]),
+                   tri=torch.where(survive, tri_j, out["tri"]),
+                   b=torch.where(survive[:, None], b_j, out["b"]))
+        # a cut candidate leaves the pool; the lane searches on
+        t_mask[rows, j] = torch.where(valid & ~survive, torch.inf, t_j)
+        searching = searching & valid & ~survive
+    j = torch.argmin(t_mask, dim=-1)
+    t_j = t_mask[rows, j]
+    pending = searching & torch.isfinite(t_j)
+    if any_hit:
+        return out["valid"] | pending
+    return dict(valid=out["valid"] | pending,
+                t=torch.where(pending, t_j, out["t"]),
+                tri=torch.where(pending, (j + tri_base).to(torch.int32),
+                                out["tri"]),
+                b=torch.where(pending[:, None], bary_of(j), out["b"]))

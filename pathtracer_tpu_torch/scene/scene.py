@@ -6,8 +6,9 @@ and checker texture descriptors and the environment map with its 2D
 importance tables, as tensors. SceneBuilder accumulates all of it on the
 host in numpy; reorder_triangles puts the soup in BVH leaf order. Image
 textures live in the mip pool of ``scene/texture.py`` (``SceneData.tex``).
-Alpha masks are built (``add_mesh``'s ``alpha_txd``), but the integrator
-refuses them until ROADMAP Queue 1 item 3 (10b-ii) ports the alpha path.
+Alpha masks are built (``add_mesh``'s ``alpha_txd``); ``pack_alpha_tri``
+packs the rows of the level-0 mask test that the binary traversal and the
+dense alpha pass read.
 """
 
 from __future__ import annotations
@@ -180,6 +181,51 @@ MA_ROUGH = slice(13, 15)
 MA_MISC = slice(15, 19)
 MA_REMAP = 19
 MA_WIDTH = 20
+
+
+# alpha_pack columns (F, 16): the level-0 mask test of a masked triangle
+# (accel/bvh._alpha_test_inline). The pool offset of level 0 rides as the
+# BIT PATTERN of an int32, not as a float value, so pools above 2^24
+# texels stay exact.
+AP_UV0 = slice(0, 2)
+AP_UV1 = slice(2, 4)
+AP_UV2 = slice(4, 6)
+AP_SUSV = slice(6, 8)    # UVMap scale (su, sv)
+AP_OUOV = slice(8, 10)   # UVMap offset (ou, ov)
+AP_BASE = 10             # level-0 pool offset (int32 bits)
+AP_W = 11                # level-0 width (exact f32)
+AP_H = 12                # level-0 height
+AP_WRAP = 13             # wrap mode
+AP_FLAG = 14             # 1.0 if the triangle carries an alpha mask
+AP_WIDTH = 16
+
+
+def pack_alpha_tri(sd: SceneData):
+    """(F, AP_WIDTH) mask-test rows and the (total,) level-0 texel column
+    ``pool.data[:, 0]``, host numpy; (None, None) when no triangle
+    carries a mask. Mask textures are plain image descriptors (scale 1,
+    no sRGB, alpha replicated to RGB by the importer), so the test is a
+    level-0 bilinear of pool column 0 at the UV-mapped st."""
+    alpha = _np(sd.tri_alpha_txd)
+    if not (alpha >= 0).any():
+        return None, None
+    txd = np.maximum(alpha, 0)
+    uvm = _f32(sd.txd_uv)[txd]  # (F, 4) su sv ou ov
+    tex = _np(sd.txd_image)[txd]
+    pool = sd.tex
+    base = _np(pool.level_offset)[tex, 0].astype(np.int32)
+    rows = np.zeros((alpha.shape[0], AP_WIDTH), np.float32)
+    rows[:, AP_UV0] = _f32(sd.uv0)
+    rows[:, AP_UV1] = _f32(sd.uv1)
+    rows[:, AP_UV2] = _f32(sd.uv2)
+    rows[:, AP_SUSV] = uvm[:, 0:2]
+    rows[:, AP_OUOV] = uvm[:, 2:4]
+    rows[:, AP_BASE] = base.view(np.float32)
+    rows[:, AP_W] = _np(pool.level_w)[tex, 0].astype(np.float32)
+    rows[:, AP_H] = _np(pool.level_h)[tex, 0].astype(np.float32)
+    rows[:, AP_WRAP] = _np(pool.wrap)[tex].astype(np.float32)
+    rows[:, AP_FLAG] = (alpha >= 0).astype(np.float32)
+    return rows, np.ascontiguousarray(_f32(pool.data)[:, 0])
 
 
 def pack_tri_attr(sd: SceneData) -> np.ndarray:

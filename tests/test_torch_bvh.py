@@ -13,6 +13,8 @@ watertight test, which the port matches bit for bit (checked below through
 the port's brute force on the same lanes).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -285,8 +287,70 @@ def test_traced_scene_bvh_matches_jax():
 
 
 def test_alpha_scene_above_128_raises():
+    """A masked triangle in a BVH scene no longer raises: ``create``
+    splits it out as the reference does (the main table over the opaque
+    triangles, the masked one last, taken by the dense pass), and both
+    packages build the same tables."""
     _, jsd = jbox_field((16, 9), n_boxes=12)
+    alpha = np.asarray(jsd.tri_alpha_txd).copy()
+    alpha[0] = 0
+    jsd = dataclasses.replace(jsd, tri_alpha_txd=jnp.asarray(alpha))
     sd = scene_from_reference(jsd, device="cpu")
-    sd.tri_alpha_txd[0] = 0
-    with pytest.raises(NotImplementedError, match="10b"):
-        TracedScene.create(sd)
+    ts = TracedScene.create(sd)
+    jts = JTracedScene.create(jsd, use_pallas=False)
+    f = int(sd.p0.shape[0])
+    assert ts.split_alpha and ts.n_opaque == jts.n_opaque == f - 1
+    assert ts.bwa_rows is None and jts.bwa_rows is None
+    assert_scene_equal(ts.data, jts.data)
+    assert int(ts.data.tri_alpha_txd[-1]) == 0
+    assert ts.bw_rows.numpy().tobytes() == np.asarray(jts.bw_rows).tobytes()
+    assert ts.alpha_pack.numpy().tobytes() == \
+        np.asarray(jts.alpha_pack).tobytes()
+
+
+@pytest.mark.parametrize("f", [60, 300])
+def test_binary_traversal_matches_jax(f):
+    """The binary tree's own traversal (the all-masked route's, here
+    without masks): node rows byte-equal to the reference's, closest hit
+    valid and tri equal, t and b within rtol 1e-5 / atol 1e-6 (the JAX
+    loop is compiled: XLA rounds a few t an ulp apart), any hit equal,
+    and both equal to brute force; lanes with t_max 0 test nothing."""
+    from pathtracer_tpu.accel.bvh import bvh_intersect as jbvh_intersect
+    from pathtracer_tpu.ops.pallas.intersect_pl import pack_triangles
+    rng = np.random.default_rng(f + 1)
+    p = _soup(rng, f)
+    jb = jbuild_bvh(*p, max_prims=4)
+    b = pbvh.build_bvh(*p, max_prims=4)
+    nodes = pbvh._pack_nodes(b.bounds_min, b.bounds_max, b.offset,
+                             b.n_prims, b.axis)
+    assert nodes.tobytes() == np.asarray(jb.nodes).tobytes()
+    pr = [x[b.order] for x in p]
+    tri_pack = np.concatenate(pr + [np.zeros((f, 3), np.float32)], axis=1)
+    o, d = _rays(rng, 400)
+    t_max = np.where(rng.random(400) < 0.2, 0.0,
+                     np.where(rng.random(400) < 0.3, 2.0, np.inf))
+    t_max = t_max.astype(np.float32)
+    args = [torch.as_tensor(a) for a in (o, d, t_max)]
+    jargs = [jnp.asarray(a) for a in (o, d, t_max)]
+    got = pbvh.bvh_intersect(torch.as_tensor(nodes), 4,
+                             torch.as_tensor(tri_pack), *args)
+    want = jbvh_intersect(jb, pack_triangles(*[jnp.asarray(x) for x in pr]),
+                          *jargs)
+    for key in ("valid", "tri"):
+        np.testing.assert_array_equal(got[key].numpy(),
+                                      np.asarray(want[key]), err_msg=key)
+    v = got["valid"].numpy()
+    for key in ("t", "b"):
+        np.testing.assert_allclose(got[key].numpy()[v],
+                                   np.asarray(want[key])[v], rtol=1e-5,
+                                   atol=1e-6, err_msg=key)
+    assert v.any() and not v[t_max == 0].any()
+    occ = pbvh.bvh_intersect(torch.as_tensor(nodes), 4,
+                             torch.as_tensor(tri_pack), *args, any_hit=True)
+    np.testing.assert_array_equal(
+        occ.numpy(), np.asarray(jbvh_intersect(
+            jb, pack_triangles(*[jnp.asarray(x) for x in pr]), *jargs,
+            any_hit=True)))
+    brute = pi.intersect_brute(*args, *[torch.as_tensor(x) for x in pr])
+    assert torch.equal(got["valid"], brute["valid"])
+    assert torch.equal(occ, got["valid"])

@@ -624,3 +624,72 @@ def test_classroom_card_film_matches_cpu_film(dev, mis_mode):
     assert np.isfinite(got).all() and (got[..., 3] > 0).all()
     np.testing.assert_allclose(got[..., 3], want[..., 3], rtol=1e-5)
     assert np.sqrt(np.mean((got[..., :3] - want[..., :3]) ** 2)) < 1e-3
+
+
+SPONZA = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data", "sponza_proc.glb")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mis_mode", ["ref", "onesample"])
+def test_sponza_card_film_matches_cpu_film(dev, mis_mode):
+    """Sponza at 48x27, 2 spp, depth 1 (the golden's configuration): the
+    card (K2 on the main table and on the alpha subset's, with re-spawn
+    retries) against the CPU's plain traversals, at RMSE < 1e-3 and alpha
+    rtol 1e-5."""
+    from pathtracer_tpu_torch import integrator as pint
+    from pathtracer_tpu_torch.scene.gltf import load_gltf
+    films = {}
+    for where in ("cpu", dev):
+        cam, sd, _ = load_gltf(SPONZA, resolution=(48, 27), device=where)
+        k2_before = k2.LAUNCHES
+        alpha_before = pint.RETRY_COUNTS["alpha_tree"]
+        films[str(where)] = pint.PathIntegrator(
+            pint.PathConfig(max_depth=1, mis_mode=mis_mode), spp=2).render(
+                cam, sd).cpu().numpy()
+        if where != "cpu":  # K2 on both tables
+            alpha = pint.RETRY_COUNTS["alpha_tree"] - alpha_before
+            assert k2.LAUNCHES - k2_before > alpha > 0
+    got, want = films[str(dev)], films["cpu"]
+    assert np.isfinite(got).all() and (got[..., 3] > 0).all()
+    np.testing.assert_allclose(got[..., 3], want[..., 3], rtol=1e-5)
+    assert np.sqrt(np.mean((got[..., :3] - want[..., :3]) ** 2)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["brute", "dense", "tree", "binary"])
+def test_alpha_route_card_matches_cpu(dev, route):
+    """Each alpha route on the card against the same route on the CPU,
+    on rays through the masks: the brute-force route (K1 and re-spawn
+    retries), the dense pass, the subset's table (K2 and re-spawn
+    retries), the binary tree of an all-masked scene. Hits and occlusion
+    equal; t within rtol 1e-4 and b within 1e-4 (a re-spawned lane's
+    origin carries the rounding of its first hit, which PyTorch's CUDA
+    ops may round otherwise than its CPU ops)."""
+    from pathtracer_tpu_torch.integrator import (TracedScene,
+                                                 _scene_intersect,
+                                                 _scene_intersect_p)
+    from pathtracer_tpu_torch.scene.scene import SceneBuilder
+    from torch_alpha_scenes import ROUTES, build, rays
+    fill, use_bvh, _ = ROUTES[route]
+    o, d, o2, d2, t2 = rays(len(route), n=4096)
+    out = {}
+    for where in ("cpu", dev):
+        ts = TracedScene.create(build(SceneBuilder, fill, device=where),
+                                use_bvh=use_bvh)
+
+        def t(a):
+            return torch.as_tensor(a, device=where)
+        hit = _scene_intersect(ts, t(o), t(d), torch.inf)
+        occ = _scene_intersect_p(ts, t(o2), t(d2), t(t2))
+        out[str(where)] = ({k: v.cpu() for k, v in hit.items()}, occ.cpu())
+    (got, occ), (want, occ_want) = out[str(dev)], out["cpu"]
+    assert torch.equal(occ, occ_want)
+    assert torch.equal(got["valid"], want["valid"])
+    assert torch.equal(got["tri"], want["tri"])
+    valid = want["valid"]
+    assert valid.any() and occ_want.any() and not occ_want.all()
+    for key, tol in (("t", 1e-4), ("b", 1e-4)):
+        np.testing.assert_allclose(got[key][valid].numpy(),
+                                   want[key][valid].numpy(), rtol=tol,
+                                   atol=1e-4 if key == "b" else 1e-6)

@@ -5,9 +5,8 @@
 (integer leaves exactly, float leaves ``np.array_equal``). The glTF cases
 of ``tests/test_scene_io.py`` (material map, emissive area light, default
 camera, JPEG texture) run again for the port, with a normal-map and an
-alpha-mask material beside them. Classroom's ``TracedScene.create``
-builds the reference's table; Sponza's alpha masks wait for ROADMAP
-Queue 1 item 3.
+alpha-mask material beside them. ``TracedScene.create`` builds the
+reference's tables for both assets, Sponza's alpha split included.
 """
 
 import base64
@@ -78,10 +77,25 @@ def test_classroom_create_builds_the_reference_table():
 
 
 def test_sponza_create_names_item_3():
+    """Sponza's ``create`` (the alpha path of ROADMAP Queue 1 item 3)
+    builds the reference's tables: 1,320 masked triangles split out last,
+    the main BVH32 table over the 122,272 opaque ones, the subset's own
+    table and id map, and the mask rows."""
     _, sd, _ = load_gltf(ASSETS["sponza"], resolution=(32, 18),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="alpha masks.*item 3"):
-        TracedScene.create(sd)
+    _, jsd, _ = jload_gltf(ASSETS["sponza"], resolution=(32, 18))
+    ts = TracedScene.create(sd)
+    jts = JTracedScene.create(jsd, use_pallas=False)
+    assert ts.has_alpha and ts.split_alpha and ts.bvh_nodes is None
+    assert ts.n_opaque == jts.n_opaque == 122_272
+    assert (ts.bw_depth, ts.bwa_depth) == (jts.bw_depth, jts.bwa_depth)
+    assert_scene_equal(ts.data, jts.data)
+    for name in ("bw_rows", "bwa_rows", "bwa_map", "alpha_pack",
+                 "alpha_texels"):
+        got, want = getattr(ts, name).numpy(), np.asarray(getattr(jts, name))
+        assert got.dtype == want.dtype, name
+        assert got.tobytes() == want.tobytes(), name
+    assert ts.bwa_map.min() >= ts.n_opaque
 
 
 # --- the glTF cases of tests/test_scene_io.py, for the port
@@ -233,8 +247,16 @@ def test_gltf_textures_normal_map_and_alpha_mask(tmp_path):
     assert int(sd.tri_alpha_txd[0]) >= 0
     # five pyramids: alpha, normal, base colour, metallic, roughness
     assert sd.tex.n_levels.shape[0] == 5
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TracedScene.create(sd)
+    # one masked triangle: the brute-force route with re-spawn retries,
+    # or, forced onto the BVH route, the binary tree with the inline test
+    assert TracedScene.create(sd).has_alpha
+    ts = TracedScene.create(sd, use_bvh=True)
+    _, jsd, _ = jload_gltf(os.path.join(str(tmp_path), "t.gltf"))
+    jts = JTracedScene.create(jsd, use_bvh=True, use_pallas=False)
+    assert ts.bvh_nodes.numpy().tobytes() == \
+        np.asarray(jts.bvh.nodes).tobytes()
+    assert ts.alpha_pack.numpy().tobytes() == \
+        np.asarray(jts.alpha_pack).tobytes()
 
 
 def test_gltf_jpeg_texture(tmp_path):

@@ -108,6 +108,19 @@ cam, sd, _ = load_gltf("data/classroom_proc.glb", resolution=(8, 6),
                        device="cpu")
 film = PathIntegrator(PathConfig(max_depth=1), spp=1).render(cam, sd)
 assert torch.isfinite(film).all() and (film[..., 3] > 0).all()
+# the alpha path: Sponza's split (its foliage's own table, re-spawns)
+# and a checkpoint saved and resumed
+from pathtracer_tpu_torch import integrator
+cam, sd, _ = load_gltf("data/sponza_proc.glb", resolution=(8, 6),
+                       device="cpu")
+integ = PathIntegrator(PathConfig(max_depth=1), spp=2)
+film = integ.render_progressive(cam, sd, chunk_spp=1, checkpoint="ck")
+assert torch.isfinite(film).all() and (film[..., 3] > 0).all()
+assert integrator.RETRY_COUNTS["alpha_tree"] > 0
+again = PathIntegrator(PathConfig(max_depth=1), spp=2)
+assert torch.equal(again.render_progressive(cam, sd, chunk_spp=1,
+                                            checkpoint="ck"), film)
+assert again.last_ray_count == 0.0
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "pathtracer_tpu")]
 # Pillow is imported only to read a JPEG, which no asset holds
@@ -120,7 +133,8 @@ def test_copy_of_the_port_renders_without_the_jax_package(tmp_path):
     shutil.copytree(PORT, tmp_path / "pathtracer_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     os.makedirs(tmp_path / "data")
-    for name in ("cornell-box.xml", "classroom_proc.glb"):
+    for name in ("cornell-box.xml", "classroom_proc.glb",
+                 "sponza_proc.glb"):
         shutil.copy(os.path.join(ROOT, "data", name), tmp_path / "data")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN],

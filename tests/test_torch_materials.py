@@ -172,10 +172,13 @@ def test_eval_texture_constant_and_checker(scenes):
 
 def test_image_texture_raises():
     """Image descriptors build and evaluate as the reference's do (their
-    lookup is held in tests/test_torch_textures.py); what still raises is
-    an image used as an alpha mask, whose path is ROADMAP Queue 1 item 3
-    (10b-ii)."""
+    lookup is held in tests/test_torch_textures.py). An image used as an
+    alpha mask no longer raises (the alpha path landed): the cut test
+    ``_alpha_cut`` reads the mask through ``eval_texture`` at width 0,
+    the descriptor's scale included, and cuts the hits whose value is
+    exactly 0, as the reference's does."""
     img = np.random.default_rng(3).random((4, 4, 3)).astype(np.float32)
+    img[:2] = 0.0  # rows 0-1 zero: v in [0.125, 0.375) reads exactly 0
     builders = {}
     for name, cls in (("jax", JSceneBuilder), ("port", PSceneBuilder)):
         b = cls()
@@ -192,9 +195,30 @@ def test_image_texture_raises():
                            _t(uv), torch.zeros(8, 3))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
-    from pathtracer_tpu_torch.integrator import TracedScene
-    with pytest.raises(NotImplementedError, match="alpha masks.*item 3"):
-        TracedScene.create(builders["port"])
+    from pathtracer_tpu.integrator import TracedScene as JTracedScene
+    from pathtracer_tpu.integrator import _alpha_cut as j_alpha_cut
+    from pathtracer_tpu_torch.integrator import TracedScene, _alpha_cut
+    ts = TracedScene.create(builders["port"])
+    jts = JTracedScene.create(builders["jax"], use_pallas=False)
+    assert ts.has_alpha and not ts.use_bvh
+    # hits on the triangle at random points
+    rng = np.random.default_rng(5)
+    b = rng.dirichlet([1, 1, 1], 256).astype(np.float32)
+    valid = rng.random(256) < 0.9
+    hit = dict(valid=valid, t=np.ones(256, np.float32),
+               tri=np.zeros(256, np.int32), b=b)
+    cut = _alpha_cut(ts, {k: _t(v) for k, v in hit.items()})
+    j_cut = j_alpha_cut(jts, {k: jnp.asarray(v) for k, v in hit.items()})
+    for got, want in zip(cut, j_cut):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+    sd = ts.data
+    uv = (_t(b[:, 0:1]) * sd.uv0[0] + _t(b[:, 1:2]) * sd.uv1[0]
+          + _t(b[:, 2:3]) * sd.uv2[0])
+    mask = pbx.eval_texture(sd, torch.zeros(256, dtype=torch.int32), uv,
+                            torch.ones(256, 3))[:, 0]
+    assert torch.equal(cut[0], _t(valid) & (mask == 0.0))
+    assert cut[0].any() and not cut[0].all()
 
 
 @pytest.mark.parametrize("present", _CASES,

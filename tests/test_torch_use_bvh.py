@@ -105,13 +105,20 @@ def test_unknown_mitsuba_shape_names_item_9b(tmp_path):
         load_mitsuba(str(xml), device="cpu")
 
 
-def test_checkpoint_names_item_3(cornell):
+def test_checkpoint_names_item_3(cornell, tmp_path):
     """``render_progressive`` takes the reference's ``checkpoint``
-    argument; saving and resuming are ROADMAP Queue 1 item 3's."""
+    argument, and since ROADMAP Queue 1 item 3 saves and resumes: a
+    render of 2 spp in chunks of 1 with a checkpoint, then a second one
+    that finds the file complete, renders nothing and returns its film."""
     cam, _, scenes = cornell
-    integ = PathIntegrator(PathConfig(max_depth=1), spp=1)
-    with pytest.raises(NotImplementedError, match="checkpoint.*item 3"):
-        integ.render_progressive(cam, scenes[None], chunk_spp=None,
-                                 callback=None, checkpoint="x")
-    film = integ.render_progressive(cam, scenes[None], None, None, None)
-    assert film.shape == (32, 32, 4)
+    ck = str(tmp_path / "ck.npz")
+    integ = PathIntegrator(PathConfig(max_depth=1), spp=2)
+    film = integ.render_progressive(cam, scenes[True], chunk_spp=1,
+                                    callback=None, checkpoint=ck)
+    assert film.shape == (32, 32, 4) and integ.last_ray_count > 0
+    with np.load(ck) as z:
+        assert (int(z["next_frame"]), int(z["spp"])) == (2, 2)
+    again = PathIntegrator(PathConfig(max_depth=1), spp=2)
+    assert torch.equal(again.render_progressive(cam, scenes[True], 1, None,
+                                                ck), film)
+    assert again.last_ray_count == 0.0
