@@ -170,12 +170,17 @@ def sobol_sample_dim(idx_lo, idx_hi, dim: int, scramble, sm32):
     """Sobol value in [0,1) for ONE dimension shared by the whole wave.
 
     idx_lo/hi: (N,) words from sobol_index; scramble: (N,) words; sm32:
-    (1024, 52) from sm32_device.
+    (1024, 52) from sm32_device. A dimension past the table's last reads
+    the last row, as the reference's ``dynamic_slice`` clamps its start.
     """
-    return _to_unit(_dim_value(idx_lo, idx_hi, sm32[dim]) ^ scramble)
+    row = sm32[min(dim, sm32.shape[0] - 1)]
+    return _to_unit(_dim_value(idx_lo, idx_hi, row) ^ scramble)
 
 
 def sobol_sample_dim2(idx_lo, idx_hi, dim: int, scramble, sm32):
-    """Two consecutive dimensions at once -> (N, 2)."""
-    v = _dim_value(idx_lo, idx_hi, sm32[dim:dim + 2]) ^ scramble[:, None]
+    """Two consecutive dimensions at once -> (N, 2); a pair starting past
+    the table's last but one reads the last two rows (the clamp above)."""
+    start = min(dim, sm32.shape[0] - 2)
+    v = _dim_value(idx_lo, idx_hi, sm32[start:start + 2]) ^ \
+        scramble[:, None]
     return _to_unit(v)

@@ -92,3 +92,39 @@ def test_samples_bit_exact_on_high_index_bits():
         got = psb.sobol_sample_dim(*args, dim,
                                    torch.as_tensor(scr.astype(np.int64)), psm)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dim", [1021, 1022, 1023, 1024, 1030])
+def test_dims_past_the_table_clamp_as_jax(dim):
+    """A dimension past the table's 1,024 rows reads as the reference's
+    ``dynamic_slice`` does: the 1-D row at min(dim, 1023), the pair's
+    start at min(dim, 1022)."""
+    rng = np.random.default_rng(3)
+    n = 64
+    lo = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    hi = rng.integers(0, 1 << 20, n, dtype=np.uint64).astype(np.uint32)
+    scr = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    sm = jsb.sm32_device()
+    psm = psb.sm32_device("cpu")
+    jargs = (jnp.asarray(lo), jnp.asarray(hi), dim, jnp.asarray(scr), sm)
+    pargs = (torch.as_tensor(lo.astype(np.int64)),
+             torch.as_tensor(hi.astype(np.int64)), dim,
+             torch.as_tensor(scr.astype(np.int64)), psm)
+    got = psb.sobol_sample_dim(*pargs)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jsb.sobol_sample_dim(*jargs)))
+    got2 = psb.sobol_sample_dim2(*pargs)
+    assert got2.shape == (n, 2)
+    np.testing.assert_array_equal(got2.numpy(),
+                                  np.asarray(jsb.sobol_sample_dim2(*jargs)))
+
+
+def test_render_past_the_table_runs():
+    """At max_depth 130 the bounce slots (2 + 8 * bounce) pass the table's
+    last dimension; a 4x4, 1-spp render finishes with a finite film."""
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+    cam, sd, _ = load_mitsuba("data/cornell-box.xml", resolution=(4, 4),
+                              device="cpu")
+    film = PathIntegrator(PathConfig(max_depth=130), spp=1).render(cam, sd)
+    assert torch.isfinite(film).all() and (film[..., 3] > 0).all()
