@@ -17,7 +17,16 @@ Run from the repository root: ``python3 bench_torch.py``. Legs:
   triangles through their own BVH32 table, with re-spawn retries), the
   same way, with the retry loops' host syncs in each timed chunk;
 - ``graft_entry``: the port's twin of ``__graft_entry__.entry()``, one
-  64x64, depth 3, 1 spp cornell band through ``render_band``.
+  64x64, depth 3, 1 spp cornell band through ``render_band``;
+- ``mitsuba_feature``: the Mitsuba feature scene of
+  ``tests/torch_mitsuba_scenes.py`` (every BSDF, texture, shape and
+  emitter arm of the importer; 392 triangles, K2) at 640x480, 16 spp,
+  depth 5, "onesample", timed as cornell;
+- ``cornell_stratified_all``: cornell as its leg, under the stratified
+  sampler with the all-lights strategy;
+- ``lighttrace_cornell``: ``LightTracer(PathConfig(max_depth=5))`` on
+  cornell at 640x480 with the reference's 2^20 paths in waves of 2^16:
+  one warm-up render, then timed renders, ``last_ray_count / dt``.
 
 Each leg prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -31,9 +40,11 @@ script raises; it has no CPU fallback.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,10 +65,10 @@ def card() -> str:
 
 def _rates(leg: str, rays, seconds, smi: str, **extra) -> dict:
     rates = [r / s / 1e6 for r, s in zip(rays, seconds)]
-    return dict(leg=leg, card=smi, mrays_per_s=statistics.median(rates),
-                mrays_per_s_min=min(rates), mrays_per_s_max=max(rates),
-                renders=len(rates), rays=rays, seconds=seconds,
-                ray_note=RAY_NOTE, **extra)
+    return dict(dict(leg=leg, card=smi, mrays_per_s=statistics.median(rates),
+                     mrays_per_s_min=min(rates), mrays_per_s_max=max(rates),
+                     renders=len(rates), rays=rays, seconds=seconds,
+                     ray_note=RAY_NOTE), **extra)
 
 
 def _sync() -> float:
@@ -92,6 +103,69 @@ def leg_cornell(dev, smi: str) -> dict:
     return _rates("cornell", *timed_renders(integ, cam, scene), smi,
                   resolution=[640, 480], spp=16, max_depth=5,
                   mis_mode="onesample", setup_seconds=setup)
+
+
+def leg_cornell_stratified_all(dev, smi: str) -> dict:
+    from pathtracer_tpu_torch.integrator import (PathConfig, PathIntegrator,
+                                                 TracedScene)
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    t0 = _sync()
+    cam, sd, _ = load_mitsuba("data/cornell-box.xml", resolution=(640, 480),
+                              device=dev)
+    scene = TracedScene.create(sd)
+    setup = _sync() - t0
+    cfg = PathConfig(max_depth=5, mis_mode="onesample", sampler="stratified",
+                     light_strategy="all")
+    integ = PathIntegrator(cfg, spp=16)
+    return _rates("cornell_stratified_all",
+                  *timed_renders(integ, cam, scene), smi,
+                  resolution=[640, 480], spp=16, max_depth=5,
+                  mis_mode="onesample", sampler=cfg.sampler,
+                  light_strategy=cfg.light_strategy, setup_seconds=setup)
+
+
+def leg_mitsuba_feature(dev, smi: str) -> dict:
+    from pathtracer_tpu_torch.integrator import (PathConfig, PathIntegrator,
+                                                 TracedScene)
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_mitsuba_scenes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = torch_mitsuba_scenes.write_feature_scene(tmp)
+        t0 = _sync()
+        cam, sd, _ = load_mitsuba(xml, resolution=(640, 480), device=dev)
+        t1 = _sync()
+    scene = TracedScene.create(sd)
+    t2 = _sync()
+    integ = PathIntegrator(PathConfig(max_depth=5, mis_mode="onesample"),
+                           spp=16)
+    return _rates("mitsuba_feature", *timed_renders(integ, cam, scene), smi,
+                  resolution=[640, 480], spp=16, max_depth=5,
+                  mis_mode="onesample", triangles=int(sd.p0.shape[0]),
+                  load_seconds=t1 - t0, create_seconds=t2 - t1)
+
+
+def leg_lighttrace_cornell(dev, smi: str) -> dict:
+    from pathtracer_tpu_torch.integrator import PathConfig, TracedScene
+    from pathtracer_tpu_torch.integrator_lt import LightTracer
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    t0 = _sync()
+    cam, sd, _ = load_mitsuba("data/cornell-box.xml", resolution=(640, 480),
+                              device=dev)
+    scene = TracedScene.create(sd)
+    setup = _sync() - t0
+    tracer = LightTracer(PathConfig(max_depth=5), paths=1 << 20,
+                         wave=1 << 16)
+    return _rates("lighttrace_cornell", *timed_renders(tracer, cam, scene),
+                  smi, resolution=[640, 480], paths=tracer.paths,
+                  wave=tracer.wave, max_depth=5, setup_seconds=setup,
+                  ray_note="rays as the reference's light tracer counts "
+                  "them: paths x (2 max_depth + 1)")
 
 
 def leg_box_field(dev, smi: str) -> dict:
@@ -221,7 +295,8 @@ def leg_graft_entry(dev, smi: str) -> dict:
 
 
 LEGS = (leg_cornell, leg_box_field, leg_classroom, leg_sponza,
-        leg_graft_entry)
+        leg_graft_entry, leg_mitsuba_feature, leg_cornell_stratified_all,
+        leg_lighttrace_cornell)
 
 
 def main() -> int:

@@ -142,6 +142,38 @@ retries) and the alpha routes it does not take:
              the texture lookup's share split between shading and
              ``_alpha_cut``.
 
+Then, after phase 18, the paths of the Mitsuba importer's other arms,
+the other samplers and the light tracer (the "slice_total" line gives
+their seconds):
+
+20. mitsuba_golden - the feature scene of tests/torch_mitsuba_scenes.py
+             (cornell's walls and light, a dielectric and a rough-conductor
+             sphere, a mirror cube, a rough-plastic floor, a checkerboard
+             wall, a bitmap back wall, an OBJ of rough dielectric, an
+             envmap with a transform; 392 triangles, K2) at 64x64, 2 spp,
+             depth 3, "ref" MIS on the card against the port's CPU film
+             (RMSE < 1e-3, alpha rtol 1e-5), exact K2 count, no K1;
+21. mitsuba_main - the feature scene at 640x480, 16 spp, depth 5,
+             "onesample": load and create seconds, a 1 spp warm-up, three
+             timed renders (as phase 5; exact K2 count, no K1), peak
+             memory;
+22. samplers_main - cornell at 640x480, 16 spp, depth 5, "onesample"
+             under the stratified sampler, the random one, and the
+             stratified one with light_strategy="all": before each, a 32x32
+             (2 spp, depth 3) card film against the CPU's at the same bar
+             with exact K1 counts; then three timed renders each;
+23. lighttrace - LightTracer(PathConfig(max_depth=5)) at the reference's
+             2^20 paths in waves of 2^16 on cornell (K1) and on config B
+             (point and distant lights, K2): a 32x32 card film of one wave
+             against the CPU's on the same host-made draws (RMSE below
+             1e-4 of the film's mean: the
+             card's atomic adds reorder the sums, and its sqrt / sin / cos
+             move the splats that land within an ulp of a pixel edge),
+             then a warm-up and three timed 640x480 renders: Mrays/s and
+             paths/s, peak memory, launches exactly waves x (2 depth + 1)
+             (176 on cornell; config B has no area light, so its emission
+             vertex connects to nothing: waves x 2 depth).
+
 "Timed" is three figures on CUDA events and the host clock: ``ms``, per
 call over 100 back-to-back calls (the median of 5 such runs);
 ``ms_single``, the median of 30 single calls (the figure of earlier
@@ -163,6 +195,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -214,6 +247,27 @@ ALPHA_RAYS = 1 << 17
 ALPHA_CPU_RAYS = 1 << 14
 # timed calls of a plain-torch alpha route (host loops, a sync a pass)
 ALPHA_ROUTE_REPS = 5
+# the Mitsuba feature scene (tests/torch_mitsuba_scenes.py) and the
+# stratified / random samplers and all-lights strategy on cornell, at the
+# cornell main path's size
+SLICE_RES = (640, 480)
+SLICE_SPP = 16
+SAMPLER_CONFIGS = (("stratified", "one"), ("random", "one"),
+                   ("stratified", "all"))
+# the light tracer at the reference's defaults
+LT_RES = (640, 480)
+LT_PATHS = 1 << 20
+LT_WAVE = 1 << 16
+LT_DEPTH = 5
+# its card-vs-CPU check at 32x32: one wave (the CPU runs config B's
+# traversal in plain torch, ~11 s a wave), held at an RMSE below
+# LT_CHECK_RMSE of the film's mean. The card's atomic adds reorder each
+# pixel's sum (~1e-7 of it, config B's whole difference), and its sqrt /
+# sin / cos round unlike the CPU's, which moves a rare splat or path that
+# lands within an ulp of an edge (each ~1/400 of a pixel's value at one
+# wave): cornell measured 1.09e-5 of the mean at one wave, 8.1e-5 at four
+LT_CHECK_PATHS = 1 << 16
+LT_CHECK_RMSE = 1e-4
 
 # the H100 SXM's published peaks (NVIDIA data sheet; 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1887,6 +1941,329 @@ def phase_alpha_routes(dev):
     return out
 
 
+def card_vs_cpu(films: dict, what: str) -> dict:
+    """The card's film against the CPU's at the goldens' bar: finite with
+    positive weight, alpha rtol 1e-5, RGB RMSE < 1e-3."""
+    import numpy as np
+
+    got, want = films["cuda"], films["cpu"]
+    if not (np.isfinite(got).all() and (got[..., 3] > 0).all()):
+        raise AssertionError(f"{what}: card film must be finite with "
+                             "positive weight")
+    np.testing.assert_allclose(got[..., 3], want[..., 3], rtol=1e-5)
+    rmse = float(np.sqrt(np.mean((got[..., :3] - want[..., :3]) ** 2)))
+    if not rmse < 1e-3:
+        raise AssertionError(f"{what}: card vs CPU RMSE {rmse} >= 1e-3")
+    diff = np.abs(got[..., :3] - want[..., :3]).max(axis=-1)
+    return dict(rmse=rmse, pixels_differing=int((diff > 0).sum()),
+                max_pixel_diff=float(diff.max()),
+                film_mean_rgb=[float(v) for v in got[..., :3].mean((0, 1))])
+
+
+def render_both(dev, make, cfg, spp: int, expect_card: tuple, what: str):
+    """Render ``make(device) -> (camera, scene)`` on the CPU and on the
+    card with ``PathIntegrator(cfg, spp)``; the card's (K1, K2) launches
+    must be ``expect_card(integ, camera)``, the CPU's none. Returns
+    ({device type: film}, card launches, {device type: ray count})."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    films, rays, card = {}, {}, None
+    for where in (torch.device("cpu"), dev):
+        cam, scene = make(where)
+        integ = PathIntegrator(cfg, spp=spp)
+        before = (k1.LAUNCHES, k2.LAUNCHES)
+        film = integ.render(cam, scene)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        launches = (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1])
+        expect = (0, 0) if where.type == "cpu" else expect_card(integ, cam)
+        if launches != expect:
+            raise AssertionError(f"{what} on {where} launched (K1, K2) "
+                                 f"{launches} times, expected {expect}")
+        films[where.type] = film.cpu().numpy()
+        rays[where.type] = integ.last_ray_count
+        if where.type == "cuda":
+            card = launches
+    return films, card, rays
+
+
+def band_queries(integ, cam, cfg, n_lights: int) -> int:
+    """Closest-hit and shadow queries of one render: per band-frame, one
+    closest hit a bounce, and per bounce but the last one shadow ray a
+    light sampled ("ref" MIS: and one BSDF-branch closest hit each)."""
+    _, n_bands = integ.band_layout(cam)
+    lights = n_lights if cfg.light_strategy == "all" else 1
+    per = 1 if cfg.mis_mode == "onesample" else 2
+    return n_bands * integ.spp * (cfg.max_depth + 1
+                                  + per * lights * cfg.max_depth)
+
+
+def feature_scene(dev, resolution, xml: str):
+    """The feature scene's camera and TracedScene on ``dev``, with the
+    seconds of load_mitsuba (XML, PNG, OBJ, HDR and its tables, upload)
+    and of TracedScene.create, each synchronised."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator import TracedScene
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    sync()
+    t0 = time.perf_counter()
+    cam, sd, _ = load_mitsuba(xml, resolution=resolution, device=dev)
+    sync()
+    t1 = time.perf_counter()
+    scene = TracedScene.create(sd)
+    sync()
+    return cam, scene, t1 - t0, time.perf_counter() - t1
+
+
+def phase_mitsuba_golden(dev, xml: str):
+    from pathtracer_tpu_torch.integrator import PathConfig
+
+    cfg = PathConfig(max_depth=3)
+
+    def make(where):
+        cam, scene, _, _ = feature_scene(where, (64, 64), xml)
+        return cam, scene
+    films, launches, rays = render_both(
+        dev, make, cfg, 2,
+        lambda integ, cam: (0, band_queries(integ, cam, cfg, 3)),
+        "mitsuba golden")
+    out = dict(phase="mitsuba_golden", resolution=[64, 64], spp=2,
+               max_depth=cfg.max_depth, mis_mode=cfg.mis_mode,
+               **card_vs_cpu(films, "mitsuba golden"),
+               k1_launches=launches[0], launches=launches[1],
+               rays_card=rays["cuda"], rays_cpu=rays["cpu"])
+    emit(out)
+    return out
+
+
+def phase_mitsuba_main(dev, smi: str, xml: str):
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cam, scene, load_s, create_s = feature_scene(dev, SLICE_RES, xml)
+    cfg = PathConfig(max_depth=5, mis_mode="onesample")
+    t0 = time.perf_counter()
+    PathIntegrator(cfg, spp=1).render(cam, scene)  # warm-up, 1 spp
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    integ = PathIntegrator(cfg, spp=SLICE_SPP)
+    expect = band_queries(integ, cam, cfg, scene.n_lights)
+    film, runs = timed_renders(integ, cam, scene, {k2: expect, k1: 0},
+                               "mitsuba feature scene")
+    check_film(film, SLICE_RES, "mitsuba feature scene")
+    _, n_bands = integ.band_layout(cam)
+    out = dict(phase="mitsuba_main", resolution=list(SLICE_RES),
+               triangles=int(scene.tri_pack.shape[0]),
+               lights=scene.n_lights, materials=list(scene.mat_set),
+               table_rows=int(scene.bw_rows.shape[0]),
+               depth=scene.bw_depth, spp=integ.spp,
+               max_depth=cfg.max_depth, mis_mode=cfg.mis_mode,
+               bands=n_bands, **runs, warmup_1spp_seconds=warm_s,
+               load_seconds=load_s, create_seconds=create_s,
+               launches=k2.LAUNCHES, expected_launches=expect,
+               k1_launches=k1.LAUNCHES,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+               bad_samples=integ.bad_sample_count,
+               film_mean_rgb=[float(v) for v in
+                              film[..., :3].mean(dim=(0, 1)).cpu()],
+               card=smi)
+    emit(out)
+    return out
+
+
+def check_film(film, resolution, what: str) -> None:
+    """A main path's film: (H, W, 4), finite, positive weight everywhere."""
+    import torch
+
+    w, h = resolution
+    if tuple(film.shape) != (h, w, 4):
+        raise AssertionError(f"{what}: film shape {tuple(film.shape)}")
+    if not bool(torch.isfinite(film).all()):
+        raise AssertionError(f"{what}: film has non-finite values")
+    if not bool((film[..., 3] > 0).all()):
+        raise AssertionError(f"{what}: film weight must be positive "
+                             "everywhere")
+
+
+def phase_samplers_main(dev, smi: str):
+    """Cornell 640x480, 16 spp, depth 5, onesample under each sampler
+    configuration: a 32x32 card film against the CPU's, then three timed
+    renders (the cornell main path has warmed K1 and the shading ops)."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator import (PathConfig, PathIntegrator,
+                                                 TracedScene)
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    out = dict(phase="samplers_main", resolution=list(SLICE_RES),
+               spp=SLICE_SPP, max_depth=5, mis_mode="onesample", card=smi)
+    for sampler, strategy in SAMPLER_CONFIGS:
+        name = f"{sampler}_{strategy}"
+        check_cfg = PathConfig(max_depth=3, mis_mode="onesample",
+                               sampler=sampler, light_strategy=strategy)
+
+        def make(where, res=(32, 32)):
+            cam, sd, _ = load_mitsuba(CORNELL, resolution=res, device=where)
+            return cam, TracedScene.create(sd)
+        films, launches, rays = render_both(
+            dev, make, check_cfg, 2,
+            lambda integ, cam: (band_queries(integ, cam, check_cfg, 2), 0),
+            f"cornell {name} check")
+        check = dict(**card_vs_cpu(films, f"cornell {name}"),
+                     launches=launches[0], rays_card=rays["cuda"],
+                     rays_cpu=rays["cpu"])
+        cfg = PathConfig(max_depth=5, mis_mode="onesample", sampler=sampler,
+                         light_strategy=strategy)
+        torch.cuda.reset_peak_memory_stats(dev)
+        cam, scene = make(dev, SLICE_RES)
+        integ = PathIntegrator(cfg, spp=SLICE_SPP)
+        expect = band_queries(integ, cam, cfg, scene.n_lights)
+        film, runs = timed_renders(integ, cam, scene, {k1: expect},
+                                   f"cornell {name}")
+        check_film(film, SLICE_RES, f"cornell {name}")
+        out[name] = dict(sampler=sampler, light_strategy=strategy,
+                         check_32=check, **runs, launches=k1.LAUNCHES,
+                         expected_launches=expect,
+                         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+                         bad_samples=integ.bad_sample_count,
+                         film_mean_rgb=[float(v) for v in
+                                        film[..., :3].mean(dim=(0, 1)).cpu()])
+    emit(out)
+    return out
+
+
+def lt_queries(tracer, scene) -> int:
+    """The light tracer's queries of one render: a wave traces depth
+    closest hits and depth camera connections, and one more from the
+    emission vertex where the scene has area lights."""
+    from pathtracer_tpu_torch.scene.scene import LIGHT_AREA
+
+    depth = tracer.cfg.max_depth
+    return tracer.waves * (2 * depth + (LIGHT_AREA in scene.light_set))
+
+
+def phase_lighttrace(dev, smi: str):
+    """LightTracer at the reference's defaults on cornell (K1) and on
+    config B (point and distant lights, K2): a 32x32 card film against
+    the CPU's on the same host-made draws (LT_CHECK_RMSE), then a warm-up
+    and three timed 640x480 renders with exact launch counts."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, TracedScene
+    from pathtracer_tpu_torch.integrator_lt import LightTracer
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.scene import procedural
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    def cornell(where, res):
+        cam, sd, _ = load_mitsuba(CORNELL, resolution=res, device=where)
+        return cam, TracedScene.create(sd)
+
+    def config_b(where, res):
+        cam, sd = procedural.small_scene(res, device=where)
+        return cam, TracedScene.create(sd)
+
+    cfg = PathConfig(max_depth=LT_DEPTH)
+    out = dict(phase="lighttrace", resolution=list(LT_RES), paths=LT_PATHS,
+               wave=LT_WAVE, max_depth=LT_DEPTH, card=smi)
+    for name, make, kernel in (("cornell", cornell, k1),
+                               ("config_b", config_b, k2)):
+        other = k2 if kernel is k1 else k1
+        films = {}
+        for where in (torch.device("cpu"), dev):
+            cam, scene = make(where, (32, 32))
+            tracer = LightTracer(cfg, paths=LT_CHECK_PATHS,
+                                 wave=LT_WAVE)
+            before = (kernel.LAUNCHES, other.LAUNCHES)
+            films[where.type] = tracer.render(cam, scene).cpu().numpy()
+            got = (kernel.LAUNCHES - before[0], other.LAUNCHES - before[1])
+            want = (0, 0) if where.type == "cpu" else \
+                (lt_queries(tracer, scene), 0)
+            if got != want:
+                raise AssertionError(f"light tracer check on {name}, "
+                                     f"{where}: launched {got}, expected "
+                                     f"{want}")
+        got, want = films["cuda"], films["cpu"]
+        if not np.isfinite(got).all() or not (got[..., 3] == 1).all():
+            raise AssertionError(f"light tracer {name}: card film not "
+                                 "finite or alpha not 1")
+        mean = float(want[..., :3].mean())
+        diff = np.abs(got[..., :3] - want[..., :3])
+        check = dict(paths=LT_CHECK_PATHS, film_mean=mean,
+                     rmse_over_mean=float(np.sqrt(np.mean(diff ** 2)))
+                     / mean,
+                     sum_rel_diff=abs(float(got[..., :3].sum())
+                                      - float(want[..., :3].sum()))
+                     / float(want[..., :3].sum()),
+                     max_abs_diff=float(diff.max()),
+                     pixels_over_1e_3_rel=int(
+                         (diff.max(-1) > 1e-3 * mean).sum()))
+        if not (mean > 0 and check["rmse_over_mean"] < LT_CHECK_RMSE):
+            raise AssertionError(f"light tracer {name}: card vs CPU "
+                                 f"{check}")
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        cam, scene = make(dev, LT_RES)
+        tracer = LightTracer(cfg, paths=LT_PATHS, wave=LT_WAVE)
+        expect = lt_queries(tracer, scene)
+        t0 = time.perf_counter()
+        tracer.render(cam, scene)  # warm-up
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        seconds = []
+        for _ in range(RENDER_REPS):
+            kernel.LAUNCHES = 0  # the main path's run starts here
+            other.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            film = tracer.render(cam, scene)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if (kernel.LAUNCHES, other.LAUNCHES) != (expect, 0):
+                raise AssertionError(
+                    f"light tracer {name} launched "
+                    f"{(kernel.LAUNCHES, other.LAUNCHES)}, expected "
+                    f"{(expect, 0)}")
+        w, h = LT_RES
+        if tuple(film.shape) != (h, w, 4) or \
+                not bool(torch.isfinite(film).all()) or \
+                not float(film[..., :3].sum()) > 0:
+            raise AssertionError(f"light tracer {name}: film not finite "
+                                 "or empty")
+        rates = [tracer.last_ray_count / dt / 1e6 for dt in seconds]
+        out[name] = dict(
+            kernel=kernel.__name__.rsplit(".", 1)[-1],
+            triangles=int(scene.tri_pack.shape[0]),
+            light_set=list(scene.light_set), check_32=check,
+            rays=tracer.last_ray_count, seconds=statistics.median(seconds),
+            seconds_runs=seconds, mrays_per_s=statistics.median(rates),
+            mrays_per_s_min=min(rates), mrays_per_s_max=max(rates),
+            paths_per_s=tracer.paths / statistics.median(seconds),
+            warmup_seconds=warm_s, launches=kernel.LAUNCHES,
+            expected_launches=expect,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+            film_mean_rgb=[float(v) for v in
+                           film[..., :3].mean(dim=(0, 1)).cpu()])
+    emit(out)
+    return out
+
+
 def render_profile(cam, scene, spp: int, kernel: str,
                    annotation: str | None = None, warmup: bool = True,
                    within: str | None = None) -> dict:
@@ -2192,6 +2569,18 @@ def main() -> int:
     sponza_gold, alpha_set = phase_sponza_golden(dev)
     sponza_out, sponza_cam, sponza_scene = phase_sponza_main(dev, smi)
     routes_out = phase_alpha_routes(dev)
+    t_slice = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        import torch_mitsuba_scenes
+        xml = torch_mitsuba_scenes.write_feature_scene(tmp)
+        phase_mitsuba_golden(dev, xml)
+        feature_out = phase_mitsuba_main(dev, smi, xml)
+    samplers_out = phase_samplers_main(dev, smi)
+    lt_out = phase_lighttrace(dev, smi)
+    emit(dict(phase="slice_total", seconds=time.perf_counter() - t_slice,
+              phases=["mitsuba_golden", "mitsuba_main", "samplers_main",
+                      "lighttrace"]))
     prof_out = phase_profile(dev, k1_sets, alpha_set)
     phase_sponza_profile(sponza_cam, sponza_scene)
 
@@ -2216,10 +2605,15 @@ def main() -> int:
              source="pathtracer_tpu_torch/csrc/intersect.cu",
              replaces="pathtracer_tpu/ops/pallas/intersect_pl.py:52",
              launches=main_out["launches"],
-             launches_by_path=dict(main=main_out["launches"],
-                                   alpha_brute=routes_out["brute"][
-                                       "k1_launches"],
-                                   sponza_main=sponza_out["k1_launches"]),
+             launches_by_path=dict(
+                 main=main_out["launches"],
+                 alpha_brute=routes_out["brute"]["k1_launches"],
+                 sponza_main=sponza_out["k1_launches"],
+                 mitsuba_main=feature_out["k1_launches"],
+                 **{f"samplers_main_{sampler}_{strategy}":
+                    samplers_out[f"{sampler}_{strategy}"]["launches"]
+                    for sampler, strategy in SAMPLER_CONFIGS},
+                 lighttrace_cornell=lt_out["cornell"]["launches"]),
              max_abs_err=k1_out["max_abs_err"],
              render=times(k1_out["render"],
                           prof_out["k1_render_kernel_device_ms"]),
@@ -2237,7 +2631,9 @@ def main() -> int:
                  classroom_main=class_out["launches"],
                  sponza_main=sponza_out["launches"],
                  sponza_main_table=sponza_out["k2_launches_main"],
-                 sponza_alpha_table=sponza_out["k2_launches_alpha"]),
+                 sponza_alpha_table=sponza_out["k2_launches_alpha"],
+                 mitsuba_main=feature_out["launches"],
+                 lighttrace_config_b=lt_out["config_b"]["launches"]),
              bounce=times(k2_out["bounce"],
                           prof_out["k2_bounce_kernel_device_ms"]),
              alpha_table=times(sponza_gold["k2_alpha"],

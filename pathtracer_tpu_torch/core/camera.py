@@ -3,7 +3,9 @@
 Port of ``pathtracer_tpu/core/camera.py``: raster-space sample positions
 (N, 2) in, world-space ray origins/directions (N, 3) out, and with
 ``generate_rays_diff`` the two auxiliary directions of the ray
-differentials that pick the texture mip level.
+differentials that pick the texture mip level. ``project_points`` runs
+the chain backwards (world points to raster positions) for the light
+tracer's camera connections.
 """
 
 from __future__ import annotations
@@ -102,6 +104,47 @@ class Camera:
         return torch.as_tensor(
             np.stack([self.dx_camera, self.dy_camera]).astype(np.float32),
             device=device)
+
+
+    def project_params(self, device):
+        """World -> raster projection for the light tracer's camera
+        connections, float32 tensors: (cam_to_raster (4,4), w2c_rot
+        (3,3), w2c_pos (3,), fwd_world (3,), importance 0-d), where
+        importance is z0^2 / A_pix (z0 the image plane's distance, A_pix
+        its area a pixel), the constant of the pinhole's importance that
+        turns flux at the pinhole into pixel-mean radiance."""
+        w2c = np.linalg.inv(self.cam_to_world)
+        c2r = np.linalg.inv(self.raster_to_camera)
+        z0 = abs(float(transform_point(self.raster_to_camera,
+                                       np.zeros(3))[2]))
+        a_pix = float(np.linalg.norm(np.cross(self.dx_camera,
+                                              self.dy_camera)))
+        fwd = -self.cam_to_world[:3, 2]  # the camera looks down -z
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return (t(c2r), t(w2c[:3, :3]), t(w2c[:3, 3]), t(fwd),
+                t(z0 * z0 / max(a_pix, 1e-30)))
+
+
+def _rows_times(m, v):
+    """v @ m.T for (..., k) vectors and a (j, k) matrix, summed in index
+    order (no BLAS, so the CPU and the card round alike)."""
+    out = v[..., 0:1] * m[:, 0]
+    for k in range(1, m.shape[1]):
+        out = out + v[..., k:k + 1] * m[:, k]
+    return out
+
+
+def project_points(cam_to_raster, w2c_rot, w2c_pos, p_world):
+    """World points (..., 3) -> (raster (..., 2), z_cam (...,)). Points
+    with z_cam >= 0 lie behind the pinhole (it looks down -z): the caller
+    culls them before reading their raster position."""
+    p_cam = _rows_times(w2c_rot, p_world) + w2c_pos
+    ph = torch.cat([p_cam, torch.ones_like(p_cam[..., :1])], dim=-1)
+    pr = _rows_times(cam_to_raster, ph)
+    w = torch.where(torch.abs(pr[..., 3:4]) > 1e-20, pr[..., 3:4], 1e-20)
+    return pr[..., :2] / w, p_cam[..., 2]
 
 
 def _camera_points_and_dirs(raster_to_camera, cam_rot, p_film):

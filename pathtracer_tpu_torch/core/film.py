@@ -3,7 +3,8 @@
 Port of ``pathtracer_tpu/core/film.py``. The padded accumulator is
 channel-first (4, H+pad, W+pad); every band's tile is added into it in
 place, and the tile itself is built by in-place shifted adds, so no
-per-sample scatter and no full-film temporaries are made.
+per-sample scatter and no full-film temporaries are made. The unpadded
+film (``film_new``) takes scattered samples (``add_samples``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,56 @@ from .filter import FILTER_TABLE_WIDTH
 from .math import gamma_correct
 
 FILM_PAD = 4  # padded border: filter radius 2 (sample bounds) + 2 (splat)
+
+
+def film_new(width: int, height: int, device="cuda") -> torch.Tensor:
+    """Zeroed (H, W, 4) film: (r*w, g*w, b*w, sum w) a pixel."""
+    return torch.zeros((height, width, 4), dtype=torch.float32,
+                       device=device)
+
+
+def add_samples(film, p_film, radiance, filter_table, radius: float = 2.0,
+                footprint: int = 5):
+    """Splat a batch of samples into the film (in place; returns it).
+
+    film: (H, W, 4); p_film: (N, 2) raster positions; radiance: (N, 3);
+    filter_table: (16, 16) host table (``make_filter``). A sample at
+    discrete position pd = p_film - 0.5 reaches the pixels x in
+    [ceil(pd - r), floor(pd + r)], each weighted by the table entry
+    floor(|x - pd| / r * 16) (clamped to 15) of each axis. Off-film
+    targets are dropped (weight 0 at a clamped index).
+    """
+    h, w, _ = film.shape
+    dev = film.device
+    pd = p_film - 0.5
+    p0 = torch.ceil(pd - radius).to(torch.int64)  # inclusive lo
+    p1 = (torch.floor(pd + radius) + 1.0).to(torch.int64)  # exclusive hi
+    offs = torch.arange(footprint, device=dev)
+    xs = p0[:, 0:1] + offs[None, :]  # (N, footprint)
+    ys = p0[:, 1:2] + offs[None, :]
+    inv_r = 1.0 / radius
+
+    def table_index(c, pdc):
+        f = torch.abs((c.to(torch.float32) - pdc) * inv_r
+                      * FILTER_TABLE_WIDTH)
+        return torch.clamp_max(torch.floor(f).to(torch.int64),
+                               FILTER_TABLE_WIDTH - 1)
+
+    ifx = table_index(xs, pd[:, 0:1])
+    ify = table_index(ys, pd[:, 1:2])
+    valid_x = (xs < p1[:, 0:1]) & (xs >= 0) & (xs < w)
+    valid_y = (ys < p1[:, 1:2]) & (ys >= 0) & (ys < h)
+    table = torch.as_tensor(np.asarray(filter_table, np.float32),
+                            device=dev).reshape(-1)
+    wgt = table[ify[:, :, None] * FILTER_TABLE_WIDTH + ifx[:, None, :]]
+    wgt = wgt * (valid_y[:, :, None] & valid_x[:, None, :]).to(torch.float32)
+    update = torch.cat([radiance[:, None, None, :] * wgt[..., None],
+                        wgt[..., None]], dim=-1)  # (N, Fy, Fx, 4)
+    flat = (torch.clamp(ys, 0, h - 1)[:, :, None] * w
+            + torch.clamp(xs, 0, w - 1)[:, None, :]).reshape(-1)
+    film.view(h * w, 4).index_put_((flat,), update.reshape(-1, 4),
+                                   accumulate=True)
+    return film
 
 
 def sample_bounds(width: int, height: int, radius: float = 2.0):

@@ -3,7 +3,8 @@
 Port of ``pathtracer_tpu/integrator.py`` in its fused form, for opaque
 scenes of every material model (constant, checker and image textures,
 normal maps) under area, point, distant and environment lights, with the
-Sobol sampler and both MIS modes ("ref" and "onesample"). Camera rays
+Sobol, stratified and random samplers, one light or all lights a vertex,
+and both MIS modes ("ref" and "onesample"). Camera rays
 carry ray differentials when the scene binds a texture, so the first
 hit's texture lookups filter by footprint. The bounce loop is a
 Python loop over SoA wavefront state; PyTorch runs it eagerly. Every
@@ -29,8 +30,8 @@ the reference's checkpoint file.
 Left out, as they exist only for the TPU: ``tuning.py``/``tuned.json``,
 the wavefront sort, the one-hot MXU row gather (``table[idx]`` here), the
 lane-bounce budget, the segmented renderer and the traversal's chunk and
-interleave knobs. Other samplers and the all-lights strategy raise
-NotImplementedError naming their ROADMAP item.
+interleave knobs. ``count_occupancy`` raises NotImplementedError naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from .core.film import (film_crop, film_pad_accumulate, film_pad_new,
 from .ops import bsdf as bx
 from .ops import interaction as ia
 from .ops import lights as lt
+from .ops import samplers as smp
 from .ops import sobol as sb
 from .ops.cuda.bvhw_cu import bvhw_intersect
 from .ops.cuda.intersect_cu import intersect
@@ -69,6 +71,9 @@ DIM_U_SCATTER = 2
 DIM_LIGHT_PICK = 4
 DIM_BSDF = 5
 DIM_RR = 7
+# light_strategy="all" takes up to this many lights (the reference's
+# assert); each adds 4 sampler dims (u_light, u_scatter) a bounce
+MAX_ALL_LIGHTS = 24
 
 # rays per wave: one row band of the sample rectangle
 WAVE_LANES = 1 << 17
@@ -109,14 +114,10 @@ class PathConfig:
 
 
 def _check_config(cfg: PathConfig) -> None:
-    if cfg.sampler != "sobol":
-        raise NotImplementedError(
-            f"sampler {cfg.sampler!r}: ROADMAP Queue 1 item 11 "
-            "(other samplers)")
-    if cfg.light_strategy != "one":
-        raise NotImplementedError(
-            f"light_strategy {cfg.light_strategy!r}: ROADMAP Queue 1 item "
-            "11 (other samplers and the all-lights strategy)")
+    if cfg.sampler not in ("sobol", "stratified", "random"):
+        raise ValueError(f"unknown sampler {cfg.sampler!r}")
+    if cfg.light_strategy not in ("one", "all"):
+        raise ValueError(f"unknown light_strategy {cfg.light_strategy!r}")
     if cfg.count_occupancy:
         raise NotImplementedError(
             "count_occupancy: ROADMAP Queue 1 item 14 (frontends and "
@@ -586,21 +587,36 @@ def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
 
 
 def trace_wave(scene, cfg: PathConfig, draw, draw2, o, d, rxd=None,
-               ryd=None, lane_valid=None):
+               ryd=None, lane_valid=None, draw2_arr=None):
     """Trace one wavefront of rays to completion.
 
     draw(dim) / draw2(dim) give one / two sampler dimensions for the whole
-    wave; rxd / ryd are the camera rays' differential directions (None:
-    none), used at the first hit only. Returns (L (N, 3), ray count,
-    non-finite sample count), the two counts as 0-d tensors.
+    wave; draw2_arr(dim, i, n) the i-th of n latin-hypercube 2D points
+    (the stratified sampler's arrays for the all-lights strategy; None
+    otherwise); rxd / ryd are the camera rays' differential directions
+    (None: none), used at the first hit only. Returns (L (N, 3), ray
+    count, non-finite sample count), the two counts as 0-d tensors.
     """
     st = _wave_init(scene, cfg, o, d, lane_valid=lane_valid)
     for bounce in range(cfg.max_depth + 1):
         st = _wave_bounce(scene, cfg, bounce, st, draw, draw2,
+                          draw2_arr=draw2_arr,
                           rxd=rxd if bounce == 0 else None,
                           ryd=ryd if bounce == 0 else None)
     out, n_bad = _wave_radiance(cfg, st)
     return out, st["rays"], n_bad
+
+
+def _bounce_stride(cfg, n_lights: int) -> int:
+    """Sampler dimensions a bounce consumes: the 8 base slots, and under
+    light_strategy="all" 4 more (u_light, u_scatter) a light."""
+    if cfg.light_strategy == "all":
+        if n_lights > MAX_ALL_LIGHTS:
+            raise ValueError(f"all-lights strategy capped at "
+                             f"{MAX_ALL_LIGHTS} lights, scene has "
+                             f"{n_lights}")
+        return DIMS_PER_BOUNCE + 4 * n_lights
+    return DIMS_PER_BOUNCE
 
 
 def _wave_flags(scene, cfg):
@@ -609,7 +625,8 @@ def _wave_flags(scene, cfg):
     any_nonspec = any(m not in (MAT_MIRROR, MAT_GLASS) for m in scene.mat_set)
     do_nee = any_nonspec and scene.n_lights > 0
     one_sample = cfg.mis_mode == "onesample" and do_nee
-    pick_prob = 1.0 / max(scene.n_lights, 1)
+    pick_prob = 1.0 / max(scene.n_lights, 1) \
+        if cfg.light_strategy == "one" else 1.0
     return do_nee, one_sample, pick_prob
 
 
@@ -647,13 +664,15 @@ def _wave_radiance(cfg, st):
     return out, n_bad
 
 
-def _wave_bounce(scene, cfg, bounce, st, draw, draw2, rxd=None, ryd=None):
-    """ONE wavefront bounce: intersect, Le, NEE, BSDF sample, RR. rxd /
-    ryd: the camera rays' differential directions (bounce 0 only)."""
+def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
+                 rxd=None, ryd=None):
+    """ONE wavefront bounce: intersect, Le, NEE, BSDF sample, RR.
+    draw2_arr: the latin-hypercube arrays (trace_wave); rxd / ryd: the
+    camera rays' differential directions (bounce 0 only)."""
     sd = scene.data
     do_nee, one_sample, pick_prob = _wave_flags(scene, cfg)
     last = bounce == cfg.max_depth
-    dim_base = 2 + DIMS_PER_BOUNCE * bounce
+    dim_base = 2 + _bounce_stride(cfg, scene.n_lights) * bounce
 
     st = dict(st)
     o, d = st["o"], st["d"]
@@ -731,22 +750,49 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, rxd=None, ryd=None):
     if do_nee:
         nonspec = bx.has_nonspecular(mp["mtype"]) & cont
         shadow_rays = 1.0 if one_sample else 2.0
-        u_light = draw2(dim_base + DIM_U_LIGHT)
-        u_scatt = None if one_sample else draw2(dim_base + DIM_U_SCATTER)
-        n_l = float(np.float32(scene.n_lights))
-        if scene.n_lights > 1:
-            u_pick = draw(dim_base + DIM_LIGHT_PICK)
-            light_idx = torch.clamp_max((u_pick * n_l).to(torch.int32),
-                                        scene.n_lights - 1)
+        if cfg.light_strategy == "all":
+            # one sample per light on the light's own dim slots, summed
+            # (no 1/L); under the stratified sampler the n_lights points
+            # form latin-hypercube arrays
+            ld = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
+            db0 = dim_base + DIMS_PER_BOUNCE
+            for li_i in range(scene.n_lights):
+                if draw2_arr is not None:
+                    u_light = draw2_arr(db0, li_i, scene.n_lights)
+                    u_scatt = None if one_sample else \
+                        draw2_arr(db0 + 1, li_i, scene.n_lights)
+                else:
+                    u_light = draw2(db0 + 4 * li_i)
+                    u_scatt = None if one_sample else \
+                        draw2(db0 + 4 * li_i + 2)
+                idx_i = torch.full((n,), li_i, dtype=torch.int32,
+                                   device=o.device)
+                ld = ld + estimate_direct(scene, cfg, it, mp, u_scatt,
+                                          u_light, idx_i, wo,
+                                          bsdf_branch=not one_sample,
+                                          live=nonspec)
+            l = l + torch.where(nonspec[..., None], beta * ld, 0.0)
+            rays = rays + shadow_rays * scene.n_lights * \
+                torch.sum(nonspec.to(torch.float32))
         else:
-            light_idx = torch.zeros((n,), dtype=torch.int32, device=o.device)
-        ld = estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
-                             wo, bsdf_branch=not one_sample,
-                             pick_prob=pick_prob if one_sample else 1.0,
-                             live=nonspec)
-        scale = 1.0 if one_sample else n_l
-        l = l + torch.where(nonspec[..., None], beta * ld * scale, 0.0)
-        rays = rays + shadow_rays * torch.sum(nonspec.to(torch.float32))
+            u_light = draw2(dim_base + DIM_U_LIGHT)
+            u_scatt = None if one_sample else \
+                draw2(dim_base + DIM_U_SCATTER)
+            n_l = float(np.float32(scene.n_lights))
+            if scene.n_lights > 1:
+                u_pick = draw(dim_base + DIM_LIGHT_PICK)
+                light_idx = torch.clamp_max((u_pick * n_l).to(torch.int32),
+                                            scene.n_lights - 1)
+            else:
+                light_idx = torch.zeros((n,), dtype=torch.int32,
+                                        device=o.device)
+            ld = estimate_direct(scene, cfg, it, mp, u_scatt, u_light,
+                                 light_idx, wo, bsdf_branch=not one_sample,
+                                 pick_prob=pick_prob if one_sample else 1.0,
+                                 live=nonspec)
+            scale = 1.0 if one_sample else n_l
+            l = l + torch.where(nonspec[..., None], beta * ld * scale, 0.0)
+            rays = rays + shadow_rays * torch.sum(nonspec.to(torch.float32))
     st["rays"] = rays
 
     # --- BSDF sampling for the next bounce
@@ -802,13 +848,57 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, rxd=None, ryd=None):
     return st
 
 
+def _sobol_draws(b_base, scramble, f_lo, f_hi, f_delta, inv_lo, inv_hi,
+                 sobol_pack, sobol_scale, sobol_off_x, sobol_off_y, pxf, pyf):
+    """One Sobol sample frame of a band: (draw, draw2, jx, jy)."""
+    idx_lo, idx_hi = sb.sobol_index(b_base, f_delta, f_lo, f_hi, inv_lo,
+                                    inv_hi)
+
+    def draw(dim):
+        return sb.sobol_sample_dim(idx_lo, idx_hi, dim, scramble, sobol_pack)
+
+    def draw2(dim):
+        return sb.sobol_sample_dim2(idx_lo, idx_hi, dim, scramble,
+                                    sobol_pack)
+
+    # camera dims 0,1 remapped into the pixel, drawn UNSCRAMBLED (as the
+    # reference and PBRT's SobolSampler do)
+    s01 = sb.sobol_sample_dim2(idx_lo, idx_hi, 0, torch.zeros_like(scramble),
+                               sobol_pack)
+    one_minus = float(pm.ONE_MINUS_EPSILON)
+    jx = torch.clamp(s01[..., 0] * sobol_scale + sobol_off_x - pxf, 0.0,
+                     one_minus)
+    jy = torch.clamp(s01[..., 1] * sobol_scale + sobol_off_y - pyf, 0.0,
+                     one_minus)
+    return draw, draw2, jx, jy
+
+
+def _hash_draws(sampler: str, pixel_hash, frame: int, total_spp_log2: int):
+    """One sample frame of the stratified or random sampler: (draw,
+    draw2, draw2_arr); draw2_arr is None for the random sampler."""
+    if sampler == "stratified":
+        return (lambda dim: smp.stratified_sample_dim(
+                    pixel_hash, frame, total_spp_log2, dim),
+                # consecutive-dim pairs are 2D-grid stratified
+                lambda dim: smp.stratified_sample_dim2(
+                    pixel_hash, frame, total_spp_log2, dim),
+                lambda dim, i, n: smp.lhs_2d_dim(pixel_hash, frame, dim, i,
+                                                 n))
+
+    def draw(dim):
+        return smp.random_sample_dim(pixel_hash, frame, dim)
+    return draw, lambda dim: torch.stack([draw(dim), draw(dim + 1)],
+                                         dim=-1), None
+
+
 def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
                 valid_lanes, film_pad, band_x0: int, band_y0: int, px, py,
                 b_base, scramble, frame_lo, frame_hi, frame_delta,
                 inv_lo, inv_hi, r2c, cam_rot, cam_pos, filter_f1d,
                 sobol_pack, sobol_scale: float, sobol_off_x: float,
                 sobol_off_y: float, filter_radius: float = 2.0,
-                dxdy_cam=None, diff_scale: float = 1.0):
+                dxdy_cam=None, diff_scale: float = 1.0, frame_base: int = 0,
+                total_spp_log2: int = 0):
     """Render ``spp`` sampler frames for one row band into the padded film
     (in place). Returns (film_pad, ray count, non-finite count).
 
@@ -818,7 +908,11 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
     constants (sobol.frame_statics); dxdy_cam: the camera's (2, 3)
     raster-step offsets (Camera.diff_params) that turn on ray
     differentials where the scene binds a texture or normal map, None for
-    none; diff_scale: their scale, 1/sqrt(spp) of the whole render.
+    none; diff_scale: their scale, 1/sqrt(spp) of the whole render. The
+    stratified and random samplers read none of the Sobol arguments
+    (None will do) but ``frame_base``, the render's index of the band's
+    first frame, and, stratified, ``total_spp_log2``, log2 of the whole
+    render's spp, so a render in chunks draws the samples of a whole one.
     """
     _check_config(cfg)
     th, tw = band_shape
@@ -827,27 +921,20 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
     valid = valid_lanes.reshape(th, tw)
     rays_total = torch.zeros((), device=px.device)
     bad_total = torch.zeros((), device=px.device)
+    if cfg.sampler != "sobol":
+        pixel_hash = smp.pixel_hash(px, py)
     for s in range(spp):
-        idx_lo, idx_hi = sb.sobol_index(b_base, frame_delta[s], frame_lo[s],
-                                        frame_hi[s], inv_lo, inv_hi)
-
-        def draw(dim):
-            return sb.sobol_sample_dim(idx_lo, idx_hi, dim, scramble,
-                                       sobol_pack)
-
-        def draw2(dim):
-            return sb.sobol_sample_dim2(idx_lo, idx_hi, dim, scramble,
-                                        sobol_pack)
-
-        # camera dims 0,1 remapped into the pixel, drawn UNSCRAMBLED (as
-        # the reference and PBRT's SobolSampler do)
-        s01 = sb.sobol_sample_dim2(idx_lo, idx_hi, 0,
-                                   torch.zeros_like(scramble), sobol_pack)
-        one_minus = float(pm.ONE_MINUS_EPSILON)
-        jx = torch.clamp(s01[..., 0] * sobol_scale + sobol_off_x - pxf,
-                         0.0, one_minus)
-        jy = torch.clamp(s01[..., 1] * sobol_scale + sobol_off_y - pyf,
-                         0.0, one_minus)
+        draw2_arr = None
+        if cfg.sampler == "sobol":
+            draw, draw2, jx, jy = _sobol_draws(
+                b_base, scramble, frame_lo[s], frame_hi[s], frame_delta[s],
+                inv_lo, inv_hi, sobol_pack, sobol_scale, sobol_off_x,
+                sobol_off_y, pxf, pyf)
+        else:
+            draw, draw2, draw2_arr = _hash_draws(
+                cfg.sampler, pixel_hash, frame_base + s, total_spp_log2)
+            jx = draw(0)
+            jy = draw(1)
         p_film = torch.stack([pxf + jx, pyf + jy], dim=-1)
         if dxdy_cam is not None and (scene.has_tex or scene.has_normal_maps):
             o, d, rxd, ryd = generate_rays_diff(r2c, cam_rot, cam_pos,
@@ -856,7 +943,8 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
             o, d = generate_rays(r2c, cam_rot, cam_pos, p_film)
             rxd = ryd = None
         radiance, rays, n_bad = trace_wave(scene, cfg, draw, draw2, o, d,
-                                           rxd, ryd, lane_valid=valid_lanes)
+                                           rxd, ryd, lane_valid=valid_lanes,
+                                           draw2_arr=draw2_arr)
         tile = splat_tile(radiance.reshape(th, tw, 3), jx.reshape(th, tw),
                           jy.reshape(th, tw), valid, filter_f1d,
                           radius=filter_radius)
@@ -911,7 +999,8 @@ class PathIntegrator:
         there after every chunk, before the callback runs (the reference
         calls it first), and a render whose film shape and spp match the
         file's resumes from it. The file is the reference's, so each
-        package resumes the other's."""
+        package resumes the other's. Under the stratified and random
+        samplers the chunks draw the samples of one whole render."""
         if checkpoint and not checkpoint.endswith(".npz"):
             checkpoint = checkpoint + ".npz"
         if not isinstance(scene, TracedScene):
@@ -922,12 +1011,20 @@ class PathIntegrator:
         w, h = camera.resolution
         (x0, y0), (x1, y1) = sample_bounds(w, h, self.filter_radius)
         ws = x1 - x0
-        domain = sb.SobolDomain.create((x0, y0), (x1, y1), self.spp)
         band, n_bands = self.band_layout(camera)
         chunk = pm.round_up_pow2(min(chunk_spp or self.spp, self.spp))
-
-        inv_lo, inv_hi = sb.vdc_inv_rows(domain, dev)
-        sobol_pack = sb.sm32_device(dev)
+        # the Sobol statics only where the Sobol sampler reads them
+        sobol = self.cfg.sampler == "sobol"
+        inv_lo = inv_hi = sobol_pack = None
+        sobol_consts = (0.0, 0.0, 0.0)
+        if sobol:
+            domain = sb.SobolDomain.create((x0, y0), (x1, y1), self.spp)
+            inv_lo, inv_hi = sb.vdc_inv_rows(domain, dev)
+            sobol_pack = sb.sm32_device(dev)
+            sobol_consts = tuple(float(np.float32(v)) for v in (
+                domain.resolution, domain.p_min[0], domain.p_min[1]))
+        tsl = pm.log2_int(self.spp) if self.cfg.sampler == "stratified" \
+            else 0
         r2c, cam_rot, cam_pos = camera.ray_params(dev)
         diff = not self.no_diff and (scene.has_tex or scene.has_normal_maps)
         dxdy_cam = camera.diff_params(dev) if diff else None
@@ -950,35 +1047,36 @@ class PathIntegrator:
                                  np.arange(by0, by0 + band), indexing="xy")
             px = xs.ravel().astype(np.int32)
             py = ys.ravel().astype(np.int32)
-            scramble, b_base = sb.pixel_statics(domain, px,
-                                                np.minimum(py, y1 - 1))
 
             def t(a, dtype):
                 return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+            b_base = scramble = None
+            if sobol:
+                scramble, b_base = sb.pixel_statics(domain, px,
+                                                    np.minimum(py, y1 - 1))
+                b_base = t(b_base.astype(np.int64), torch.int64)
+                scramble = t(scramble.astype(np.int64), torch.int64)
             bands.append((by0, t(px, torch.int32), t(py, torch.int32),
-                          t(py < y1, torch.bool),
-                          t(b_base.astype(np.int64), torch.int64),
-                          t(scramble.astype(np.int64), torch.int64)))
+                          t(py < y1, torch.bool), b_base, scramble))
 
         for s0 in range(s_start, self.spp, chunk):
             n_frames = min(chunk, self.spp - s0)
-            frames = [sb.frame_statics(domain, s0 + i)
-                      for i in range(n_frames)]
-            frame_lo = [int(f[0]) for f in frames]
-            frame_hi = [int(f[1]) for f in frames]
-            frame_delta = [int(f[2]) for f in frames]
+            frame_lo = frame_hi = frame_delta = None
+            if sobol:
+                frames = [sb.frame_statics(domain, s0 + i)
+                          for i in range(n_frames)]
+                frame_lo, frame_hi, frame_delta = (
+                    [int(f[k]) for f in frames] for k in range(3))
             stats = []  # device scalars; one sync per chunk, not per band
             for by0, px, py, valid, b_base, scramble in bands:
                 film_pad, rays, n_bad = render_band(
                     scene, self.cfg, n_frames, (band, ws), valid, film_pad,
                     x0, by0, px, py, b_base, scramble, frame_lo, frame_hi,
                     frame_delta, inv_lo, inv_hi, r2c, cam_rot, cam_pos,
-                    self.filter_f1d, sobol_pack,
-                    float(np.float32(domain.resolution)),
-                    float(np.float32(domain.p_min[0])),
-                    float(np.float32(domain.p_min[1])),
+                    self.filter_f1d, sobol_pack, *sobol_consts,
                     filter_radius=self.filter_radius, dxdy_cam=dxdy_cam,
-                    diff_scale=diff_scale)
+                    diff_scale=diff_scale, frame_base=s0,
+                    total_spp_log2=tsl)
                 stats.append((rays, n_bad))
             for rays, n_bad in stats:
                 self.last_ray_count += float(rays)

@@ -3,10 +3,11 @@
 Port of ``sample_li`` / ``pdf_li`` of ``pathtracer_tpu/ops/lights.py``
 with the triangle sampling (``_tri_sample``, ``_tri_pdf_along_sampled``)
 and the environment light (``env_direction_to_uv``, ``env_lookup``,
-``env_le``, ``_env_sample_li``, ``env_pdf_li``). Every light type in
-``light_set`` is evaluated for the whole batch and the per-ray result is
-selected by the chosen light's type. Emission sampling (``sample_le``,
-``pdf_le``, ``power``) is ROADMAP Queue 1 item 12.
+``env_le``, ``_env_sample_li``, ``env_pdf_li``), and the emission API
+the light tracer builds on: ``power``, ``sample_le`` and ``pdf_le``, with
+PBRT-v3's semantics (the reference's own Light trait leaves them
+unimplemented). Every light type in ``light_set`` is evaluated for the
+whole batch and the per-ray result is selected by the chosen light's type.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import torch
 
 from ..core import math as pm
 from ..core.math import gamma
-from ..core.sampling import (pdf_distribution_2d, sample_distribution_2d,
+from ..core.sampling import (concentric_sample_disk,
+                             cosine_sample_hemisphere, pdf_distribution_2d,
+                             sample_distribution_2d, uniform_sample_sphere,
                              uniform_sample_triangle)
 from ..scene.scene import (LA_EMIT, LA_HASN, LA_N0, LA_N1, LA_N2, LA_P0,
                            LA_P1, LA_P2, LA_TYPE, LA_VEC, LIGHT_AREA,
@@ -235,3 +238,158 @@ def pdf_li(scene, light_rows, ref_p, ref_err, ref_n, wi,
     if len(preds) == 1 and len(light_set) == 1:
         return pdfs[0]
     return select(preds, pdfs, zero1)
+
+
+# ---------------------------------------------------------------------------
+# Emission sampling: rays leaving the lights (the light tracer's start).
+# ---------------------------------------------------------------------------
+
+
+def _disk_point(scene, axis, u):
+    """A point on the world-bound disk facing ``axis`` (unit, (N, 3)),
+    one radius out along it: the origin of a ray from a light at
+    infinity."""
+    v2, v3 = pm.coordinate_system(axis)
+    cd = concentric_sample_disk(u)
+    p_disk = scene.world_center + scene.world_radius * (
+        cd[..., 0:1] * v2 + cd[..., 1:2] * v3)
+    return p_disk + scene.world_radius * axis
+
+
+def power(scene, light_rows, light_set=ALL_LIGHTS):
+    """Total emitted power (N, 3) of each light row: area, a one-sided
+    Lambert emitter, Le A pi; point, 4 pi I; distant, L pi r^2 over the
+    world-bound disk; infinite, pi r^2 times the map's mean radiance."""
+    ltype = light_rows[:, LA_TYPE].to(torch.int32)
+    emit = light_rows[:, LA_EMIT]
+    disk = np.pi * scene.world_radius * scene.world_radius
+    preds, vals = [], []
+    if LIGHT_AREA in light_set:
+        area = _tri_area(light_rows[:, LA_P0], light_rows[:, LA_P1],
+                         light_rows[:, LA_P2])
+        preds.append(ltype == LIGHT_AREA)
+        vals.append(emit * (np.pi * area)[..., None])
+    if LIGHT_POINT in light_set:
+        preds.append(ltype == LIGHT_POINT)
+        vals.append(emit * (4.0 * np.pi))
+    if LIGHT_DISTANT in light_set:
+        preds.append(ltype == LIGHT_DISTANT)
+        vals.append(emit * disk)
+    if LIGHT_INFINITE in light_set:
+        preds.append(ltype == LIGHT_INFINITE)
+        mean_l = torch.where(scene.has_env, scene.env_map.mean((0, 1)), 0.0)
+        vals.append((mean_l * disk).expand(emit.shape))
+    if len(vals) == 1:
+        return vals[0]
+    return select([p[..., None] for p in preds], vals, torch.zeros_like(emit))
+
+
+def sample_le(scene, light_rows, u_pos, u_dir, light_set=ALL_LIGHTS):
+    """Sample a ray leaving each row's light (PBRT Sample_Le).
+
+    u_pos / u_dir: (N, 2) uniforms of the position and the direction.
+    Returns dict(o (N, 3), d (N, 3) unit, n_light (N, 3), pdf_pos (N,),
+    pdf_dir (N,), le (N, 3)); light types outside ``light_set`` are not
+    evaluated, as in sample_li.
+    """
+    ltype = light_rows[:, LA_TYPE].to(torch.int32)
+    emit = light_rows[:, LA_EMIT]
+    lvec = light_rows[:, LA_VEC]
+    n = light_rows.shape[0]
+    zero1 = torch.zeros((n,), dtype=torch.float32, device=emit.device)
+    zero3 = torch.zeros((n, 3), dtype=torch.float32, device=emit.device)
+    inv_disk = 1.0 / (np.pi * scene.world_radius * scene.world_radius)
+
+    preds, os_, ds, nls, ppos, pdir, les = [], [], [], [], [], [], []
+
+    if LIGHT_AREA in light_set:
+        # position uniform on the triangle, direction cosine-weighted
+        # about the (face-forwarded) emission normal
+        ps, ns, perr = _tri_sample(light_rows, u_pos)
+        area = _tri_area(light_rows[:, LA_P0], light_rows[:, LA_P1],
+                         light_rows[:, LA_P2])
+        w_local = cosine_sample_hemisphere(u_dir)
+        v2, v3 = pm.coordinate_system(ns)
+        d = (w_local[..., 0:1] * v2 + w_local[..., 1:2] * v3
+             + w_local[..., 2:3] * ns)
+        preds.append(ltype == LIGHT_AREA)
+        os_.append(pm.offset_ray_origin(ps, perr, ns, d))
+        ds.append(d)
+        nls.append(ns)
+        ppos.append(1.0 / torch.clamp_min(area, 1e-20))
+        pdir.append(w_local[..., 2] * pm.INV_PI)
+        les.append(emit)
+
+    if LIGHT_POINT in light_set:
+        d = uniform_sample_sphere(u_dir)
+        preds.append(ltype == LIGHT_POINT)
+        os_.append(lvec.expand(n, 3))
+        ds.append(d)
+        nls.append(d)
+        ppos.append(torch.ones_like(zero1))
+        pdir.append(torch.full_like(zero1, 0.25 / np.pi))
+        les.append(emit)
+
+    if LIGHT_DISTANT in light_set:
+        # lvec points toward the light: emission travels along -lvec
+        preds.append(ltype == LIGHT_DISTANT)
+        os_.append(_disk_point(scene, lvec, u_pos))
+        ds.append(-lvec)
+        nls.append(-lvec)
+        ppos.append(zero1 + inv_disk)
+        pdir.append(torch.ones_like(zero1))
+        les.append(emit)
+
+    if LIGHT_INFINITE in light_set:
+        wi, pdf_env, le_env = _env_sample_li(scene, u_dir)
+        d = -wi
+        preds.append(ltype == LIGHT_INFINITE)
+        os_.append(_disk_point(scene, wi, u_pos))
+        ds.append(d)
+        nls.append(d)
+        ppos.append(zero1 + inv_disk)
+        pdir.append(pdf_env)
+        les.append(le_env)
+
+    def sel(vals, default):
+        if len(vals) == 1:
+            return vals[0]
+        if vals[0].dim() == 2:
+            return select([p[..., None] for p in preds], vals, default)
+        return select(preds, vals, default)
+
+    return dict(o=sel(os_, os_[0]), d=sel(ds, ds[0]),
+                n_light=sel(nls, zero3), pdf_pos=sel(ppos, zero1),
+                pdf_dir=sel(pdir, zero1), le=sel(les, zero3))
+
+
+def pdf_le(scene, light_rows, d, n_light, light_set=ALL_LIGHTS):
+    """(pdf_pos, pdf_dir) of a ray emitted along d by each row's light
+    (PBRT Pdf_Le). Delta positions (point) have pdf_pos 0; delta
+    directions (distant) pdf_dir 0."""
+    ltype = light_rows[:, LA_TYPE].to(torch.int32)
+    zero1 = torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
+    inv_disk = 1.0 / (np.pi * scene.world_radius * scene.world_radius)
+    preds, ppos, pdir = [], [], []
+    if LIGHT_AREA in light_set:
+        area = _tri_area(light_rows[:, LA_P0], light_rows[:, LA_P1],
+                         light_rows[:, LA_P2])
+        cos = pm.dot(n_light, d)
+        preds.append(ltype == LIGHT_AREA)
+        ppos.append(1.0 / torch.clamp_min(area, 1e-20))
+        pdir.append(torch.where(cos > 0.0, cos * pm.INV_PI, 0.0))
+    if LIGHT_POINT in light_set:
+        preds.append(ltype == LIGHT_POINT)
+        ppos.append(zero1)
+        pdir.append(torch.full_like(zero1, 0.25 / np.pi))
+    if LIGHT_DISTANT in light_set:
+        preds.append(ltype == LIGHT_DISTANT)
+        ppos.append(zero1 + inv_disk)
+        pdir.append(zero1)
+    if LIGHT_INFINITE in light_set:
+        preds.append(ltype == LIGHT_INFINITE)
+        ppos.append(zero1 + inv_disk)
+        pdir.append(env_pdf_li(scene, -d))
+    if len(preds) == 1:
+        return ppos[0], pdir[0]
+    return select(preds, ppos, zero1), select(preds, pdir, zero1)

@@ -121,6 +121,32 @@ again = PathIntegrator(PathConfig(max_depth=1), spp=2)
 assert torch.equal(again.render_progressive(cam, sd, chunk_spp=1,
                                             checkpoint="ck"), film)
 assert again.last_ray_count == 0.0
+# the other samplers, all lights, the light tracer and the rest of the
+# Mitsuba importer (a sphere, a dielectric, a plastic, the sunsky map)
+from pathtracer_tpu_torch.integrator_lt import LightTracer
+cam, sd, _ = load_mitsuba("data/cornell-box.xml", resolution=(8, 8),
+                          device="cpu")
+for cfg in (PathConfig(max_depth=2, sampler="stratified",
+                       light_strategy="all"),
+            PathConfig(max_depth=2, sampler="random")):
+    film = PathIntegrator(cfg, spp=2).render(cam, sd)
+    assert torch.isfinite(film).all() and (film[..., 3] > 0).all()
+film = LightTracer(PathConfig(max_depth=2), paths=4096,
+                   wave=2048).render(cam, sd)
+assert torch.isfinite(film).all() and film[..., :3].sum() > 0
+with open("data/cornell-box.xml") as fh:
+    xml = fh.read().replace("</scene>", '''
+  <bsdf type="dielectric" id="G"/><bsdf type="plastic" id="P"/>
+  <shape type="sphere"><float name="radius" value="0.3"/><ref id="G"/>
+  </shape>
+  <shape type="cube"><ref id="P"/></shape>
+  <emitter type="sunsky"/></scene>''')
+with open("features.xml", "w") as fh:
+    fh.write(xml)
+cam, sd, _ = load_mitsuba("features.xml", resolution=(8, 8), device="cpu")
+assert bool(sd.has_env) and sd.p0.shape[0] == 36 + 180 + 12
+film = PathIntegrator(PathConfig(max_depth=2), spp=1).render(cam, sd)
+assert torch.isfinite(film).all() and (film[..., 3] > 0).all()
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "pathtracer_tpu")]
 # Pillow is imported only to read a JPEG, which no asset holds
@@ -134,7 +160,7 @@ def test_copy_of_the_port_renders_without_the_jax_package(tmp_path):
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     os.makedirs(tmp_path / "data")
     for name in ("cornell-box.xml", "classroom_proc.glb",
-                 "sponza_proc.glb"):
+                 "sponza_proc.glb", "abandoned_tank_farm_04_1k.hdr"):
         shutil.copy(os.path.join(ROOT, "data", name), tmp_path / "data")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN],

@@ -94,14 +94,19 @@ def test_brute_force_route_above_128_triangles():
 
 
 def test_unknown_mitsuba_shape_names_item_9b(tmp_path):
-    """A shape the importer lacks points at the item that adds it."""
+    """Since ROADMAP Queue 1 item 4 (9b) ported the rest of the importer,
+    a sphere loads, and a shape the reference does not know either raises
+    the reference's ValueError."""
     with open(CORNELL) as fh:
         text = fh.read()
     xml = tmp_path / "sphere.xml"
+    xml.write_text(text.replace(
+        "</scene>", '<shape type="sphere"><ref id="Floor"/></shape></scene>'))
+    _, sd, _ = load_mitsuba(str(xml), device="cpu")
+    assert sd.p0.shape[0] == 36 + 180
     xml.write_text(text.replace("</scene>",
-                                '<shape type="sphere"/></scene>'))
-    with pytest.raises(NotImplementedError, match="shape type 'sphere'.*"
-                       "item 9b"):
+                                '<shape type="disk"/></scene>'))
+    with pytest.raises(ValueError, match="unsupported shape type: disk"):
         load_mitsuba(str(xml), device="cpu")
 
 
