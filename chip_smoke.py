@@ -95,7 +95,8 @@ printing one JSON line:
              time, K1's or K2's share of it and the launches (last, as
              tracing slows later launches).
 
-Between phases 12 and 13 (which runs last but one), the classroom
+Between phases 12 and 13 (which runs after every phase but 19 and
+24-26), the classroom
 (``data/classroom_proc.glb``: glTF, four PNG textures in the mip pool, ray
 differentials, K2):
 
@@ -173,6 +174,38 @@ their seconds):
              paths/s, peak memory, launches exactly waves x (2 depth + 1)
              (176 on cornell; config B has no area light, so its emission
              vertex connects to nothing: waves x 2 depth).
+
+Last, after phase 19, the multi-device render, the command line and the
+viewer (a second "slice_total" line gives their seconds):
+
+24. sharded - ``parallel.mesh.render_sharded`` in ranks spawned by
+             ``launch``, all on card 0, at 640x480, depth 5, "onesample":
+             cornell (16 spp, K1) and config B (4 spp, K2) on one NCCL
+             rank, films ``torch.equal`` to the single process's; cornell
+             on two gloo ranks (NCCL takes one rank a card) and on a 2 x 2
+             gloo mesh, and config B (4 spp, K2) on two gloo ranks, each
+             held to the single process's card film at SHARD_ATOL /
+             SHARD_RTOL; every rank's launches exactly its band's waves x
+             its frames x a frame's queries (their sum beside the single
+             process's count), each rank's wall time and the aggregate
+             Mrays/s (the single process's rays over the slowest rank's
+             seconds), beside the one-rank run's (a fresh process like
+             every rank; this one has run every earlier phase);
+25. cli    - ``python -m pathtracer_tpu_torch.frontend.cli`` on cornell
+             160x120, 4 spp, depth 5, "onesample", four subprocesses at
+             once: the render's PNG and that of ``--mesh 1`` (one NCCL
+             rank) against ``to_rgb8`` of the same render here (at most 1
+             apart in any byte; the count of differing bytes printed),
+             ``--single_pixel 80,60`` (its logged mean
+             against ``render_single_pixel`` here, rtol 1e-5) and
+             ``--profile`` (a Chrome trace written, bounce 0's logged
+             occupancy equal to the camera lanes);
+26. viewer - ``preview_frame`` of cornell (one K1 launch) and config B
+             (one K2 launch) at 160x120 against the CPU's (atol 1e-4), the
+             BVH overlay on config B, one ``run`` with stdin /dev/null, no
+             tev and ``max_frames=1`` (a PNG, a finite film with positive
+             weight, exact K1 launches), and the keys r ] h o x through
+             ``dispatch_key`` with the camera h moved rendered on the card.
 
 "Timed" is three figures on CUDA events and the host clock: ``ms``, per
 call over 100 back-to-back calls (the median of 5 such runs);
@@ -268,6 +301,26 @@ LT_DEPTH = 5
 # wave): cornell measured 1.09e-5 of the mean at one wave, 8.1e-5 at four
 LT_CHECK_PATHS = 1 << 16
 LT_CHECK_RMSE = 1e-4
+# the sharded renders: cornell at the main path's configuration and
+# config B (K2) at materials_main's spp, in ranks spawned on card 0
+SHARD_RES = (640, 480)
+SHARD_SPP = 16
+SHARD_B_SPP = 4
+# their films against the single process's card film, where only the
+# order of the sums differs: atol 5e-5 is the JAX package's bar for its
+# sharded render at 1-2 spp; at 16 spp cornell's light pixels sum to ~340,
+# where a reordered sum moves a few ulps (a 2 x 2 mesh at 16 spp measured
+# 6.1e-5 absolute, 3.1e-7 relative, on the CPU), hence the rtol
+SHARD_ATOL = 5e-5
+SHARD_RTOL = 1e-6
+# the command line's cornell render, on one NCCL rank too, its
+# single-pixel trace and its profile (four subprocesses at once), and the
+# viewer's frames
+CLI_RES = (160, 120)
+CLI_SPP = 4
+CLI_PIXEL = (80, 60)
+CLI_TIMEOUT = 300
+VIEW_RES = (160, 120)
 
 # the H100 SXM's published peaks (NVIDIA data sheet; 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -2264,6 +2317,363 @@ def phase_lighttrace(dev, smi: str):
     return out
 
 
+def sharded_scene(name: str, resolution, device):
+    """(camera, TracedScene) of cornell (K1) or config B (K2)."""
+    from pathtracer_tpu_torch.integrator import TracedScene
+    from pathtracer_tpu_torch.scene import procedural
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    if name == "cornell":
+        cam, sd, _ = load_mitsuba(CORNELL, resolution=resolution,
+                                  device=device)
+    else:
+        cam, sd = procedural.small_scene(resolution, device=device)
+    return cam, TracedScene.create(sd)
+
+
+def sharded_rank(device, jobs):
+    """One rank of a ``parallel.mesh.launch``: for each job (scene name,
+    mesh, spp) at SHARD_RES, depth 5, "onesample", a warm-up
+    ``render_sharded``, then one timed with the kernel counts set to 0
+    just before it. Returns each job's film (host), seconds and (K1, K2)
+    launches."""
+    import torch
+    import torch.distributed as dist
+
+    from pathtracer_tpu_torch.integrator import PathConfig
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.parallel.mesh import render_sharded
+
+    cfg = PathConfig(max_depth=5, mis_mode="onesample")
+    out = []
+    for name, mesh, spp in jobs:
+        cam, scene = sharded_scene(name, SHARD_RES, device)
+        render_sharded(cam, scene, mesh, cfg, spp=spp)  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        k1.LAUNCHES = 0  # the main path's run starts here
+        k2.LAUNCHES = 0
+        t0 = time.perf_counter()
+        film = render_sharded(cam, scene, mesh, cfg, spp=spp)
+        torch.cuda.synchronize()
+        out.append(dict(rank=dist.get_rank(), film=film.cpu(),
+                        seconds=time.perf_counter() - t0,
+                        launches=(k1.LAUNCHES, k2.LAUNCHES)))
+    return out
+
+
+def shard_queries(resolution, mesh, cfg, spp: int) -> int:
+    """Closest-hit and shadow queries of one rank's share of a sharded
+    one-light render: its band in waves of at most WAVE_LANES lanes,
+    times its frames, times a frame's queries (band_queries)."""
+    from pathtracer_tpu_torch.core.film import sample_bounds
+    from pathtracer_tpu_torch.integrator import PathIntegrator
+
+    (x0, y0), (x1, y1) = sample_bounds(*resolution)
+    band = -(-(y1 - y0) // mesh.shape["tiles"])
+    wave_rows = PathIntegrator(cfg, spp=spp).wave_rows(x1 - x0, band)
+    per = 1 if cfg.mis_mode == "onesample" else 2
+    return (-(-band // wave_rows) * (spp // mesh.shape.get("samples", 1))
+            * (cfg.max_depth + 1 + per * cfg.max_depth))
+
+
+def phase_sharded(dev, smi: str):
+    """``render_sharded`` in spawned ranks, all on card 0, against the
+    single process's card film: cornell at the main path's configuration
+    on one NCCL rank (``torch.equal``), on two gloo ranks and on a 2 x 2
+    gloo mesh, config B through K2 on two gloo ranks (SHARD_ATOL /
+    SHARD_RTOL); each rank's launches exact, their wall time and the
+    aggregate Mrays/s."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.parallel.mesh import (launch, make_mesh,
+                                                    make_mesh_2d)
+
+    cfg = PathConfig(max_depth=5, mis_mode="onesample")
+    spps = dict(cornell=SHARD_SPP, config_b=SHARD_B_SPP)
+    single = {}
+    for name, spp in spps.items():
+        cam, scene = sharded_scene(name, SHARD_RES, dev)
+        integ = PathIntegrator(cfg, spp=spp)
+        integ.render(cam, scene)  # warm-up
+        torch.cuda.synchronize()
+        before = (k1.LAUNCHES, k2.LAUNCHES)
+        t0 = time.perf_counter()
+        film = integ.render(cam, scene)
+        torch.cuda.synchronize()
+        single[name] = dict(
+            film=film.cpu(), seconds=time.perf_counter() - t0,
+            rays=integ.last_ray_count,
+            launches=(k1.LAUNCHES - before[0], k2.LAUNCHES - before[1]))
+    runs = {"a_nccl_1": ("nccl", "cuda", [("cornell", make_mesh(1)),
+                                          ("config_b", make_mesh(1))]),
+            "b_gloo_2": ("gloo", "cuda:0", [("cornell", make_mesh(2)),
+                                            ("config_b", make_mesh(2))]),
+            "c_gloo_2x2": ("gloo", "cuda:0",
+                           [("cornell", make_mesh_2d(2, 2))])}
+    out = dict(phase="sharded", resolution=list(SHARD_RES),
+               max_depth=cfg.max_depth, mis_mode=cfg.mis_mode,
+               atol=SHARD_ATOL, rtol=SHARD_RTOL, card=smi,
+               single={name: dict(seconds=s["seconds"], rays=s["rays"],
+                                  mrays_per_s=s["rays"] / s["seconds"] / 1e6,
+                                  launches=s["launches"])
+                       for name, s in single.items()})
+    # the one-rank run's Mrays/s: a fresh process, as every rank is (this
+    # process has run every earlier phase)
+    one_rank = {}
+    for run, (backend, device, jobs) in runs.items():
+        t0 = time.perf_counter()
+        ranks = launch(jobs[0][1].size, sharded_rank,
+                       [(name, mesh, spps[name]) for name, mesh in jobs],
+                       device=device, backend=backend)
+        launch_s = time.perf_counter() - t0
+        for j, (name, mesh) in enumerate(jobs):
+            want = single[name]
+            films = [r[j]["film"] for r in ranks]
+            if run.startswith("a"):
+                if not torch.equal(films[0], want["film"]):
+                    diff = float((films[0] - want["film"]).abs().max())
+                    raise AssertionError(f"sharded {run} {name}: film not "
+                                         f"equal to the single process's "
+                                         f"(largest difference {diff})")
+            else:
+                for film in films:
+                    np.testing.assert_allclose(
+                        film.numpy(), want["film"].numpy(), rtol=SHARD_RTOL,
+                        atol=SHARD_ATOL, err_msg=f"sharded {run} {name}")
+            q = shard_queries(SHARD_RES, mesh, cfg, spps[name])
+            expect = (q, 0) if name == "cornell" else (0, q)
+            launches = [tuple(r[j]["launches"]) for r in ranks]
+            if any(got != expect for got in launches):
+                raise AssertionError(f"sharded {run} {name}: rank launches "
+                                     f"{launches}, expected {expect} each")
+            seconds = [r[j]["seconds"] for r in ranks]
+            rate = want["rays"] / max(seconds) / 1e6
+            one_rank.setdefault(name, rate)
+            diff = (films[0] - want["film"]).abs()
+            out[f"{run}_{name}"] = dict(
+                backend=backend, device=device, ranks=mesh.size,
+                mesh=dict(mesh.shape), spp=spps[name],
+                launches_by_rank=launches,
+                launches_sum=[sum(x) for x in zip(*launches)],
+                single_launches=want["launches"],
+                seconds_by_rank=seconds, seconds=max(seconds),
+                aggregate_mrays_per_s=rate,
+                over_one_rank=rate / one_rank[name],
+                single_mrays_per_s=want["rays"] / want["seconds"] / 1e6,
+                max_abs_diff=float(diff.max()),
+                max_rel_diff=float((diff / want["film"].abs().clamp_min(
+                    1e-6)).max()),
+                pixels_differing=int((diff.amax(-1) > 0).sum()),
+                launch_seconds=launch_s)
+    emit(out)
+    return out
+
+
+def trace_kernel_launches(path: str, name: str) -> int:
+    """The CUDA kernel events whose name contains ``name`` in a
+    torch.profiler Chrome trace."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return sum(1 for e in events
+               if e.get("cat") == "kernel" and name in e.get("name", ""))
+
+
+def phase_cli(dev, smi: str):
+    """``python -m pathtracer_tpu_torch.frontend.cli`` on the card, four
+    subprocesses at once: a cornell render and the same on one NCCL rank
+    (``--mesh 1``; each PNG against ``to_rgb8`` of the render in this
+    process), ``--single_pixel`` (its logged mean against
+    ``render_single_pixel`` here, rtol 1e-5) and ``--profile`` (the trace
+    file; its K1 kernel events, the CLI's own launches, equal to the
+    render's queries; bounce 0's logged occupancy equal to the camera
+    lanes)."""
+    import re
+
+    import numpy as np
+
+    from pathtracer_tpu_torch.core.film import sample_bounds, to_rgb8
+    from pathtracer_tpu_torch.frontend.debug import render_single_pixel
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.utils.image import read_png
+
+    w, h = CLI_RES
+    cfg = PathConfig(max_depth=5, mis_mode="onesample")
+    base = [sys.executable, "-m", "pathtracer_tpu_torch.frontend.cli",
+            CORNELL, "-r", f"{w}x{h}", "-s", str(CLI_SPP), "-d",
+            str(cfg.max_depth), "--mis", cfg.mis_mode]
+    out = dict(phase="cli", resolution=list(CLI_RES), spp=CLI_SPP,
+               max_depth=cfg.max_depth, mis_mode=cfg.mis_mode, card=smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        render_dir = os.path.join(tmp, "render")
+        os.makedirs(render_dir)
+        prof_dir = os.path.join(tmp, "profile")
+        cmds = dict(
+            render=base + ["-o", render_dir],
+            single_pixel=base + ["-o", os.path.join(tmp, "none.png"),
+                                 "--single_pixel",
+                                 f"{CLI_PIXEL[0]},{CLI_PIXEL[1]}"],
+            profile=base + ["-o", os.path.join(tmp, "profiled.png"),
+                            "--profile", prof_dir],
+            mesh=base + ["-o", os.path.join(tmp, "mesh.png"), "--mesh",
+                         "1"])
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(cmd, cwd=ROOT, text=True,
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE)
+                 for name, cmd in cmds.items()}
+        logs = {}
+        for name, proc in procs.items():
+            try:
+                _, err = proc.communicate(timeout=CLI_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                for p in procs.values():
+                    p.kill()
+                raise
+            logs[name] = err
+            if proc.returncode != 0:
+                raise AssertionError(f"cli {name} exited {proc.returncode}:"
+                                     f"\n{err[-3000:]}")
+        out["seconds"] = time.perf_counter() - t0
+
+        cam, scene = sharded_scene("cornell", CLI_RES, dev)
+        integ = PathIntegrator(cfg, spp=CLI_SPP)
+        rgb8 = to_rgb8(integ.render(cam, scene))
+        for name, path in (("render", os.path.join(render_dir,
+                                                   "render.png")),
+                           ("mesh", os.path.join(tmp, "mesh.png"))):
+            png = read_png(path)[..., :3]
+            diff = np.abs(png.astype(np.int32) - rgb8.astype(np.int32))
+            if png.shape != rgb8.shape or diff.max() > 1:
+                raise AssertionError(f"cli {name}: PNG {png.shape} off "
+                                     f"the in-process render by "
+                                     f"{diff.max()}")
+            out.setdefault(name, {}).update(
+                png_bytes_differing=int((diff > 0).sum()),
+                png_max_diff=int(diff.max()))
+
+        mean = re.search(r"mean L = \[([^\]]*)\]", logs["single_pixel"])
+        if mean is None:
+            raise AssertionError("cli --single_pixel logged no mean:\n"
+                                 + logs["single_pixel"][-3000:])
+        got = [float(v) for v in mean.group(1).split(",")]
+        want = render_single_pixel(cam, scene, cfg, CLI_PIXEL, CLI_SPP)
+        np.testing.assert_allclose(got, want.mean(0).tolist(), rtol=1e-5,
+                                   err_msg="cli --single_pixel mean")
+        out["single_pixel"] = dict(pixel=list(CLI_PIXEL), mean=got)
+
+        trace = os.path.join(prof_dir, "trace.json")
+        if not os.path.isfile(trace) or not os.path.getsize(trace):
+            raise AssertionError("cli --profile wrote no trace")
+        occ = [float(v) for v in re.findall(
+            r"bounce +\d+: +(\d+) live lanes", logs["profile"])]
+        (x0, y0), (x1, y1) = sample_bounds(w, h)
+        lanes = (x1 - x0) * (y1 - y0) * CLI_SPP
+        if len(occ) != cfg.max_depth + 1 or occ[0] != lanes:
+            raise AssertionError(f"cli --profile occupancy {occ}, bounce 0 "
+                                 f"should be {lanes}")
+        launches = trace_kernel_launches(trace, "intersect_kernel")
+        expect = band_queries(integ, cam, cfg, 1)
+        if launches != expect:
+            raise AssertionError(f"cli --profile trace: {launches} K1 "
+                                 f"kernels, expected {expect}")
+        out["profile"] = dict(trace_bytes=os.path.getsize(trace),
+                              occupancy=occ, camera_lanes=lanes,
+                              k1_launches=launches)
+    emit(out)
+    return out
+
+
+def phase_viewer(dev, smi: str):
+    """The interactive viewer on the card: ``preview_frame`` of cornell
+    (K1) and config B (K2) against the CPU's, the BVH overlay, one bounded
+    ``run`` (stdin /dev/null, no tev), and the keys r ] h o x with the
+    camera that h moved rendered."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.core.controller import OrbitalCameraController
+    from pathtracer_tpu_torch.frontend import interactive as iv
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.utils.image import read_png
+
+    out = dict(phase="viewer", resolution=list(VIEW_RES), card=smi)
+    for name, kernel in (("cornell", k1), ("config_b", k2)):
+        imgs = {}
+        for where in (torch.device("cpu"), dev):
+            cam, scene = sharded_scene(name, VIEW_RES, where)
+            before = kernel.LAUNCHES
+            imgs[where.type] = iv.preview_frame(cam, scene, wire=True)
+            launches = kernel.LAUNCHES - before
+            if launches != (1 if where.type == "cuda" else 0):
+                raise AssertionError(f"viewer preview {name} on {where}: "
+                                     f"{launches} launches")
+        np.testing.assert_allclose(imgs["cuda"], imgs["cpu"], rtol=0,
+                                   atol=1e-4, err_msg=f"preview {name}")
+        out[f"preview_{name}"] = dict(
+            max_abs_diff=float(np.abs(imgs["cuda"] - imgs["cpu"]).max()),
+            launches=1)
+        if name == "config_b":
+            img = imgs["cuda"]
+            marked = np.any(iv.draw_bvh_bounds(img.copy(), cam, scene)
+                            != img, axis=-1)
+            if not marked.any():
+                raise AssertionError("draw_bvh_bounds marked no pixel")
+            out["bvh_bounds"] = dict(boxes=len(iv.bvh_level_boxes(scene)),
+                                     pixels_marked=int(marked.sum()))
+
+    cfg = PathConfig(max_depth=5, mis_mode="onesample")
+    cam, scene = sharded_scene("cornell", VIEW_RES, dev)
+    integ = PathIntegrator(cfg, spp=4)
+    stdin = sys.stdin
+    with tempfile.TemporaryDirectory() as tmp, open(os.devnull) as null:
+        png_path = os.path.join(tmp, "frame.png")
+        before = k1.LAUNCHES
+        sys.stdin = null
+        try:
+            film = iv.run(cam, scene, integ, png_path,
+                          server_address="127.0.0.1:1", max_frames=1)
+        finally:
+            sys.stdin = stdin
+        check_film(film, VIEW_RES, "viewer run")
+        png = read_png(png_path)
+        expect = band_queries(integ, cam, cfg, 1)
+        if k1.LAUNCHES - before != expect or \
+                png.shape[:2] != tuple(film.shape[:2]):
+            raise AssertionError(f"viewer run: {k1.LAUNCHES - before} K1 "
+                                 f"launches (expected {expect}), PNG "
+                                 f"{png.shape}")
+    out["run"] = dict(launches=expect, png_shape=list(png.shape))
+
+    p0 = scene.data.p0.cpu().numpy()
+    ctl = OrbitalCameraController(0.5 * (p0.min(0) + p0.max(0)))
+    state = iv.ViewerState(camera=cam, spp=4, controller=ctl)
+    for key in "r]hox":
+        iv.dispatch_key(state, key)
+    if not (state.restart and state.spp == 8 and state.dirty and state.save
+            and state.quit):
+        raise AssertionError(f"viewer keys r ] h o x gave {state}")
+    moved = ctl.update_camera(state.camera, dt=1.0)
+    before = k1.LAUNCHES
+    film2 = PathIntegrator(cfg, spp=state.spp).render(moved, scene)
+    check_film(film2, VIEW_RES, "viewer moved camera")
+    if torch.equal(film2, film) or \
+            k1.LAUNCHES - before != 2 * expect:
+        raise AssertionError("viewer: the moved camera's render")
+    out["keys"] = dict(spp=state.spp, eye_moved=float(np.linalg.norm(
+        moved.cam_to_world[:3, 3] - cam.cam_to_world[:3, 3])),
+        launches=k1.LAUNCHES - before)
+    emit(out)
+    return out
+
+
 def render_profile(cam, scene, spp: int, kernel: str,
                    annotation: str | None = None, warmup: bool = True,
                    within: str | None = None) -> dict:
@@ -2411,9 +2821,10 @@ def phase_profile(dev, k1_sets: dict, alpha_set: tuple):
     shapes of phases 3 and 6 (K2 also on Sponza's alpha table, phase 16's
     rays), P1-P9's and their library calls' at the probes' shapes (all the
     device work of a call); then a whole cornell and box-field render. It
-    runs after every timed render (only the Sponza profile follows): an
-    active CUPTI trace slows every later launch of the host-bound
-    render."""
+    runs after every timed render of this process but phase 24's
+    reference renders (the Sponza profile and phases 24-26 follow; the
+    timed sharded renders run in fresh processes): an active CUPTI trace
+    slows every later launch of the host-bound render."""
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
     from pathtracer_tpu_torch.probes import gather as pg
@@ -2583,6 +2994,15 @@ def main() -> int:
                       "lighttrace"]))
     prof_out = phase_profile(dev, k1_sets, alpha_set)
     phase_sponza_profile(sponza_cam, sponza_scene)
+    # after the profiles: with these phases before them, phase 13's first
+    # three traces once held no kernel activity (a later run that traced
+    # after each of these phases did not reproduce it)
+    t_slice = time.perf_counter()
+    sharded_out = phase_sharded(dev, smi)
+    cli_out = phase_cli(dev, smi)
+    viewer_out = phase_viewer(dev, smi)
+    emit(dict(phase="slice_total", seconds=time.perf_counter() - t_slice,
+              phases=["sharded", "cli", "viewer"]))
 
     def times(d, device_ms, library_device_ms=None):
         """The kernels line's times of one kernel from its phase's
@@ -2613,7 +3033,13 @@ def main() -> int:
                  **{f"samplers_main_{sampler}_{strategy}":
                     samplers_out[f"{sampler}_{strategy}"]["launches"]
                     for sampler, strategy in SAMPLER_CONFIGS},
-                 lighttrace_cornell=lt_out["cornell"]["launches"]),
+                 lighttrace_cornell=lt_out["cornell"]["launches"],
+                 **{f"sharded_{run}": sharded_out[f"{run}_cornell"][
+                     "launches_sum"][0]
+                    for run in ("a_nccl_1", "b_gloo_2", "c_gloo_2x2")},
+                 cli_profile=cli_out["profile"]["k1_launches"],
+                 viewer_preview=viewer_out["preview_cornell"]["launches"],
+                 viewer_run=viewer_out["run"]["launches"]),
              max_abs_err=k1_out["max_abs_err"],
              render=times(k1_out["render"],
                           prof_out["k1_render_kernel_device_ms"]),
@@ -2633,7 +3059,11 @@ def main() -> int:
                  sponza_main_table=sponza_out["k2_launches_main"],
                  sponza_alpha_table=sponza_out["k2_launches_alpha"],
                  mitsuba_main=feature_out["launches"],
-                 lighttrace_config_b=lt_out["config_b"]["launches"]),
+                 lighttrace_config_b=lt_out["config_b"]["launches"],
+                 sharded_b_gloo_2_config_b=sharded_out[
+                     "b_gloo_2_config_b"]["launches_sum"][1],
+                 viewer_preview_config_b=viewer_out["preview_config_b"][
+                     "launches"]),
              bounce=times(k2_out["bounce"],
                           prof_out["k2_bounce_kernel_device_ms"]),
              alpha_table=times(sponza_gold["k2_alpha"],

@@ -30,8 +30,11 @@ the reference's checkpoint file.
 Left out, as they exist only for the TPU: ``tuning.py``/``tuned.json``,
 the wavefront sort, the one-hot MXU row gather (``table[idx]`` here), the
 lane-bounce budget, the segmented renderer and the traversal's chunk and
-interleave knobs. ``count_occupancy`` raises NotImplementedError naming
-its ROADMAP item.
+interleave knobs.
+
+Under ``PathConfig.count_occupancy`` each wave counts its live lanes a
+bounce into one (max_depth + 1,) int64 tensor on the device, which the
+host reads once a chunk into ``PathIntegrator.bounce_occupancy``.
 """
 
 from __future__ import annotations
@@ -107,6 +110,8 @@ class PathConfig:
     sanitize: bool = True  # zero non-finite radiance
     sampler: str = "sobol"
     light_strategy: str = "one"
+    # live lanes a bounce (PathIntegrator.bounce_occupancy; the CLI's
+    # --profile turns it on)
     count_occupancy: bool = False
     # "ref": estimate_direct's BSDF branch re-intersects the scene;
     # "onesample": the continuation ray doubles as the MIS BSDF branch
@@ -118,10 +123,6 @@ def _check_config(cfg: PathConfig) -> None:
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
     if cfg.light_strategy not in ("one", "all"):
         raise ValueError(f"unknown light_strategy {cfg.light_strategy!r}")
-    if cfg.count_occupancy:
-        raise NotImplementedError(
-            "count_occupancy: ROADMAP Queue 1 item 14 (frontends and "
-            "profiling counters)")
     if cfg.mis_mode not in ("ref", "onesample"):
         raise ValueError(f"unknown mis_mode {cfg.mis_mode!r}")
 
@@ -587,18 +588,23 @@ def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
 
 
 def trace_wave(scene, cfg: PathConfig, draw, draw2, o, d, rxd=None,
-               ryd=None, lane_valid=None, draw2_arr=None):
+               ryd=None, lane_valid=None, draw2_arr=None, occupancy=None):
     """Trace one wavefront of rays to completion.
 
     draw(dim) / draw2(dim) give one / two sampler dimensions for the whole
     wave; draw2_arr(dim, i, n) the i-th of n latin-hypercube 2D points
     (the stratified sampler's arrays for the all-lights strategy; None
     otherwise); rxd / ryd are the camera rays' differential directions
-    (None: none), used at the first hit only. Returns (L (N, 3), ray
-    count, non-finite sample count), the two counts as 0-d tensors.
+    (None: none), used at the first hit only. ``occupancy``, a
+    (max_depth + 1,) int64 tensor or None, gets each bounce's live lanes
+    added in place (the reference returns them as a fourth value).
+    Returns (L (N, 3), ray count, non-finite sample count), the two counts
+    as 0-d tensors.
     """
     st = _wave_init(scene, cfg, o, d, lane_valid=lane_valid)
     for bounce in range(cfg.max_depth + 1):
+        if occupancy is not None:
+            occupancy[bounce] += torch.count_nonzero(st["active"])
         st = _wave_bounce(scene, cfg, bounce, st, draw, draw2,
                           draw2_arr=draw2_arr,
                           rxd=rxd if bounce == 0 else None,
@@ -898,7 +904,7 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
                 sobol_pack, sobol_scale: float, sobol_off_x: float,
                 sobol_off_y: float, filter_radius: float = 2.0,
                 dxdy_cam=None, diff_scale: float = 1.0, frame_base: int = 0,
-                total_spp_log2: int = 0):
+                total_spp_log2: int = 0, occupancy=None):
     """Render ``spp`` sampler frames for one row band into the padded film
     (in place). Returns (film_pad, ray count, non-finite count).
 
@@ -913,6 +919,7 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
     (None will do) but ``frame_base``, the render's index of the band's
     first frame, and, stratified, ``total_spp_log2``, log2 of the whole
     render's spp, so a render in chunks draws the samples of a whole one.
+    ``occupancy``: as ``trace_wave``'s, summed over the frames.
     """
     _check_config(cfg)
     th, tw = band_shape
@@ -944,7 +951,8 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
             rxd = ryd = None
         radiance, rays, n_bad = trace_wave(scene, cfg, draw, draw2, o, d,
                                            rxd, ryd, lane_valid=valid_lanes,
-                                           draw2_arr=draw2_arr)
+                                           draw2_arr=draw2_arr,
+                                           occupancy=occupancy)
         tile = splat_tile(radiance.reshape(th, tw, 3), jx.reshape(th, tw),
                           jy.reshape(th, tw), valid, filter_f1d,
                           radius=filter_radius)
@@ -955,13 +963,49 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
     return film_pad, rays_total, bad_total
 
 
+@dataclasses.dataclass(frozen=True)
+class RenderSetup:
+    """What every band of a render shares: the traced scene, the sample
+    rectangle ``[x0, x1) x [y0, y1)``, the sampler's statics (None where
+    the sampler reads none) and the camera's parameters, on ``device``."""
+
+    scene: TracedScene
+    device: torch.device
+    x0: int
+    y0: int
+    x1: int
+    y1: int
+    domain: object
+    inv_lo: torch.Tensor | None
+    inv_hi: torch.Tensor | None
+    sobol_pack: torch.Tensor | None
+    sobol_consts: tuple
+    tsl: int
+    r2c: object
+    cam_rot: object
+    cam_pos: object
+    dxdy_cam: object
+    diff_scale: float
+
+    @property
+    def ws(self) -> int:
+        return self.x1 - self.x0
+
+    @property
+    def hs(self) -> int:
+        return self.y1 - self.y0
+
+
 class PathIntegrator:
     """Host-side render loop: builds the sample-bounds pixel grid, cuts it into
     row bands of about WAVE_LANES rays, and renders each band.
 
     ``no_diff`` turns the camera rays' differentials off, so every texture
     lookup takes level 0: the reference's environment switch
-    ``PTPU_NO_DIFF``, here an explicit argument (ROADMAP Queue 3)."""
+    ``PTPU_NO_DIFF``, here an explicit argument (ROADMAP Queue 3).
+    Under ``cfg.count_occupancy`` a render leaves its live lanes a bounce,
+    summed over bands and frames, in ``bounce_occupancy`` (float64,
+    max_depth + 1 entries)."""
 
     def __init__(self, cfg: PathConfig = PathConfig(), spp: int = 4,
                  filter_kind: str = "gaussian", band_rows: int | None = None,
@@ -975,18 +1019,94 @@ class PathIntegrator:
         self.band_rows = band_rows
         self.last_ray_count = 0.0
         self.bad_sample_count = 0.0
+        self.bounce_occupancy = np.zeros(0, np.float64)
 
     def render(self, camera: Camera, scene) -> torch.Tensor:
         """Returns the (H, W, 4) film accumulator on the scene's device."""
         return self.render_progressive(camera, scene, chunk_spp=self.spp)
 
+    def wave_rows(self, ws: int, rows: int) -> int:
+        """Rows a wave of at most WAVE_LANES lanes (or ``band_rows``)
+        takes from ``rows`` rows of ``ws`` samples each."""
+        return min(self.band_rows or max(1, WAVE_LANES // ws), rows)
+
     def band_layout(self, camera: Camera) -> tuple[int, int]:
         """(rows per band, number of bands) for this camera."""
         w, h = camera.resolution
         (x0, y0), (x1, y1) = sample_bounds(w, h, self.filter_radius)
-        ws, hs = x1 - x0, y1 - y0
-        band = min(self.band_rows or max(1, WAVE_LANES // ws), hs)
-        return band, -(-hs // band)
+        band = self.wave_rows(x1 - x0, y1 - y0)
+        return band, -(-(y1 - y0) // band)
+
+    def setup(self, camera: Camera, scene) -> RenderSetup:
+        """The RenderSetup of a render of ``camera`` on the scene's
+        device."""
+        if not isinstance(scene, TracedScene):
+            scene = TracedScene.create(scene)
+        dev = scene.device
+        w, h = camera.resolution
+        (x0, y0), (x1, y1) = sample_bounds(w, h, self.filter_radius)
+        domain = inv_lo = inv_hi = sobol_pack = None
+        sobol_consts = (0.0, 0.0, 0.0)
+        # the Sobol statics only where the Sobol sampler reads them
+        if self.cfg.sampler == "sobol":
+            domain = sb.SobolDomain.create((x0, y0), (x1, y1), self.spp)
+            inv_lo, inv_hi = sb.vdc_inv_rows(domain, dev)
+            sobol_pack = sb.sm32_device(dev)
+            sobol_consts = tuple(float(np.float32(v)) for v in (
+                domain.resolution, domain.p_min[0], domain.p_min[1]))
+        r2c, cam_rot, cam_pos = camera.ray_params(dev)
+        diff = not self.no_diff and (scene.has_tex or scene.has_normal_maps)
+        return RenderSetup(
+            scene=scene, device=dev, x0=x0, y0=y0, x1=x1, y1=y1,
+            domain=domain, inv_lo=inv_lo, inv_hi=inv_hi,
+            sobol_pack=sobol_pack, sobol_consts=sobol_consts,
+            tsl=pm.log2_int(self.spp)
+            if self.cfg.sampler == "stratified" else 0,
+            r2c=r2c, cam_rot=cam_rot, cam_pos=cam_pos,
+            dxdy_cam=camera.diff_params(dev) if diff else None,
+            diff_scale=float(np.float32(1.0 / np.sqrt(self.spp))))
+
+    def band(self, su: RenderSetup, by0: int, rows: int,
+             y_stop: int) -> tuple:
+        """The pixel statics of the band of ``rows`` rows from ``by0``:
+        (by0, rows, px, py, valid, b_base, scramble) on the device; rows
+        from ``y_stop`` on are padding (zero weight)."""
+        dev = su.device
+        xs, ys = np.meshgrid(np.arange(su.x0, su.x1),
+                             np.arange(by0, by0 + rows), indexing="xy")
+        px = xs.ravel().astype(np.int32)
+        py = ys.ravel().astype(np.int32)
+
+        def t(a, dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+        b_base = scramble = None
+        if su.domain is not None:
+            scramble, b_base = sb.pixel_statics(
+                su.domain, px, np.minimum(py, su.y1 - 1))
+            b_base = t(b_base.astype(np.int64), torch.int64)
+            scramble = t(scramble.astype(np.int64), torch.int64)
+        return (by0, rows, t(px, torch.int32), t(py, torch.int32),
+                t(py < y_stop, torch.bool), b_base, scramble)
+
+    def render_frames(self, su: RenderSetup, film_pad, band: tuple,
+                      s0: int, n_frames: int, occupancy=None):
+        """Render frames ``[s0, s0 + n_frames)`` of one ``band`` into the
+        padded film (in place): (film_pad, ray count, non-finite count)."""
+        by0, rows, px, py, valid, b_base, scramble = band
+        frame_lo = frame_hi = frame_delta = None
+        if su.domain is not None:
+            frames = [sb.frame_statics(su.domain, s0 + i)
+                      for i in range(n_frames)]
+            frame_lo, frame_hi, frame_delta = (
+                [int(f[k]) for f in frames] for k in range(3))
+        return render_band(
+            su.scene, self.cfg, n_frames, (rows, su.ws), valid, film_pad,
+            su.x0, by0, px, py, b_base, scramble, frame_lo, frame_hi,
+            frame_delta, su.inv_lo, su.inv_hi, su.r2c, su.cam_rot,
+            su.cam_pos, self.filter_f1d, su.sobol_pack, *su.sobol_consts,
+            filter_radius=self.filter_radius, dxdy_cam=su.dxdy_cam,
+            diff_scale=su.diff_scale, frame_base=s0, total_spp_log2=su.tsl,
+            occupancy=occupancy)
 
     def render_progressive(self, camera: Camera, scene,
                            chunk_spp: int | None = None, callback=None,
@@ -1003,32 +1123,18 @@ class PathIntegrator:
         samplers the chunks draw the samples of one whole render."""
         if checkpoint and not checkpoint.endswith(".npz"):
             checkpoint = checkpoint + ".npz"
-        if not isinstance(scene, TracedScene):
-            scene = TracedScene.create(scene)
-        dev = scene.device
+        su = self.setup(camera, scene)
+        dev = su.device
         self.last_ray_count = 0.0
         self.bad_sample_count = 0.0
+        self.bounce_occupancy = np.zeros(self.cfg.max_depth + 1, np.float64)
+        # the live lanes stay on the device; read once a chunk
+        occupancy = torch.zeros((self.cfg.max_depth + 1,), dtype=torch.int64,
+                                device=dev) \
+            if self.cfg.count_occupancy else None
         w, h = camera.resolution
-        (x0, y0), (x1, y1) = sample_bounds(w, h, self.filter_radius)
-        ws = x1 - x0
         band, n_bands = self.band_layout(camera)
         chunk = pm.round_up_pow2(min(chunk_spp or self.spp, self.spp))
-        # the Sobol statics only where the Sobol sampler reads them
-        sobol = self.cfg.sampler == "sobol"
-        inv_lo = inv_hi = sobol_pack = None
-        sobol_consts = (0.0, 0.0, 0.0)
-        if sobol:
-            domain = sb.SobolDomain.create((x0, y0), (x1, y1), self.spp)
-            inv_lo, inv_hi = sb.vdc_inv_rows(domain, dev)
-            sobol_pack = sb.sm32_device(dev)
-            sobol_consts = tuple(float(np.float32(v)) for v in (
-                domain.resolution, domain.p_min[0], domain.p_min[1]))
-        tsl = pm.log2_int(self.spp) if self.cfg.sampler == "stratified" \
-            else 0
-        r2c, cam_rot, cam_pos = camera.ray_params(dev)
-        diff = not self.no_diff and (scene.has_tex or scene.has_normal_maps)
-        dxdy_cam = camera.diff_params(dev) if diff else None
-        diff_scale = float(np.float32(1.0 / np.sqrt(self.spp)))
         film_pad = film_pad_new(w, h, extra_rows=band, device=dev)
         s_start = 0
         if checkpoint and os.path.exists(checkpoint):
@@ -1040,47 +1146,21 @@ class PathIntegrator:
                     s_start = int(ck["next_frame"])
 
         # per-band pixel statics (host, once)
-        bands = []
-        for bi in range(n_bands):
-            by0 = y0 + bi * band
-            xs, ys = np.meshgrid(np.arange(x0, x1),
-                                 np.arange(by0, by0 + band), indexing="xy")
-            px = xs.ravel().astype(np.int32)
-            py = ys.ravel().astype(np.int32)
-
-            def t(a, dtype):
-                return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-            b_base = scramble = None
-            if sobol:
-                scramble, b_base = sb.pixel_statics(domain, px,
-                                                    np.minimum(py, y1 - 1))
-                b_base = t(b_base.astype(np.int64), torch.int64)
-                scramble = t(scramble.astype(np.int64), torch.int64)
-            bands.append((by0, t(px, torch.int32), t(py, torch.int32),
-                          t(py < y1, torch.bool), b_base, scramble))
-
+        bands = [self.band(su, su.y0 + bi * band, band, su.y1)
+                 for bi in range(n_bands)]
         for s0 in range(s_start, self.spp, chunk):
             n_frames = min(chunk, self.spp - s0)
-            frame_lo = frame_hi = frame_delta = None
-            if sobol:
-                frames = [sb.frame_statics(domain, s0 + i)
-                          for i in range(n_frames)]
-                frame_lo, frame_hi, frame_delta = (
-                    [int(f[k]) for f in frames] for k in range(3))
             stats = []  # device scalars; one sync per chunk, not per band
-            for by0, px, py, valid, b_base, scramble in bands:
-                film_pad, rays, n_bad = render_band(
-                    scene, self.cfg, n_frames, (band, ws), valid, film_pad,
-                    x0, by0, px, py, b_base, scramble, frame_lo, frame_hi,
-                    frame_delta, inv_lo, inv_hi, r2c, cam_rot, cam_pos,
-                    self.filter_f1d, sobol_pack, *sobol_consts,
-                    filter_radius=self.filter_radius, dxdy_cam=dxdy_cam,
-                    diff_scale=diff_scale, frame_base=s0,
-                    total_spp_log2=tsl)
+            for b in bands:
+                film_pad, rays, n_bad = self.render_frames(
+                    su, film_pad, b, s0, n_frames, occupancy)
                 stats.append((rays, n_bad))
             for rays, n_bad in stats:
                 self.last_ray_count += float(rays)
                 self.bad_sample_count += float(n_bad)
+            if occupancy is not None:
+                self.bounce_occupancy = occupancy.cpu().numpy().astype(
+                    np.float64)
             if checkpoint:
                 np.savez(checkpoint, film_pad=film_pad.cpu().numpy(),
                          next_frame=s0 + n_frames, spp=self.spp)

@@ -142,17 +142,17 @@ def test_depth5_wave_matches_jax_bounce_loop(mis_mode):
     dict(sampler="stratified"), dict(light_strategy="all"),
     dict(count_occupancy=True)])
 def test_options_outside_the_slice_raise(kwargs):
-    """count_occupancy, still outside the port (ROADMAP Queue 1, the
-    frontends), raises naming its item; the stratified sampler and the
-    all-lights strategy, ported since, render."""
-    if kwargs.get("count_occupancy"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PathIntegrator(PathConfig(**kwargs), spp=1)
-        return
+    """The options once outside the port's first slice: the stratified
+    sampler, the all-lights strategy and count_occupancy (ported with the
+    frontends, which fills ``bounce_occupancy``) all render."""
     cam, sd, _ = load_mitsuba(CORNELL, resolution=(8, 8), device="cpu")
-    film = PathIntegrator(PathConfig(max_depth=1, **kwargs),
-                          spp=1).render(cam, sd)
+    integ = PathIntegrator(PathConfig(max_depth=1, **kwargs), spp=1)
+    film = integ.render(cam, sd)
     assert torch.isfinite(film).all() and (film[..., 3] > 0).all()
+    if kwargs.get("count_occupancy"):
+        # bounce 0 counts every camera lane of the 12 x 12 sample rectangle
+        assert integ.bounce_occupancy.tolist()[0] == 12 * 12
+        assert len(integ.bounce_occupancy) == 2
 
 
 def test_port_render_imports_no_jax():
