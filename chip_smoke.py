@@ -7,7 +7,10 @@ printing one JSON line:
 1. device  - the card's name and power limit (also printed raw, as
              nvidia-smi gives them);
 2. build   - compiles kernel K1 (csrc/intersect.cu), kernel K2
-             (csrc/bvhw.cu) and the gather probes (csrc/gather_probe.cu,
+             (csrc/bvhw.cu), kernels K3 and K4 (csrc/texture.cu: the
+             texture evaluation and the alpha cut test, with their ptxas
+             registers and spills) and the gather probes
+             (csrc/gather_probe.cu,
              csrc/gather_probe2.cu) with nvcc, the launch module
              (csrc/pylaunch.c) with cc and the native BVH builder
              (csrc/bvh_builder.cpp) with g++, all at once; the registers,
@@ -86,7 +89,7 @@ printing one JSON line:
              hit);
 13. profile - device times from a torch.profiler trace: K1's and K2's
              (both ray sets each and K2 on Sponza's alpha table, closest and
-             any hit), P1-P9's and their
+             any hit), K3's and K4's (phase 17b's calls), P1-P9's and their
              library calls', P1-P5's at one lane (N = 1) and P6-P9's at
              one index row (S = 1): each kernel's launch floor,
              ``floor_device_ms`` in the kernels line;
@@ -109,9 +112,10 @@ differentials, K2):
              (as phase 5; exact K2 count, no K1), peak device memory,
              finite film with positive weight everywhere; then one render
              under torch.profiler (host and device activity): the device's
-             busy share of its wall time, K2's share of the device time
-             and the share of the texture lookup's ops (those under
-             ``lookup_width``'s ``texture_lookup`` range).
+             busy share of its wall time, K2's share of the device time,
+             K3's, and the share of the work launched inside
+             ``eval_texture``'s ``texture_lookup`` ranges; K3's launches a
+             render (the same in each, above 0).
 
 Then Sponza (``data/sponza_proc.glb``: 123,592 triangles, 1,320 of them
 alpha-masked and split out behind their own BVH32 table, re-spawn
@@ -122,7 +126,8 @@ retries) and the alpha routes it does not take:
              < 1e-3, alpha rtol 1e-5) and against
              tests/golden_sponza_48.npz at the reference's bar (weights
              rtol 1e-5, mean within 3 %, under 10 % of channels more than
-             5 % off), exact K2 count (main table and alpha table), no K1;
+             5 % off), exact K2 count (main table and alpha table), no K1,
+             the retry loops' counts equal to the CPU's;
              then K2 on the alpha subset's table against its plain version
              on 131,072 rays through the foliage (half aimed at masked
              triangles, half in random directions), closest and any hit,
@@ -131,7 +136,18 @@ retries) and the alpha routes it does not take:
              load and create seconds, both tables' rows and depths,
              Mrays/s (three renders), peak memory, K2 launches a render
              split between the main table and the alpha table, the retry
-             loops' host syncs and passes a band-frame;
+             loops' host syncs and passes a band-frame, K3's launches a
+             render and K4's (one after each alpha-table query);
+17b. texture_kernels - K3 and K4 against their plain versions at the
+             main path's shapes, each call's arguments taken from a render
+             (``capture_texture_inputs``: the first K3 call with UV
+             derivatives and the first without, 131,072 lanes, of a
+             classroom and a Sponza render; Sponza's first K4 call) and
+             K4 on phase 16's foliage rays through the alpha table: equal
+             bits (cut equal), timed, with the bound (the lanes' inputs
+             and outputs, the descriptor rows and tri_attr rows used, the
+             texels the image lanes need: those the plain version gathers
+             for them, each once);
 18. alpha_routes - at 131,072 lanes: the dense pass (512 masked
              triangles), closest and any hit, ms and peak bytes; the binary
              tree of an all-masked scene (1,024 triangles) against the
@@ -139,9 +155,10 @@ retries) and the alpha routes it does not take:
              both; the brute-force route (K1 with re-spawn retries, exact
              K1 count); each held to the CPU on its first 16,384 lanes;
 19. sponza_profile - after phase 13: one phase-17 render under
-             torch.profiler (host and device): busy share, K2's share, and
-             the texture lookup's share split between shading and
-             ``_alpha_cut``.
+             torch.profiler (host and device): busy share, device events a
+             band-frame, K2's, K3's and K4's device time and share, and
+             what the ``alpha_cut`` ranges launch: one K4 kernel each and
+             no kernel of a torch op.
 
 Then, after phase 18, the paths of the Mitsuba importer's other arms,
 the other samplers and the light tracer (the "slice_total" line gives
@@ -157,7 +174,7 @@ their seconds):
 21. mitsuba_main - the feature scene at 640x480, 16 spp, depth 5,
              "onesample": load and create seconds, a 1 spp warm-up, three
              timed renders (as phase 5; exact K2 count, no K1), peak
-             memory;
+             memory, K3's launches a render;
 22. samplers_main - cornell at 640x480, 16 spp, depth 5, "onesample"
              under the stratified sampler, the random one, and the
              stratified one with light_strategy="all": before each, a 32x32
@@ -173,7 +190,8 @@ their seconds):
              then a warm-up and three timed 640x480 renders: Mrays/s and
              paths/s, peak memory, launches exactly waves x (2 depth + 1)
              (176 on cornell; config B has no area light, so its emission
-             vertex connects to nothing: waves x 2 depth).
+             vertex connects to nothing: waves x 2 depth), and K3's
+             launches a render (config B's checkered ground).
 
 Last, after phase 19, the multi-device render, the command line and the
 viewer (a second "slice_total" line gives their seconds):
@@ -230,6 +248,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -321,6 +340,23 @@ CLI_SPP = 4
 CLI_PIXEL = (80, 60)
 CLI_TIMEOUT = 300
 VIEW_RES = (160, 120)
+
+# calls of K3's / K4's plain version in a per-call time (each call is a
+# chain of ~100-230 small kernels)
+PLAIN_TEX_CALLS = 20
+# FP32 operations of K3 / K4 as csrc/texture.cu writes them (a
+# transcendental or a floor counted as one): the UV map (4) a lane; a
+# bilinear level (s, t, floors, fractions and their complements: 10; 3
+# channels of 8 products and 3 sums: 33); the width mode's width, level
+# and fraction (21) and its blend of two levels (9); an image lane's sRGB
+# decode (4 a channel) and scale (3); a K4 lane's hit point (15) and
+# error bound (9 more), and a tested lane's uv (10)
+TEX_UV_OPS = 4
+TEX_LEVEL_OPS = 43
+TEX_WIDTH_OPS = 30
+TEX_IMAGE_OPS = 15
+CUT_OPS = 24
+CUT_UV_OPS = 10
 
 # the H100 SXM's published peaks (NVIDIA data sheet; 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -443,15 +479,22 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
     subset's table (``RETRY_COUNTS["alpha_tree"]``, which depends on the
     data). Returns the last film and the renders' figures: Mrays/s as the
     median, min and max of the renders, with each render's seconds, and
-    each render's retry counts."""
+    each render's retry counts; kernels K3's and K4's launches a render
+    (the same in every render; K4's one for each alpha-table query)."""
     import torch
 
     from pathtracer_tpu_torch import integrator as pint
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
-    seconds, retry = [], []
+    try:
+        from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
+    except ImportError:  # a checkout from before K3 / K4 (render_ab.py)
+        tx = types.SimpleNamespace(LAUNCHES={})
+    seconds, retry, texture = [], [], []
     for _ in range(RENDER_REPS):
         for mod in expect:
             mod.LAUNCHES = 0  # the main path's run starts here
+        for key in tx.LAUNCHES:
+            tx.LAUNCHES[key] = 0
         for key in pint.RETRY_COUNTS:
             pint.RETRY_COUNTS[key] = 0
         torch.cuda.synchronize()
@@ -460,6 +503,7 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         retry.append(dict(pint.RETRY_COUNTS))
+        texture.append(dict(tx.LAUNCHES))
         got = {mod.__name__.rsplit(".", 1)[-1]: mod.LAUNCHES for mod in expect}
         want = {mod.__name__.rsplit(".", 1)[-1]:
                 n + (pint.RETRY_COUNTS["alpha_tree"] if mod is k2 else 0)
@@ -467,13 +511,22 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
         if got != want:
             raise AssertionError(f"{what} render launched {got}, expected "
                                  f"{want}")
+        # K4 once after each query of the alpha subset's table (these
+        # scenes' only alpha route), K3 the same number every render
+        if tx.LAUNCHES and (
+                tx.LAUNCHES["alpha_cut"] != pint.RETRY_COUNTS["alpha_tree"]
+                or texture[-1]["texture_eval"] != texture[0]["texture_eval"]):
+            raise AssertionError(f"{what} render launched K3 / K4 "
+                                 f"{texture}, alpha-table queries "
+                                 f"{pint.RETRY_COUNTS['alpha_tree']}")
     rates = [integ.last_ray_count / dt / 1e6 for dt in seconds]
     return film, dict(rays=integ.last_ray_count,
                       seconds=statistics.median(seconds),
                       seconds_runs=seconds,
                       mrays_per_s=statistics.median(rates),
                       mrays_per_s_min=min(rates), mrays_per_s_max=max(rates),
-                      renders=RENDER_REPS, retry_counts_runs=retry)
+                      renders=RENDER_REPS, retry_counts_runs=retry,
+                      texture_launches=texture[-1])
 
 
 def timings(kernel, plain=None, library=None, plain_calls: int = PER_CALL,
@@ -1595,11 +1648,14 @@ def phase_classroom_main(dev, smi: str):
                film_mean_rgb=[float(v) for v in
                               film[..., :3].mean(dim=(0, 1)).cpu()],
                card=smi)
+    if not runs["texture_launches"]["texture_eval"] > 0:
+        raise AssertionError("classroom render never launched K3")
     out["profile"] = render_profile(cam, scene, CLASS_SPP, "bvhw_kernel",
                                     annotation="texture_lookup",
-                                    warmup=False)
+                                    warmup=False,
+                                    kernels=("texture_eval_kernel",))
     emit(out)
-    return out
+    return out, cam, scene
 
 
 def foliage_rays(scene, n: int, dev, seed: int = 0):
@@ -1668,6 +1724,10 @@ def phase_sponza_golden(dev):
     if not (np.isfinite(got).all() and (got[..., 3] > 0).all()):
         raise AssertionError("Sponza golden film must be finite with "
                              "positive weight")
+    # K4's cut flags are the plain version's: the same retries
+    if films["cuda"][3] != films["cpu"][3]:
+        raise AssertionError(f"Sponza golden retry counts: card "
+                             f"{films['cuda'][3]}, CPU {films['cpu'][3]}")
     np.testing.assert_allclose(got[..., 3], want[..., 3], rtol=1e-5)
     rmse = float(np.sqrt(np.mean((got[..., :3] - want[..., :3]) ** 2)))
     if not rmse < 1e-3:
@@ -1733,6 +1793,8 @@ def phase_sponza_main(dev, smi: str):
         raise AssertionError("film weight must be positive everywhere")
     if not retry["alpha_tree"] > 0:
         raise AssertionError("Sponza render never queried its alpha table")
+    if not runs["texture_launches"]["texture_eval"] > 0:
+        raise AssertionError("Sponza render never launched K3")
     peak = torch.cuda.max_memory_allocated(dev)
     table = scene.bw_rows
     f = int(scene.tri_pack.shape[0])
@@ -1763,18 +1825,270 @@ def phase_sponza_main(dev, smi: str):
     return out, cam, scene
 
 
+class CaptureDone(Exception):
+    """Ends a render once ``capture_texture_inputs`` holds its inputs."""
+
+
+def capture_texture_inputs(cam, scene, want: tuple) -> dict:
+    """The arguments of a render's first K3 call in each mode of ``want``
+    ("width": with UV derivatives, "static": without) and, with "cut", the
+    hit records of its first K4 call: the main path's inputs at its shapes
+    (a wave of the integrator's WAVE_LANES lanes). The render (depth 5,
+    "onesample", 1 spp) stops once it has them. The fallback is kept as
+    the view the call got (its strides are part of the input)."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
+
+    got = {}
+    texture_eval, alpha_cut = tx.texture_eval, tx.alpha_cut
+
+    def done():
+        if set(want) <= set(got):
+            raise CaptureDone
+
+    def spy_texture(sd, txd_id, uv, fallback, duv=None, image=True):
+        mode = "static" if duv is None else "width"
+        if mode in want and mode not in got:
+            got[mode] = (txd_id.clone(), uv.clone(), fallback,
+                         None if duv is None else
+                         tuple(x.clone() for x in duv), image)
+            done()
+        return texture_eval(sd, txd_id, uv, fallback, duv=duv, image=image)
+
+    def spy_cut(ts, hit):
+        if "cut" in want and "cut" not in got:
+            got["cut"] = {k: v.clone() for k, v in hit.items()}
+            done()
+        return alpha_cut(ts, hit)
+
+    tx.texture_eval, tx.alpha_cut = spy_texture, spy_cut
+    try:
+        PathIntegrator(PathConfig(max_depth=5, mis_mode="onesample"),
+                       spp=1).render(cam, scene)
+    except CaptureDone:
+        pass
+    finally:
+        tx.texture_eval, tx.alpha_cut = texture_eval, alpha_cut
+    torch.cuda.synchronize()
+    if set(got) != set(want):
+        raise AssertionError(f"the render made no K3 / K4 call of "
+                             f"{set(want) - set(got)}")
+    return got
+
+
+class TexelLog:
+    """A texture pool's ``data`` that logs the indices it is read at."""
+
+    def __init__(self, data):
+        self.data, self.reads = data, []
+
+    def __getitem__(self, idx):
+        self.reads.append(idx)
+        return self.data[idx]
+
+
+def texels_needed(sd, run, lanes) -> int:
+    """The texels ``run(scene data)`` (a plain version) gathers for the
+    lanes of ``lanes`` ((N,) bool), each counted once: what those lanes'
+    lookups need."""
+    import dataclasses
+
+    import torch
+    log = TexelLog(sd.tex.data)
+    run(dataclasses.replace(sd, tex=dataclasses.replace(sd.tex, data=log)))
+    idx = [i[lanes] for i in log.reads]
+    return int(torch.unique(torch.cat(idx)).numel()) if idx else 0
+
+
+def bits_diff(pairs) -> dict:
+    """How far ``(got, want)`` f32 tensor pairs are from equal bits: the
+    words that differ, the largest distance in ulps (both as int32 bit
+    patterns) and the largest absolute difference."""
+    import torch
+    words, ulps = 0, 0
+    for got, want in pairs:
+        g, w = got.view(torch.int32).long(), want.view(torch.int32).long()
+        bad = g != w
+        words += int(bad.sum())
+        if bad.any():
+            ulps = max(ulps, int((g - w)[bad].abs().max()))
+    return dict(words_differing=words, max_ulps=ulps,
+                max_abs_err=max_abs_err(pairs))
+
+
+def texture_case(sd, inputs) -> dict:
+    """K3 against its plain version on one captured call (bits equal, or
+    the differences reported and raised), timed, with its bound: each
+    lane's id, uv, derivatives (width mode) and output, the fallback rows
+    of the lanes that take it, the packed rows of the descriptors used,
+    the texels the image lanes need, and the FP32 operations of each
+    lane's arm."""
+    import torch
+
+    from pathtracer_tpu_torch.ops import bsdf
+    from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
+    from pathtracer_tpu_torch.scene.texture import TXF_WIDTH, TXI_WIDTH
+
+    txd, uv, fallback, duv, image = inputs
+    n = txd.shape[0]
+
+    def kernel():
+        return tx.texture_eval(sd, txd, uv, fallback, duv=duv, image=image)
+
+    def plain(scene=sd):
+        return bsdf.eval_texture_plain(scene, txd, uv, fallback, duv=duv,
+                                       image=image)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    safe = torch.clamp_min(txd, 0).long()
+    image_lanes = (txd >= 0) & (sd.txd_kind[safe] == 2) & bool(image)
+    out = dict(lanes=n, mode="static" if duv is None else "width",
+               image_lanes=int(image_lanes.sum()),
+               fallback_lanes=int((txd < 0).sum()),
+               srgb_lanes=int((image_lanes & sd.txd_srgb[safe]).sum()),
+               fallback_strides=list(fallback.stride()),
+               **bits_diff([(got, want)]))
+    if out["words_differing"]:
+        bad = (got.view(torch.int32) != want.view(torch.int32)).any(-1)
+        out["differing_lanes"] = dict(
+            image=int((bad & image_lanes).sum()),
+            srgb=int((bad & image_lanes & sd.txd_srgb[safe]).sum()),
+            checker=int((bad & (sd.txd_kind[safe] == 1)).sum()))
+        emit(dict(phase="texture_kernels_mismatch", kernel="K3", **out))
+        raise AssertionError(f"K3 differs from its plain version: {out}")
+    texels = texels_needed(sd, plain, image_lanes)
+    descs = int(torch.unique(txd[txd >= 0]).numel())
+    nbytes = (24.0 * n + (16.0 * n if duv is not None else 0.0)
+              + 12.0 * out["fallback_lanes"]
+              + 4.0 * descs * (TXF_WIDTH + TXI_WIDTH) + 12.0 * texels)
+    ops = TEX_UV_OPS * n + out["image_lanes"] * (
+        TEX_IMAGE_OPS + (TEX_LEVEL_OPS if duv is None
+                         else 2 * TEX_LEVEL_OPS + TEX_WIDTH_OPS))
+    out.update(texels_needed=texels, descriptors=descs,
+               **timings(kernel, plain, plain_calls=PLAIN_TEX_CALLS,
+                         plain_reps=PLAIN_TEX_CALLS),
+               **bound(nbytes, ops))
+    return out
+
+
+def cut_case(ts, hit) -> dict:
+    """K4 against its plain version on one set of hit records (cut equal,
+    p_hit, p_err and ng equal bits, or the differences reported and
+    raised), timed, with its bound: each lane's tri id, barycentrics and
+    valid flag in and its 37 B out, the 19 floats of each tri_attr row
+    the lanes use (P0-P2, NG0, UV0-UV2, ALPHA), the packed rows of the
+    mask descriptors, the texels the masked hits need, and the FP32
+    operations of each lane."""
+    import types
+
+    import torch
+
+    from pathtracer_tpu_torch import integrator as pint
+    from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
+    from pathtracer_tpu_torch.scene.scene import TA_ALPHA
+    from pathtracer_tpu_torch.scene.texture import TXF_WIDTH, TXI_WIDTH
+
+    sd = ts.data
+    n = hit["tri"].shape[0]
+
+    def kernel():
+        return tx.alpha_cut(ts, hit)
+
+    def plain(scene=ts):
+        return pint._alpha_cut_plain(scene, hit)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    txd = ts.tri_attr[hit["tri"].long()][:, TA_ALPHA].to(torch.int32)
+    tested = hit["valid"] & (txd >= 0)
+    image_lanes = tested & (sd.txd_kind[torch.clamp_min(txd, 0).long()]
+                            == 2)
+    out = dict(lanes=n, valid=int(hit["valid"].sum()),
+               tested=int(tested.sum()), image_lanes=int(image_lanes.sum()),
+               cut=int(got[0].sum()), cut_equal=bool(torch.equal(got[0],
+                                                                 want[0])),
+               **bits_diff(list(zip(got[1:], want[1:]))))
+    if not out["cut_equal"] or out["words_differing"]:
+        out["cut_differing"] = int((got[0] != want[0]).sum())
+        emit(dict(phase="texture_kernels_mismatch", kernel="K4", **out))
+        raise AssertionError(f"K4 differs from its plain version: {out}")
+    texels = texels_needed(sd, lambda s: plain(types.SimpleNamespace(
+        tri_attr=ts.tri_attr, data=s)), image_lanes)
+    rows = int(torch.unique(hit["tri"]).numel())
+    descs = int(torch.unique(txd[tested]).numel())
+    nbytes = (17.0 * n + 37.0 * n + 76.0 * rows
+              + 4.0 * descs * (TXF_WIDTH + TXI_WIDTH) + 12.0 * texels)
+    ops = CUT_OPS * n + (CUT_UV_OPS + TEX_UV_OPS) * out["tested"] \
+        + (TEX_LEVEL_OPS + TEX_IMAGE_OPS) * out["image_lanes"]
+    out.update(texels_needed=texels, rows=rows, descriptors=descs,
+               **timings(kernel, plain, plain_calls=PLAIN_TEX_CALLS,
+                         plain_reps=PLAIN_TEX_CALLS),
+               **bound(nbytes, ops))
+    return out
+
+
+def phase_texture_kernels(dev, class_cam, class_scene, sponza_cam,
+                          sponza_scene, alpha_set):
+    """K3 and K4 against their plain versions at the main path's shapes:
+    K3 on the first calls of a classroom and a Sponza render in both
+    modes (with and without UV derivatives), K4 on the first
+    ``_alpha_cut`` call of a Sponza render and on phase 16's foliage
+    rays through Sponza's alpha table (K2, closest). Returns the phase's
+    figures and, for the profile phase, a call of each case."""
+    from pathtracer_tpu_torch import integrator as pint
+    from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
+
+    t0 = time.perf_counter()
+    inputs = {"classroom": capture_texture_inputs(
+        class_cam, class_scene, ("width", "static")),
+        "sponza": capture_texture_inputs(sponza_cam, sponza_scene,
+                                         ("width", "static", "cut"))}
+    _, _, o, d, t_inf, _ = alpha_set
+    foliage = pint._alpha_tree_isect(sponza_scene, o, d, t_inf)
+    cases, calls = {}, {}
+    for name, ts in (("classroom", class_scene), ("sponza", sponza_scene)):
+        for mode in ("width", "static"):
+            args = inputs[name][mode]
+            cases[f"{name}_{mode}"] = texture_case(ts.data, args)
+            calls[f"{name}_{mode}"] = (
+                "texture_eval_kernel",
+                lambda sd=ts.data, a=args: tx.texture_eval(
+                    sd, *a[:3], duv=a[3], image=a[4]))
+    for name, hit in (("sponza_render", inputs["sponza"]["cut"]),
+                      ("sponza_foliage", foliage)):
+        cases[f"cut_{name}"] = cut_case(sponza_scene, hit)
+        calls[f"cut_{name}"] = (
+            "alpha_cut_kernel",
+            lambda h=hit: tx.alpha_cut(sponza_scene, h))
+    out = dict(phase="texture_kernels", cases=cases,
+               seconds=time.perf_counter() - t0)
+    emit(out)
+    return out, calls
+
+
 def phase_sponza_profile(cam, scene):
     """One Sponza render of phase 17 under torch.profiler, host and
-    device (``render_profile``): the busy share, K2's share, and the
-    texture lookup's share split between shading and ``_alpha_cut``. It
+    device (``render_profile``): the busy share, K2's share, device events
+    a band-frame, and what the ``alpha_cut`` ranges launch: one K4 kernel
+    each (its device time and share) and no kernel of a torch op (the
+    plain lookup is gone from the range); K3's device time and share. It
     runs after phase 13: its trace is the largest, and the traces phase
     13 takes after one this large held no device time."""
     out = dict(phase="sponza_profile",
                **render_profile(cam, scene, SPONZA_SPP, "bvhw_kernel",
-                                annotation="texture_lookup", warmup=False,
-                                within="alpha_cut"))
-    out["lookup_in_shading_device_ms"] = (
-        out["annotated_device_ms"] - out["annotated_within_device_ms"])
+                                annotation="alpha_cut", warmup=False,
+                                kernels=("alpha_cut_kernel",
+                                         "texture_eval_kernel")))
+    k4 = out["by_kernel"]["alpha_cut_kernel"]
+    if k4["launches"] != out["annotation_ranges"] or \
+            out["annotated_launches"] != 0:
+        raise AssertionError(
+            f"Sponza's alpha_cut ranges ({out['annotation_ranges']}) "
+            f"launched {k4['launches']} K4 kernels and "
+            f"{out['annotated_launches']} kernels of torch ops")
     emit(out)
     return out
 
@@ -2117,6 +2431,8 @@ def phase_mitsuba_main(dev, smi: str, xml: str):
     film, runs = timed_renders(integ, cam, scene, {k2: expect, k1: 0},
                                "mitsuba feature scene")
     check_film(film, SLICE_RES, "mitsuba feature scene")
+    if not runs["texture_launches"]["texture_eval"] > 0:
+        raise AssertionError("mitsuba feature scene never launched K3")
     _, n_bands = integ.band_layout(cam)
     out = dict(phase="mitsuba_main", resolution=list(SLICE_RES),
                triangles=int(scene.tri_pack.shape[0]),
@@ -2221,6 +2537,7 @@ def phase_lighttrace(dev, smi: str):
     from pathtracer_tpu_torch.integrator_lt import LightTracer
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
     from pathtracer_tpu_torch.scene import procedural
     from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
 
@@ -2283,6 +2600,8 @@ def phase_lighttrace(dev, smi: str):
         for _ in range(RENDER_REPS):
             kernel.LAUNCHES = 0  # the main path's run starts here
             other.LAUNCHES = 0
+            for key in tx.LAUNCHES:
+                tx.LAUNCHES[key] = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             film = tracer.render(cam, scene)
@@ -2309,7 +2628,7 @@ def phase_lighttrace(dev, smi: str):
             mrays_per_s_min=min(rates), mrays_per_s_max=max(rates),
             paths_per_s=tracer.paths / statistics.median(seconds),
             warmup_seconds=warm_s, launches=kernel.LAUNCHES,
-            expected_launches=expect,
+            expected_launches=expect, texture_launches=dict(tx.LAUNCHES),
             peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
             film_mean_rgb=[float(v) for v in
                            film[..., :3].mean(dim=(0, 1)).cpu()])
@@ -2676,7 +2995,7 @@ def phase_viewer(dev, smi: str):
 
 def render_profile(cam, scene, spp: int, kernel: str,
                    annotation: str | None = None, warmup: bool = True,
-                   within: str | None = None) -> dict:
+                   kernels: tuple = ()) -> dict:
     """One render (depth 5, "onesample") under torch.profiler: the device
     time of all its kernels, the share of it of the kernels whose name
     contains ``kernel``, the launches, and the device's busy share of the
@@ -2684,10 +3003,10 @@ def render_profile(cam, scene, spp: int, kernel: str,
     a lower bound), after one untraced warm-up render of the same
     configuration (unless ``warmup`` is false). With ``annotation``, the
     host's ops are traced too, and the device time of the kernels that
-    ops inside the ``record_function`` ranges of that name launched is
-    reported with its share (``annotated_device_ms``, ``annotation_share``);
-    with ``within`` too, that of the kernels of ops inside ranges of that
-    name, and of those inside both (``annotated_device_ms``'s split).
+    torch ops inside the ``record_function`` ranges of that name launched
+    is reported with its share (``annotated_device_ms``,
+    ``annotation_share``). ``kernels`` names more kernels whose device
+    time, launches and share are reported by name (``by_kernel``).
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2709,48 +3028,50 @@ def render_profile(cam, scene, spp: int, kernel: str,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t_parse = time.perf_counter()
+    names = (kernel,) + tuple(kernels)
     if annotation is None:
         events = prof.key_averages()
-        k_events = [e for e in events if kernel in e.key]
         device_ms = sum(e.self_device_time_total for e in events) / 1e3
-        k_ms = sum(e.self_device_time_total for e in k_events) / 1e3
         launches = sum(e.count for e in events)
-        k_launches = sum(e.count for e in k_events)
+        named = {name: (sum(e.self_device_time_total for e in events
+                            if name in e.key) / 1e3,
+                        sum(e.count for e in events if name in e.key))
+                 for name in names}
         extra = {}
     else:
-        device_ms, k_ms, launches, k_launches, extra = annotated_device_ms(
-            prof.profiler.kineto_results.events(), kernel, annotation,
-            within)
+        device_ms, launches, named, extra = annotated_device_ms(
+            prof.profiler.kineto_results.events(), names, annotation)
         extra["annotation_share"] = extra["annotated_device_ms"] / device_ms
-        if within is not None:
-            extra["within_share"] = extra["within_device_ms"] / device_ms
-            extra["annotated_within_share"] = \
-                extra["annotated_within_device_ms"] / device_ms
+    k_ms, k_launches = named[kernel]
     if device_ms <= 0 or not k_launches:
         raise AssertionError("profiler saw no device time for the render")
     return dict(device_ms=device_ms, kernel=kernel, kernel_device_ms=k_ms,
                 kernel_share=k_ms / device_ms, kernel_launches=k_launches,
+                by_kernel={name: dict(device_ms=ms, launches=n,
+                                      share=ms / device_ms)
+                           for name, (ms, n) in named.items()
+                           if name != kernel},
                 launches=launches,
                 launches_per_band_frame=launches / (n_bands * integ.spp),
                 traced_wall_ms=wall_ms, device_busy_share=device_ms / wall_ms,
                 **extra, parse_seconds=time.perf_counter() - t_parse)
 
 
-def annotated_device_ms(events, kernel: str, annotation: str,
-                        within: str | None = None):
+def annotated_device_ms(events, names: tuple, annotation: str):
     """From a host-and-device trace's raw events (torch.profiler's Kineto
     events, read without building its event tree, which takes minutes
     for a whole render): the device time and count of every device
-    event, of those whose name contains ``kernel``, and of the kernels
-    launched by host ops that start inside a ``record_function`` range
-    named ``annotation`` (a kernel names its launching aten op by
-    correlation id). With ``within``, the same for ranges of that name
-    and for ops inside both (ranges of one name do not overlap; the two
-    names' may nest). The device-side copies of the ranges are not work
-    and are left out. Returns (device_ms, kernel_ms, launches,
-    kernel_launches, {annotation, annotation_ranges, annotated_device_ms,
-    annotated_launches, and with ``within`` within_ranges,
-    within_device_ms, annotated_within_device_ms})."""
+    event, of those whose name contains each of ``names``, and of the
+    kernels launched by host ops that start inside a ``record_function``
+    range named ``annotation`` (a kernel names its launching aten op by
+    correlation id). A hand kernel's launch is no aten op and its kernel
+    links to no host op of the trace (none of a Sponza render's 1,303 K4
+    kernels to its ``alpha_cut`` range on an H100), so those are counted
+    by name. The
+    device-side copies of the ranges are not work and are left out.
+    Returns (device_ms, launches, {name: (device_ms, launches)},
+    {annotation, annotation_ranges, annotated_device_ms,
+    annotated_launches})."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -2759,43 +3080,30 @@ def annotated_device_ms(events, kernel: str, annotation: str,
     for e in events:
         (host if e.device_type() == DeviceType.CPU else device).append(e)
 
-    def inside(name):
-        """(ranges, correlation ids of the ops starting in one)."""
-        ranges = sorted((e.start_ns(), e.end_ns()) for e in host
-                        if e.name() == name)
-        if not ranges:
-            raise AssertionError(f"the trace holds no {name} range")
-        starts = [r[0] for r in ranges]
-        ids = set()
-        for e in host:  # the ops themselves, not the runtime's launch calls
-            t = e.start_ns()
-            i = bisect.bisect_right(starts, t) - 1
-            if i >= 0 and t < ranges[i][1] and e.name().startswith("aten::"):
-                ids.add(e.correlation_id())
-        return len(ranges), ids
-
-    n_ranges, ids = inside(annotation)
-    n_within, ids_w = inside(within) if within is not None else (0, set())
-    names = {annotation, within}
+    ranges = sorted((e.start_ns(), e.end_ns()) for e in host
+                    if e.name() == annotation)
+    if not ranges:
+        raise AssertionError(f"the trace holds no {annotation} range")
+    starts = [r[0] for r in ranges]
+    ops = set()
+    for e in host:  # the ops themselves, not the runtime's launch calls
+        t = e.start_ns()
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t < ranges[i][1] and e.name().startswith("aten::"):
+            ops.add(e.correlation_id())
     device = [e for e in device
-              if not e.is_user_annotation() and e.name() not in names]
-    ns = [(e.duration_ns(), kernel in e.name(),
-           e.linked_correlation_id() in ids,
-           e.linked_correlation_id() in ids_w) for e in device]
-    a_ns = [d for d, _, a, _ in ns if a]
-    k_ns = [d for d, k, _, _ in ns if k]
-    extra = dict(annotation=annotation, annotation_ranges=n_ranges,
-                 annotated_device_ms=sum(a_ns) / 1e6,
-                 annotated_launches=len(a_ns))
-    if within is not None:
-        extra.update(
-            within=within, within_ranges=n_within,
-            within_device_ms=sum(d for d, _, _, w in ns if w) / 1e6,
-            annotated_within_device_ms=sum(
-                d for d, _, a, w in ns if a and w) / 1e6,
-            annotated_within_launches=sum(1 for _, _, a, w in ns if a and w))
-    return (sum(d for d, _, _, _ in ns) / 1e6, sum(k_ns) / 1e6, len(ns),
-            len(k_ns), extra)
+              if not e.is_user_annotation() and e.name() != annotation]
+    named = {name: (sum(e.duration_ns() for e in device
+                        if name in e.name()) / 1e6,
+                    sum(1 for e in device if name in e.name()))
+             for name in names}
+    by_op = [e.duration_ns() for e in device
+             if e.linked_correlation_id() in ops]
+    extra = dict(annotation=annotation, annotation_ranges=len(ranges),
+                 annotated_device_ms=sum(by_op) / 1e6,
+                 annotated_launches=len(by_op))
+    return (sum(e.duration_ns() for e in device) / 1e6, len(device), named,
+            extra)
 
 
 def cornell_render_profile(dev, spp: int = PROFILE_CORNELL_SPP) -> dict:
@@ -2816,11 +3124,12 @@ def box_render_profile(dev) -> dict:
     return render_profile(cam, scene, 2, "bvhw_kernel")
 
 
-def phase_profile(dev, k1_sets: dict, alpha_set: tuple):
+def phase_profile(dev, k1_sets: dict, alpha_set: tuple, tex_calls: dict):
     """Device times from a torch.profiler trace: K1's and K2's at the
     shapes of phases 3 and 6 (K2 also on Sponza's alpha table, phase 16's
-    rays), P1-P9's and their library calls' at the probes' shapes (all the
-    device work of a call); then a whole cornell and box-field render. It
+    rays), K3's and K4's on the calls of ``texture_kernels``, P1-P9's and
+    their library calls' at the probes' shapes (all the device work of a
+    call); then a whole cornell and box-field render. It
     runs after every timed render of this process but phase 24's
     reference renders (the Sponza profile and phases 24-26 follow; the
     timed sharded renders run in fresh processes): an active CUPTI trace
@@ -2863,6 +3172,8 @@ def phase_profile(dev, k1_sets: dict, alpha_set: tuple):
     k2_bounce_any_ms = kernel_device_ms(
         lambda: k2.bvhw_intersect(scene.bw_rows, o, d, t_any, any_hit=True,
                                   stackw=scene.bw_depth), "bvhw_kernel")
+    texture_ms = {case: kernel_device_ms(fn, name)
+                  for case, (name, fn) in tex_calls.items()}
     x, x2 = pg.probe_inputs(dev), pg2.probe_inputs(dev)
     one, one2 = one_lane(x), one_row(x2)
     floor_ms = {pid: kernel_device_ms(lambda: fn(one))
@@ -2887,6 +3198,7 @@ def phase_profile(dev, k1_sets: dict, alpha_set: tuple):
                k2_bounce_anyhit_kernel_device_ms=k2_bounce_any_ms,
                k2_alpha_kernel_device_ms=k2_alpha_ms,
                k2_alpha_anyhit_kernel_device_ms=k2_alpha_any_ms,
+               texture_kernel_device_ms=texture_ms,
                probe_kernel_device_ms=probe_ms,
                probe_floor_device_ms=floor_ms,
                library_device_ms=library_ms, reps=K1_REPS,
@@ -2902,6 +3214,7 @@ def phase_build():
     from pathtracer_tpu_torch.ops.cuda import _build
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
     from pathtracer_tpu_torch.probes import gather as pg
     from pathtracer_tpu_torch.probes import gather2 as pg2
 
@@ -2913,6 +3226,7 @@ def phase_build():
     builds = dict(pylaunch=_build.build_pylaunch,
                   intersect=lambda: k1.build(verbose=True),
                   bvhw=lambda: k2.build(verbose=True),
+                  texture=lambda: tx.build(verbose=True),
                   gather_probe=lambda: pg.build(verbose=True),
                   gather_probe2=lambda: pg2.build(verbose=True),
                   bvh_builder=cpp.library_path)
@@ -2922,6 +3236,7 @@ def phase_build():
         done = {name: fut.result() for name, fut in futures.items()}
     k1._load()
     k2._load()
+    tx._load()
     pg._load()
     pg2._load()
     cpp._load()
@@ -2931,6 +3246,7 @@ def phase_build():
                           for name, (path, sec) in done.items()},
                probe_ptxas=probe_ptxas,
                probe2_ptxas=_build.ptxas_report(pg2.build()),
+               texture_ptxas=_build.ptxas_report(tx.build()),
                p8_rows=pg2.macro("P8_ROWS"),
                p1_threads=pg.threads("P1"), p3_threads=pg.threads("P3"),
                p4_threads=pg.threads("P4"), p4_rows=pg.macro("P4_ROWS"),
@@ -2976,9 +3292,11 @@ def main() -> int:
     phase_materials_golden(dev)
     mat_out = phase_materials_main(dev, smi)
     phase_classroom_golden(dev)
-    class_out = phase_classroom_main(dev, smi)
+    class_out, class_cam, class_scene = phase_classroom_main(dev, smi)
     sponza_gold, alpha_set = phase_sponza_golden(dev)
     sponza_out, sponza_cam, sponza_scene = phase_sponza_main(dev, smi)
+    tex_out, tex_calls = phase_texture_kernels(
+        dev, class_cam, class_scene, sponza_cam, sponza_scene, alpha_set)
     routes_out = phase_alpha_routes(dev)
     t_slice = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2992,7 +3310,7 @@ def main() -> int:
     emit(dict(phase="slice_total", seconds=time.perf_counter() - t_slice,
               phases=["mitsuba_golden", "mitsuba_main", "samplers_main",
                       "lighttrace"]))
-    prof_out = phase_profile(dev, k1_sets, alpha_set)
+    prof_out = phase_profile(dev, k1_sets, alpha_set, tex_calls)
     phase_sponza_profile(sponza_cam, sponza_scene)
     # after the profiles: with these phases before them, phase 13's first
     # three traces once held no kernel activity (a later run that traced
@@ -3069,6 +3387,29 @@ def main() -> int:
              alpha_table=times(sponza_gold["k2_alpha"],
                                prof_out["k2_alpha_kernel_device_ms"]),
              **times(k2_out, prof_out["k2_kernel_device_ms"]))]
+    tex_cases = tex_out["cases"]
+    tex_ms = prof_out["texture_kernel_device_ms"]
+    tex_src = "pathtracer_tpu_torch/csrc/texture.cu"
+    for kernel, key, replaces, main_case, runs in (
+            ("texture_eval", "K3", "pathtracer_tpu/ops/bsdf.py:245",
+             "classroom_width", dict(
+                 classroom_main=class_out, sponza_main=sponza_out,
+                 mitsuba_main=feature_out,
+                 lighttrace_cornell=lt_out["cornell"],
+                 lighttrace_config_b=lt_out["config_b"])),
+            ("alpha_cut", "K4", "pathtracer_tpu/integrator.py:314",
+             "cut_sponza_render", dict(sponza_main=sponza_out))):
+        mine = {case: times(c, tex_ms[case]) for case, c in tex_cases.items()
+                if case.startswith("cut_") == (key == "K4")}
+        kernels.append(dict(
+            name=f"{kernel} ({key})", route="cuda", source=tex_src,
+            replaces=replaces,
+            launches=runs[next(iter(runs))]["texture_launches"][kernel],
+            launches_by_path={path: out["texture_launches"][kernel]
+                              for path, out in runs.items()},
+            max_abs_err=max(tex_cases[case]["max_abs_err"]
+                            for case in mine),
+            cases=mine, **times(tex_cases[main_case], tex_ms[main_case])))
     for pid, kernel, line in (("P1", "gather_rows", 65),
                               ("P2", "gather_rows", 78),
                               ("P3", "gather_cols", 92),

@@ -128,6 +128,44 @@ def cornell_renders(dev, k1) -> dict:
     return runs
 
 
+def run_turns(script: str, parent: str, out: str | None,
+              log_name: str) -> tuple[str, list]:
+    """``script --measure TREE`` in one process a turn, in the order
+    parent, change, change, parent (the change is this checkout), each
+    turn's last line a JSON object, printed with its ``label``. With
+    ``out``, each turn's whole output goes beside it as
+    ``<log_name>_turn<i>.log``. Returns (the card's name and power limit
+    as nvidia-smi gives them, printed first; the turns' objects)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    turns = [("parent", parent), ("change", ROOT), ("change", ROOT),
+             ("parent", parent)]
+    out_dir = None
+    if out:
+        out_dir = os.path.dirname(os.path.abspath(out))
+        os.makedirs(out_dir, exist_ok=True)
+    runs = []
+    for turn, (label, tree) in enumerate(turns):
+        res = subprocess.run([sys.executable, os.path.abspath(script),
+                              "--measure", tree], capture_output=True,
+                             text=True, timeout=900)
+        if out_dir:
+            with open(os.path.join(out_dir, f"{log_name}_turn{turn}.log"),
+                      "w") as fh:
+                fh.write(res.stdout + res.stderr)
+        if res.returncode != 0:
+            sys.stderr.write(res.stdout[-4000:] + res.stderr[-8000:])
+            raise RuntimeError(f"{label} turn failed ({res.returncode})")
+        run = json.loads(res.stdout.strip().splitlines()[-1])
+        run["label"] = label
+        runs.append(run)
+        print(json.dumps(run), flush=True)
+    return smi, runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="the other checkout to time")
@@ -143,33 +181,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    turns = [("parent", args.parent), ("change", ROOT), ("change", ROOT),
-             ("parent", args.parent)]
-    out_dir = None
-    if args.out:
-        out_dir = os.path.dirname(os.path.abspath(args.out))
-        os.makedirs(out_dir, exist_ok=True)
-    runs = []
-    for turn, (label, tree) in enumerate(turns):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--measure", tree], capture_output=True,
-                             text=True, timeout=900)
-        if out_dir:
-            with open(os.path.join(out_dir, f"kernel_ab_turn{turn}.log"),
-                      "w") as fh:
-                fh.write(res.stdout + res.stderr)
-        if res.returncode != 0:
-            sys.stderr.write(res.stdout[-4000:] + res.stderr[-8000:])
-            raise RuntimeError(f"{label} turn failed ({res.returncode})")
-        run = json.loads(res.stdout.strip().splitlines()[-1])
-        run["label"] = label
-        runs.append(run)
-        print(json.dumps(run), flush=True)
+    smi, runs = run_turns(__file__, args.parent, args.out, "kernel_ab")
     summary = dict(card=smi, order=[r["label"] for r in runs], kernels={
         name: {label: [r["kernels"][name] for r in runs
                        if r["label"] == label]

@@ -146,13 +146,45 @@ static PyObject* ppppiiiiffffppppp(PyObject* self, PyObject* const* args,
                                  a[14].p, a[15].p, a[16].p));
 }
 
+// K3: (txf, txi, data, txd_id, uv, fallback, fb_row, fb_col, dudx, dvdx,
+// dudy, dvdy, n, width_mode, image, out, stream)
+typedef int (*ppppppiippppiiipp_t)(void*, void*, void*, void*, void*, void*,
+                                   int, int, void*, void*, void*, void*, int,
+                                   int, int, void*, void*);
+static PyObject* ppppppiippppiiipp(PyObject* self, PyObject* const* args,
+                                   Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[17];
+  if (unpack("ppppppiippppiiipp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((ppppppiippppiiipp_t)fn)(a[0].p, a[1].p, a[2].p, a[3].p, a[4].p,
+                                 a[5].p, a[6].i, a[7].i, a[8].p, a[9].p,
+                                 a[10].p, a[11].p, a[12].i, a[13].i,
+                                 a[14].i, a[15].p, a[16].p));
+}
+
+// K4: (txf, txi, data, tri_attr, tri, bary, valid, n, gamma7, cut, p_hit,
+// p_err, ng, stream)
+typedef int (*pppppppifppppp_t)(void*, void*, void*, void*, void*, void*,
+                                void*, int, float, void*, void*, void*,
+                                void*, void*);
+static PyObject* pppppppifppppp(PyObject* self, PyObject* const* args,
+                                Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[14];
+  if (unpack("pppppppifppppp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((pppppppifppppp_t)fn)(a[0].p, a[1].p, a[2].p, a[3].p, a[4].p,
+                              a[5].p, a[6].p, a[7].i, a[8].f, a[9].p,
+                              a[10].p, a[11].p, a[12].p, a[13].p));
+}
+
 #define ENTRY(name) \
   {#name, (PyCFunction)(void (*)(void))name, METH_FASTCALL, NULL}
 
 static PyMethodDef methods[] = {
     ENTRY(ppiipp),          ENTRY(ppipp),
     ENTRY(ppiiipp),         ENTRY(ppppiiifffppppp),
-    ENTRY(ppppiiiiffffppppp), {NULL, NULL, 0, NULL}};
+    ENTRY(ppppiiiiffffppppp), ENTRY(ppppppiippppiiipp),
+    ENTRY(pppppppifppppp),  {NULL, NULL, 0, NULL}};
 
 static struct PyModuleDef module = {
     PyModuleDef_HEAD_INIT, "pylaunch",

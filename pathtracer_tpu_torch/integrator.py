@@ -59,6 +59,7 @@ from .ops import lights as lt
 from .ops import samplers as smp
 from .ops import sobol as sb
 from .ops.cuda.bvhw_cu import bvhw_intersect
+from .ops.cuda import texture_cu
 from .ops.cuda.intersect_cu import intersect
 from .ops.intersect import GAMMA7, intersect_alpha_dense
 from .scene.scene import (LIGHT_AREA, MAT_GLASS, MAT_MATTE, MAT_MIRROR,
@@ -251,6 +252,7 @@ class TracedScene:
         ``bwa_rows`` and id map ``bwa_map`` (class docstring)."""
         device = sd.device
         sd = dataclasses.replace(sd, tex=sd.tex.to(device))
+        sd.txd_rows  # K3 / K4's descriptor rows, packed here at set-up
         f = int(sd.p0.shape[0])
         n_lights = int(sd.n_lights)
         used = np.unique(sd.material_id.cpu().numpy())
@@ -326,23 +328,29 @@ def _alpha_cut(scene, hit):
     """Lanes whose valid hit lands on a zero-alpha texel of a masked
     triangle: the mask through ``eval_texture`` at width 0 (its scale and
     sRGB included) at the interpolated uv, cut iff exactly 0. Returns
-    (cut (N,) bool, p_hit, p_error, ng) for the re-spawn."""
+    (cut (N,) bool, p_hit, p_error, ng) for the re-spawn. Kernel K4 on
+    the card (``ops/cuda/texture_cu.alpha_cut``), ``_alpha_cut_plain`` on
+    the CPU."""
     with torch.profiler.record_function("alpha_cut"):
-        rows = scene.tri_attr[hit["tri"].long()]
-        txd = rows[:, TA_ALPHA].to(torch.int32)
-        b = hit["b"]
-        b0, b1, b2 = b[:, 0:1], b[:, 1:2], b[:, 2:3]
-        uv_hit = (b0 * rows[:, TA_UV0] + b1 * rows[:, TA_UV1]
-                  + b2 * rows[:, TA_UV2])
-        ones = torch.ones((b.shape[0], 3), dtype=torch.float32,
-                          device=b.device)
-        alpha = bx.eval_texture(scene.data, txd, uv_hit, ones)[:, 0]
-        cut = hit["valid"] & (txd >= 0) & (alpha == 0.0)
-        p0, p1, p2 = rows[:, TA_P0], rows[:, TA_P1], rows[:, TA_P2]
-        p_hit = b0 * p0 + b1 * p1 + b2 * p2
-        p_err = GAMMA7 * (torch.abs(b0 * p0) + torch.abs(b1 * p1)
-                          + torch.abs(b2 * p2))
-        return cut, p_hit, p_err, rows[:, TA_NG0]
+        return texture_cu.alpha_cut(scene, hit)
+
+
+def _alpha_cut_plain(scene, hit):
+    """The plain PyTorch version of K4 (``_alpha_cut``)."""
+    rows = scene.tri_attr[hit["tri"].long()]
+    txd = rows[:, TA_ALPHA].to(torch.int32)
+    b = hit["b"]
+    b0, b1, b2 = b[:, 0:1], b[:, 1:2], b[:, 2:3]
+    uv_hit = (b0 * rows[:, TA_UV0] + b1 * rows[:, TA_UV1]
+              + b2 * rows[:, TA_UV2])
+    ones = torch.ones((b.shape[0], 3), dtype=torch.float32, device=b.device)
+    alpha = bx.eval_texture_plain(scene.data, txd, uv_hit, ones)[:, 0]
+    cut = hit["valid"] & (txd >= 0) & (alpha == 0.0)
+    p0, p1, p2 = rows[:, TA_P0], rows[:, TA_P1], rows[:, TA_P2]
+    p_hit = b0 * p0 + b1 * p1 + b2 * p2
+    p_err = GAMMA7 * (torch.abs(b0 * p0) + torch.abs(b1 * p1)
+                      + torch.abs(b2 * p2))
+    return cut, p_hit, p_err, rows[:, TA_NG0]
 
 
 def _walk_closest(scene, query, o, d, t_max):

@@ -33,6 +33,7 @@ from ..scene.scene import (MA_ETA, MA_K, MA_KD, MA_KS, MA_MISC, MA_REMAP,
                            MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_ROUGHGLASS,
                            MAT_SUBSTRATE, pack_mat_attr)
 from ..scene.texture import lookup_width
+from .cuda import texture_cu
 
 INV_PI = float(np.float32(1.0 / np.pi))
 ALL_MATERIALS = (MAT_MATTE, MAT_MIRROR, MAT_GLASS, MAT_METAL, MAT_SUBSTRATE,
@@ -265,9 +266,20 @@ def tr_pdf(wo, wh, ax, ay):
 
 # ---------------------------------------------------------------- textures
 def eval_texture(scene, txd_id, uv, fallback, duv=None, image=True):
-    """Evaluate texture descriptors ``txd_id`` (N,) at uv (N, 2) over
-    their UV map (su, sv, ou, ov): constant, checker, and image through
-    the mip pool; ``fallback`` (N, 3) where txd_id < 0.
+    """Evaluate texture descriptors ``txd_id`` (N,) at uv (N, 2)
+    (``eval_texture_plain`` has the semantics): kernel K3 on the card
+    (``ops/cuda/texture_cu.texture_eval``, one launch), the plain version
+    on the CPU. Tagged ``texture_lookup`` for torch.profiler."""
+    with torch.profiler.record_function("texture_lookup"):
+        return texture_cu.texture_eval(scene, txd_id, uv, fallback, duv=duv,
+                                       image=image)
+
+
+def eval_texture_plain(scene, txd_id, uv, fallback, duv=None, image=True):
+    """The plain PyTorch version of K3 (``eval_texture``): texture
+    descriptors ``txd_id`` (N,) evaluated at uv (N, 2) over their UV map
+    (su, sv, ou, ov): constant, checker, and image through the mip pool;
+    ``fallback`` (N, 3) where txd_id < 0.
 
     duv = (dudx, dvdx, dudy, dvdy), the screen-space UV derivatives
     (interaction.compute_duv): the filter width is the largest of them

@@ -14,13 +14,14 @@ dense alpha pass read.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ..core.sampling import Distribution2D
 from ..utils.image import bilinear_sample
-from .texture import TexturePool, TexturePoolBuilder
+from .texture import TexturePool, TexturePoolBuilder, pack_descriptors
 
 # material type codes (same values as the JAX package)
 MAT_MATTE = 0
@@ -115,6 +116,18 @@ class SceneData:
     @property
     def device(self) -> torch.device:
         return self.p0.device
+
+    @functools.cached_property
+    def txd_rows(self) -> tuple:
+        """The texture kernels' packed descriptor tables (f32, i32) on the
+        pool's device (texture.pack_descriptors), built at first use
+        (``TracedScene.from_tables`` asks at set-up) and kept on this
+        SceneData; not a leaf: ``to`` and ``dataclasses.replace`` build
+        them anew."""
+        return pack_descriptors(self.txd_kind, self.txd_uv, self.txd_rgb0,
+                                self.txd_rgb1, self.txd_scale,
+                                self.txd_image, self.txd_channel,
+                                self.txd_srgb, self.tex)
 
     def to(self, device) -> "SceneData":
         return dataclasses.replace(self, **{

@@ -5,7 +5,9 @@ copy of the reference's: non-pow2 Lanczos resampling, the box-filter
 pyramid, and every level of every texture concatenated into one
 (total_texels, 3) array addressed through per-texture level tables. The
 lookup (wrapped texel fetch, bilinear at one level, trilinear by filter
-width) is plain torch gathers on the pool's device.
+width) is plain torch gathers on the pool's device: the plain version of
+kernels K3 / K4 (``ops/cuda/texture_cu.py``), whose packed descriptor
+rows ``pack_descriptors`` builds.
 
 Kept from the reference for parity: ``TexturePoolBuilder.add`` pads
 each texture's level tables to MAX_LEVELS before ``build`` counts them,
@@ -28,6 +30,25 @@ WRAP_BLACK = 1
 WRAP_CLAMP = 2
 
 MAX_LEVELS = 16
+
+# The texture kernels' descriptor rows (``pack_descriptors``; read by
+# csrc/texture.cu, whose #defines of the same names must agree): a row of
+# TXF_WIDTH floats and one of TXI_WIDTH ints a descriptor, an image
+# descriptor's pool level tables copied into its int row.
+TXF_UV = 0  # su sv ou ov
+TXF_RGB0 = 4
+TXF_RGB1 = 7
+TXF_SCALE = 10
+TXF_WIDTH = 16
+TXI_KIND = 0
+TXI_SRGB = 1
+TXI_CHANNEL = 2
+TXI_NLEVELS = 3
+TXI_WRAP = 4
+TXI_OFFSET = 16  # MAX_LEVELS level offsets into the pool, in texels
+TXI_W = TXI_OFFSET + MAX_LEVELS
+TXI_H = TXI_W + MAX_LEVELS
+TXI_WIDTH = TXI_H + MAX_LEVELS
 
 
 def _lanczos(x: np.ndarray, tau: float = 2.0) -> np.ndarray:
@@ -220,3 +241,33 @@ def lookup_width(pool: TexturePool, tex, st, width):
         v0 = _triangle(pool, tex, lo, st)
         v1 = _triangle(pool, tex, lo + 1, st)
         return v0 * (1 - delta) + v1 * delta
+
+
+def pack_descriptors(kind, uv, rgb0, rgb1, scale, image, channel, srgb,
+                     pool: TexturePool):
+    """The texture kernels' (K3, K4) descriptor tables from the txd_*
+    leaves and the pool, on the pool's device: (D, TXF_WIDTH) f32 rows
+    (UV map, rgb0, rgb1, scale) and (D, TXI_WIDTH) i32 rows (kind, sRGB
+    flag, channel, and for an image descriptor its texture's level count,
+    wrap mode and level tables; zeros for the other kinds). One row read
+    a lane replaces the descriptor-then-texture gathers of the plain
+    lookup."""
+    d = kind.shape[0]
+    dev = pool.data.device
+    f32 = torch.zeros((d, TXF_WIDTH), dtype=torch.float32, device=dev)
+    f32[:, TXF_UV:TXF_UV + 4] = uv
+    f32[:, TXF_RGB0:TXF_RGB0 + 3] = rgb0
+    f32[:, TXF_RGB1:TXF_RGB1 + 3] = rgb1
+    f32[:, TXF_SCALE:TXF_SCALE + 3] = scale
+    i32 = torch.zeros((d, TXI_WIDTH), dtype=torch.int32, device=dev)
+    i32[:, TXI_KIND] = kind
+    i32[:, TXI_SRGB] = srgb.to(torch.int32)
+    i32[:, TXI_CHANNEL] = channel
+    img = kind == 2
+    tex = image[img].long()
+    i32[img, TXI_NLEVELS] = pool.n_levels[tex]
+    i32[img, TXI_WRAP] = pool.wrap[tex]
+    i32[img, TXI_OFFSET:TXI_W] = pool.level_offset[tex]
+    i32[img, TXI_W:TXI_H] = pool.level_w[tex]
+    i32[img, TXI_H:TXI_WIDTH] = pool.level_h[tex]
+    return f32, i32

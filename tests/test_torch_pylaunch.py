@@ -15,11 +15,13 @@ import sysconfig
 
 import pytest
 
-from pathtracer_tpu_torch.ops.cuda import _build, bvhw_cu, intersect_cu
+from pathtracer_tpu_torch.ops.cuda import (_build, bvhw_cu, intersect_cu,
+                                           texture_cu)
 from pathtracer_tpu_torch.probes import gather, gather2
 
-SIGS = ("ppiipp", "ppipp", "ppiiipp", "ppppiiifffppppp", "ppppiiiiffffppppp")
-MODULES = (intersect_cu, bvhw_cu, gather, gather2)
+SIGS = ("ppiipp", "ppipp", "ppiiipp", "ppppiiifffppppp", "ppppiiiiffffppppp",
+        "ppppppiippppiiipp", "pppppppifppppp")
+MODULES = (intersect_cu, bvhw_cu, texture_cu, gather, gather2)
 CTYPE = {"p": "void*", "i": "int", "f": "float"}
 SEEN = {"p": "seen_p[{k}] = (uintptr_t)a{k};", "i": "seen_i[{k}] = a{k};",
         "f": "seen_f[{k}] = a{k};"}
