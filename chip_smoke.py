@@ -114,7 +114,7 @@ differentials, K2):
              under torch.profiler (host and device activity): the device's
              busy share of its wall time, K2's share of the device time,
              K3's, and the share of the work launched inside
-             ``eval_texture``'s ``texture_lookup`` ranges; K3's launches a
+             ``eval_texture``'s ``pt::texture`` spans; K3's launches a
              render (the same in each, above 0).
 
 Then Sponza (``data/sponza_proc.glb``: 123,592 triangles, 1,320 of them
@@ -487,7 +487,7 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     try:
         from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
-    except ImportError:  # a checkout from before K3 / K4 (render_ab.py)
+    except ImportError:  # a checkout from before K3 / K4 (kernel_ab.py)
         tx = types.SimpleNamespace(LAUNCHES={})
     seconds, retry, texture = [], [], []
     for _ in range(RENDER_REPS):
@@ -1651,7 +1651,7 @@ def phase_classroom_main(dev, smi: str):
     if not runs["texture_launches"]["texture_eval"] > 0:
         raise AssertionError("classroom render never launched K3")
     out["profile"] = render_profile(cam, scene, CLASS_SPP, "bvhw_kernel",
-                                    annotation="texture_lookup",
+                                    annotation="pt::texture",
                                     warmup=False,
                                     kernels=("texture_eval_kernel",))
     emit(out)
@@ -2072,14 +2072,14 @@ def phase_texture_kernels(dev, class_cam, class_scene, sponza_cam,
 def phase_sponza_profile(cam, scene):
     """One Sponza render of phase 17 under torch.profiler, host and
     device (``render_profile``): the busy share, K2's share, device events
-    a band-frame, and what the ``alpha_cut`` ranges launch: one K4 kernel
+    a band-frame, and what the ``pt::alpha_cut`` spans launch: one K4 kernel
     each (its device time and share) and no kernel of a torch op (the
     plain lookup is gone from the range); K3's device time and share. It
     runs after phase 13: its trace is the largest, and the traces phase
     13 takes after one this large held no device time."""
     out = dict(phase="sponza_profile",
                **render_profile(cam, scene, SPONZA_SPP, "bvhw_kernel",
-                                annotation="alpha_cut", warmup=False,
+                                annotation="pt::alpha_cut", warmup=False,
                                 kernels=("alpha_cut_kernel",
                                          "texture_eval_kernel")))
     k4 = out["by_kernel"]["alpha_cut_kernel"]
@@ -3005,7 +3005,9 @@ def render_profile(cam, scene, spp: int, kernel: str,
     host's ops are traced too, and the device time of the kernels that
     torch ops inside the ``record_function`` ranges of that name launched
     is reported with its share (``annotated_device_ms``,
-    ``annotation_share``). ``kernels`` names more kernels whose device
+    ``annotation_share``), and how many of the named kernels link to
+    their launch's ``pt::k:`` span (``hand_linked``). ``kernels`` names
+    more kernels whose device
     time, launches and share are reported by name (``by_kernel``).
     """
     import torch
@@ -3064,14 +3066,14 @@ def annotated_device_ms(events, names: tuple, annotation: str):
     event, of those whose name contains each of ``names``, and of the
     kernels launched by host ops that start inside a ``record_function``
     range named ``annotation`` (a kernel names its launching aten op by
-    correlation id). A hand kernel's launch is no aten op and its kernel
-    links to no host op of the trace (none of a Sponza render's 1,303 K4
-    kernels to its ``alpha_cut`` range on an H100), so those are counted
-    by name. The
-    device-side copies of the ranges are not work and are left out.
-    Returns (device_ms, launches, {name: (device_ms, launches)},
-    {annotation, annotation_ranges, annotated_device_ms,
-    annotated_launches})."""
+    correlation id). A hand kernel's launch is no aten op: its kernel's
+    correlation id names the ``cudaLaunchKernel`` inside its
+    ``pt::k:<kernel>`` span, so the hand kernels are counted by name,
+    with how many of each name link so to a ``pt::k:`` span
+    (``hand_linked``). The device-side copies of the ranges are not work
+    and are left out. Returns (device_ms, launches, {name: (device_ms,
+    launches)}, {annotation, annotation_ranges, annotated_device_ms,
+    annotated_launches, hand_linked})."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -3080,28 +3082,43 @@ def annotated_device_ms(events, names: tuple, annotation: str):
     for e in events:
         (host if e.device_type() == DeviceType.CPU else device).append(e)
 
-    ranges = sorted((e.start_ns(), e.end_ns()) for e in host
-                    if e.name() == annotation)
-    if not ranges:
+    def within(match):
+        """Whether a host time lies in a range whose name ``match``es
+        (ranges of one name do not nest)."""
+        ranges = sorted((e.start_ns(), e.end_ns()) for e in host
+                        if match(e.name()))
+        starts = [r[0] for r in ranges]
+
+        def inside(t):
+            i = bisect.bisect_right(starts, t) - 1
+            return i >= 0 and t < ranges[i][1]
+        return inside, len(ranges)
+
+    in_annotation, n_ranges = within(lambda n: n == annotation)
+    if not n_ranges:
         raise AssertionError(f"the trace holds no {annotation} range")
-    starts = [r[0] for r in ranges]
-    ops = set()
-    for e in host:  # the ops themselves, not the runtime's launch calls
-        t = e.start_ns()
-        i = bisect.bisect_right(starts, t) - 1
-        if i >= 0 and t < ranges[i][1] and e.name().startswith("aten::"):
-            ops.add(e.correlation_id())
+    in_launch, _ = within(lambda n: n.startswith("pt::k:"))
+    # the ops themselves, not the runtime's launch calls
+    ops = {e.correlation_id() for e in host
+           if e.name().startswith("aten::") and in_annotation(e.start_ns())}
+    runtime = {e.correlation_id(): e.start_ns() for e in host
+               if e.name().startswith("cu")}
     device = [e for e in device
               if not e.is_user_annotation() and e.name() != annotation]
     named = {name: (sum(e.duration_ns() for e in device
                         if name in e.name()) / 1e6,
                     sum(1 for e in device if name in e.name()))
              for name in names}
+    hand_linked = {name: sum(
+        1 for e in device if name in e.name()
+        and e.correlation_id() in runtime
+        and in_launch(runtime[e.correlation_id()]))
+        for name in names}
     by_op = [e.duration_ns() for e in device
              if e.linked_correlation_id() in ops]
-    extra = dict(annotation=annotation, annotation_ranges=len(ranges),
+    extra = dict(annotation=annotation, annotation_ranges=n_ranges,
                  annotated_device_ms=sum(by_op) / 1e6,
-                 annotated_launches=len(by_op))
+                 annotated_launches=len(by_op), hand_linked=hand_linked)
     return (sum(e.duration_ns() for e in device) / 1e6, len(device), named,
             extra)
 

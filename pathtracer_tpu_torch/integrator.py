@@ -62,6 +62,7 @@ from .ops.cuda.bvhw_cu import bvhw_intersect
 from .ops.cuda import texture_cu
 from .ops.cuda.intersect_cu import intersect
 from .ops.intersect import GAMMA7, intersect_alpha_dense
+from .utils.spans import span
 from .scene.scene import (LIGHT_AREA, MAT_GLASS, MAT_MATTE, MAT_MIRROR,
                           TA_ALPHA, TA_NG0, TA_P0, TA_P1, TA_P2, TA_UV0,
                           TA_UV1, TA_UV2, SceneData, pack_alpha_tri,
@@ -331,7 +332,7 @@ def _alpha_cut(scene, hit):
     (cut (N,) bool, p_hit, p_error, ng) for the re-spawn. Kernel K4 on
     the card (``ops/cuda/texture_cu.alpha_cut``), ``_alpha_cut_plain`` on
     the CPU."""
-    with torch.profiler.record_function("alpha_cut"):
+    with span("pt::alpha_cut"):
         return texture_cu.alpha_cut(scene, hit)
 
 
@@ -475,12 +476,14 @@ def _scene_intersect(scene, o, d, t_max, live=None):
     brute-force route with alpha masks, cut lanes re-spawn past the
     surface up to ALPHA_RETRIES times; their t is then measured from the
     last re-spawn origin, as in the reference (no consumer reads it)."""
-    o, d, t_max = o.contiguous(), d.contiguous(), _lane_bounds(o, t_max, live)
-    if not scene.has_alpha or scene.use_bvh:
-        return _closest_raw(scene, o, d, t_max)
-    return _walk_closest(
-        scene, lambda o_, t_: _closest_raw(scene, o_, d, t_), o, d,
-        t_max)[0]
+    with span("pt::intersect"):
+        o, d = o.contiguous(), d.contiguous()
+        t_max = _lane_bounds(o, t_max, live)
+        if not scene.has_alpha or scene.use_bvh:
+            return _closest_raw(scene, o, d, t_max)
+        return _walk_closest(
+            scene, lambda o_, t_: _closest_raw(scene, o_, d, t_), o, d,
+            t_max)[0]
 
 
 def _scene_intersect_p(scene, o, d, t_max, live=None):
@@ -488,23 +491,26 @@ def _scene_intersect_p(scene, o, d, t_max, live=None):
     none. On the split BVH route, lanes the main table already occludes
     skip the alpha pass; on the brute-force route with alpha masks,
     closest hits are walked past cut layers."""
-    o, d, t_max = o.contiguous(), d.contiguous(), _lane_bounds(o, t_max, live)
-    if scene.bw_rows is not None:
-        occ = bvhw_intersect(scene.bw_rows, o, d, t_max, any_hit=True,
-                             stackw=scene.bw_depth)
-        if scene.split_alpha:
-            occ = occ | _alpha_set_intersect(
-                scene, o, d, torch.where(occ, 0.0, t_max), any_hit=True)
-        return occ
-    if scene.bvh_nodes is not None:
-        return bvh_intersect(scene.bvh_nodes, scene.max_leaf,
-                             scene.tri_pack, o, d, t_max, any_hit=True,
-                             alpha_pack=scene.alpha_pack,
-                             alpha_texels=scene.alpha_texels)
-    if not scene.has_alpha:
-        return intersect(o, d, t_max, scene.tri_pack, any_hit=True)
-    return _walk_occlusion(
-        scene, lambda o_, t_: _closest_raw(scene, o_, d, t_), o, d, t_max)
+    with span("pt::intersect"):
+        o, d = o.contiguous(), d.contiguous()
+        t_max = _lane_bounds(o, t_max, live)
+        if scene.bw_rows is not None:
+            occ = bvhw_intersect(scene.bw_rows, o, d, t_max, any_hit=True,
+                                 stackw=scene.bw_depth)
+            if scene.split_alpha:
+                occ = occ | _alpha_set_intersect(
+                    scene, o, d, torch.where(occ, 0.0, t_max), any_hit=True)
+            return occ
+        if scene.bvh_nodes is not None:
+            return bvh_intersect(scene.bvh_nodes, scene.max_leaf,
+                                 scene.tri_pack, o, d, t_max, any_hit=True,
+                                 alpha_pack=scene.alpha_pack,
+                                 alpha_texels=scene.alpha_texels)
+        if not scene.has_alpha:
+            return intersect(o, d, t_max, scene.tri_pack, any_hit=True)
+        return _walk_occlusion(
+            scene, lambda o_, t_: _closest_raw(scene, o_, d, t_), o, d,
+            t_max)
 
 
 def _to_local(it, w):
@@ -613,10 +619,11 @@ def trace_wave(scene, cfg: PathConfig, draw, draw2, o, d, rxd=None,
     for bounce in range(cfg.max_depth + 1):
         if occupancy is not None:
             occupancy[bounce] += torch.count_nonzero(st["active"])
-        st = _wave_bounce(scene, cfg, bounce, st, draw, draw2,
-                          draw2_arr=draw2_arr,
-                          rxd=rxd if bounce == 0 else None,
-                          ryd=ryd if bounce == 0 else None)
+        with span("pt::bounce"):
+            st = _wave_bounce(scene, cfg, bounce, st, draw, draw2,
+                              draw2_arr=draw2_arr,
+                              rxd=rxd if bounce == 0 else None,
+                              ryd=ryd if bounce == 0 else None)
     out, n_bad = _wave_radiance(cfg, st)
     return out, st["rays"], n_bad
 
@@ -701,62 +708,66 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
     hit = _scene_intersect(scene, o, d, torch.inf, live=active)
     found = hit["valid"] & active
 
-    # emitted radiance. "ref": camera/specular bounces only; "onesample":
-    # every vertex, MIS-weighted against the previous vertex's
-    # light-sampling density
-    le_mask = active if bounce == 0 else (active & specular)
-    if last:
-        # only Le survives the final bounce: skip the frame build
-        le_hit, hl = ia.hit_emission(scene.tri_attr, hit, -d)
-    else:
-        it = ia.make_interaction(sd, o, d, hit, scene.tri_attr)
-        # the camera rays' differentials -> UV derivatives for the mip
-        # filter width; rays past the first hit carry none
-        duv = ia.compute_duv(it, o, rxd, ryd) \
-            if (bounce == 0 and rxd is not None) else None
-        if scene.has_normal_maps:
-            it = ia.apply_normal_mapping(sd, it, duv=duv)
-        le_hit = ia.emitted_radiance(it, -d)
-        hl = it["area_light"]
-    if one_sample:
-        if bounce == 0 or LIGHT_AREA not in scene.light_set:
-            w_area = torch.ones((n,), dtype=torch.float32, device=o.device)
+    with span("pt::shade"):
+        # emitted radiance. "ref": camera/specular bounces only;
+        # "onesample": every vertex, MIS-weighted against the previous
+        # vertex's light-sampling density
+        le_mask = active if bounce == 0 else (active & specular)
+        if last:
+            # only Le survives the final bounce: skip the frame build
+            le_hit, hl = ia.hit_emission(scene.tri_attr, hit, -d)
         else:
-            lrows_h = scene.light_attr[torch.clamp_min(hl, 0).long()]
-            lpdf = lt.pdf_li(sd, lrows_h, prev_p, prev_perr, prev_ng, d,
-                             light_set=(LIGHT_AREA,)) * pick_prob
-            w_area = torch.where(specular, 1.0,
-                                 pm.power_heuristic(1.0, prev_pdf, 1.0, lpdf))
-        l = l + torch.where((active & found)[..., None],
-                            beta * le_hit * w_area[..., None], 0.0)
-    else:
-        l = l + torch.where((le_mask & found)[..., None], beta * le_hit, 0.0)
-    if scene.has_env:
-        # escaped rays see the environment, MIS-weighted in "onesample"
-        # against the previous vertex's light-sampling density
-        le_env = lt.env_le(sd, d)
+            it = ia.make_interaction(sd, o, d, hit, scene.tri_attr)
+            # the camera rays' differentials -> UV derivatives for the mip
+            # filter width; rays past the first hit carry none
+            duv = ia.compute_duv(it, o, rxd, ryd) \
+                if (bounce == 0 and rxd is not None) else None
+            if scene.has_normal_maps:
+                it = ia.apply_normal_mapping(sd, it, duv=duv)
+            le_hit = ia.emitted_radiance(it, -d)
+            hl = it["area_light"]
         if one_sample:
-            if bounce == 0:
-                w_env = torch.ones((n,), dtype=torch.float32, device=o.device)
+            if bounce == 0 or LIGHT_AREA not in scene.light_set:
+                w_area = torch.ones((n,), dtype=torch.float32,
+                                    device=o.device)
             else:
-                epdf = lt.env_pdf_li(sd, d) * pick_prob
-                w_env = torch.where(specular, 1.0,
-                                    pm.power_heuristic(1.0, prev_pdf, 1.0,
-                                                       epdf))
-            l = l + torch.where((active & ~hit["valid"])[..., None],
-                                beta * le_env * w_env[..., None], 0.0)
+                lrows_h = scene.light_attr[torch.clamp_min(hl, 0).long()]
+                lpdf = lt.pdf_li(sd, lrows_h, prev_p, prev_perr, prev_ng, d,
+                                 light_set=(LIGHT_AREA,)) * pick_prob
+                w_area = torch.where(specular, 1.0, pm.power_heuristic(
+                    1.0, prev_pdf, 1.0, lpdf))
+            l = l + torch.where((active & found)[..., None],
+                                beta * le_hit * w_area[..., None], 0.0)
         else:
-            l = l + torch.where((le_mask & ~hit["valid"])[..., None],
-                                beta * le_env, 0.0)
-    if last:
-        st["l"] = l
-        return st
+            l = l + torch.where((le_mask & found)[..., None], beta * le_hit,
+                                0.0)
+        if scene.has_env:
+            # escaped rays see the environment, MIS-weighted in "onesample"
+            # against the previous vertex's light-sampling density
+            le_env = lt.env_le(sd, d)
+            if one_sample:
+                if bounce == 0:
+                    w_env = torch.ones((n,), dtype=torch.float32,
+                                       device=o.device)
+                else:
+                    epdf = lt.env_pdf_li(sd, d) * pick_prob
+                    w_env = torch.where(specular, 1.0,
+                                        pm.power_heuristic(1.0, prev_pdf, 1.0,
+                                                           epdf))
+                l = l + torch.where((active & ~hit["valid"])[..., None],
+                                    beta * le_env * w_env[..., None], 0.0)
+            else:
+                l = l + torch.where((le_mask & ~hit["valid"])[..., None],
+                                    beta * le_env, 0.0)
+        if last:
+            st["l"] = l
+            return st
 
+        mp = bx.gather_params(sd, it["material"], it["uv"], scene.mat_attr,
+                              has_tex=scene.has_tex, duv=duv,
+                              tex_channels=scene.tex_channels,
+                              image_tex=scene.image_tex)
     cont = found
-    mp = bx.gather_params(sd, it["material"], it["uv"], scene.mat_attr,
-                          has_tex=scene.has_tex, duv=duv,
-                          tex_channels=scene.tex_channels,
-                          image_tex=scene.image_tex)
     wo = -d
 
     # --- NEE for materials with non-specular lobes
@@ -781,10 +792,11 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
                         draw2(db0 + 4 * li_i + 2)
                 idx_i = torch.full((n,), li_i, dtype=torch.int32,
                                    device=o.device)
-                ld = ld + estimate_direct(scene, cfg, it, mp, u_scatt,
-                                          u_light, idx_i, wo,
-                                          bsdf_branch=not one_sample,
-                                          live=nonspec)
+                with span("pt::nee"):
+                    ld = ld + estimate_direct(scene, cfg, it, mp, u_scatt,
+                                              u_light, idx_i, wo,
+                                              bsdf_branch=not one_sample,
+                                              live=nonspec)
             l = l + torch.where(nonspec[..., None], beta * ld, 0.0)
             rays = rays + shadow_rays * scene.n_lights * \
                 torch.sum(nonspec.to(torch.float32))
@@ -800,61 +812,64 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
             else:
                 light_idx = torch.zeros((n,), dtype=torch.int32,
                                         device=o.device)
-            ld = estimate_direct(scene, cfg, it, mp, u_scatt, u_light,
-                                 light_idx, wo, bsdf_branch=not one_sample,
-                                 pick_prob=pick_prob if one_sample else 1.0,
-                                 live=nonspec)
+            with span("pt::nee"):
+                ld = estimate_direct(scene, cfg, it, mp, u_scatt, u_light,
+                                     light_idx, wo,
+                                     bsdf_branch=not one_sample,
+                                     pick_prob=pick_prob if one_sample
+                                     else 1.0, live=nonspec)
             scale = 1.0 if one_sample else n_l
             l = l + torch.where(nonspec[..., None], beta * ld * scale, 0.0)
             rays = rays + shadow_rays * torch.sum(nonspec.to(torch.float32))
     st["rays"] = rays
 
-    # --- BSDF sampling for the next bounce
-    u_bsdf = draw2(dim_base + DIM_BSDF)
-    wo_l = _to_local(it, wo)
-    bs = bx.sample_f(mp, wo_l, u_bsdf, _reflect_ng_fn(it, wo),
-                     present=scene.mat_set)
-    wi_w = _to_world(it, bs["wi"])
-    cos_ns = torch.abs(pm.dot(wi_w, it["ns"]))
-    dead = torch.all(bs["f"] == 0.0, dim=-1) | (bs["pdf"] == 0.0)
-    new_beta = beta * bs["f"] * \
-        (cos_ns / torch.clamp_min(bs["pdf"], 1e-20))[..., None]
-    cont2 = cont & ~dead
-    beta = torch.where(cont2[..., None], new_beta, beta)
-    st["specular"] = torch.where(cont2, bs["specular"], specular)
-    if one_sample:
-        # next vertex's MIS weight needs this vertex's sampling state
-        st["prev_pdf"] = torch.where(cont2, bs["pdf"], prev_pdf)
-        st["prev_p"] = torch.where(cont2[..., None], it["p"], prev_p)
-        st["prev_perr"] = torch.where(cont2[..., None], it["p_error"],
-                                      prev_perr)
-        st["prev_ng"] = torch.where(cont2[..., None], it["ng"], prev_ng)
+    with span("pt::scatter"):
+        # --- BSDF sampling for the next bounce
+        u_bsdf = draw2(dim_base + DIM_BSDF)
+        wo_l = _to_local(it, wo)
+        bs = bx.sample_f(mp, wo_l, u_bsdf, _reflect_ng_fn(it, wo),
+                         present=scene.mat_set)
+        wi_w = _to_world(it, bs["wi"])
+        cos_ns = torch.abs(pm.dot(wi_w, it["ns"]))
+        dead = torch.all(bs["f"] == 0.0, dim=-1) | (bs["pdf"] == 0.0)
+        new_beta = beta * bs["f"] * \
+            (cos_ns / torch.clamp_min(bs["pdf"], 1e-20))[..., None]
+        cont2 = cont & ~dead
+        beta = torch.where(cont2[..., None], new_beta, beta)
+        st["specular"] = torch.where(cont2, bs["specular"], specular)
+        if one_sample:
+            # next vertex's MIS weight needs this vertex's sampling state
+            st["prev_pdf"] = torch.where(cont2, bs["pdf"], prev_pdf)
+            st["prev_p"] = torch.where(cont2[..., None], it["p"], prev_p)
+            st["prev_perr"] = torch.where(cont2[..., None], it["p_error"],
+                                          prev_perr)
+            st["prev_ng"] = torch.where(cont2[..., None], it["ng"], prev_ng)
 
-    # eta_scale for Russian roulette through glass: only specular
-    # transmission moves it off 1
-    if MAT_GLASS in scene.mat_set and cfg.rr_enable:
-        spec_trans = bs["specular"] & bs["transmission"]
-        eta = mp["eta"]
-        scale = torch.where(pm.dot(wo, it["ng"]) > 0.0, eta * eta,
-                            1.0 / torch.clamp_min(eta * eta, 1e-20))
-        st["eta_scale"] = torch.where(cont2 & spec_trans,
-                                      st["eta_scale"] * scale,
-                                      st["eta_scale"])
+        # eta_scale for Russian roulette through glass: only specular
+        # transmission moves it off 1
+        if MAT_GLASS in scene.mat_set and cfg.rr_enable:
+            spec_trans = bs["specular"] & bs["transmission"]
+            eta = mp["eta"]
+            scale = torch.where(pm.dot(wo, it["ng"]) > 0.0, eta * eta,
+                                1.0 / torch.clamp_min(eta * eta, 1e-20))
+            st["eta_scale"] = torch.where(cont2 & spec_trans,
+                                          st["eta_scale"] * scale,
+                                          st["eta_scale"])
 
-    new_o = ia.spawn_ray(it["p"], it["p_error"], it["ng"], wi_w)
-    st["o"] = torch.where(cont2[..., None], new_o, o)
-    st["d"] = torch.where(cont2[..., None], wi_w, d)
+        new_o = ia.spawn_ray(it["p"], it["p_error"], it["ng"], wi_w)
+        st["o"] = torch.where(cont2[..., None], new_o, o)
+        st["d"] = torch.where(cont2[..., None], wi_w, d)
 
-    # --- Russian roulette (off below the start depth)
-    if cfg.rr_enable and bounce > cfg.rr_start_depth:
-        rr_beta_max = torch.amax(beta * st["eta_scale"][..., None], dim=-1)
-        rr_gate = cont2 & (rr_beta_max < cfg.rr_threshold)
-        u_rr = draw(dim_base + DIM_RR)
-        q = torch.clamp_min(1.0 - rr_beta_max, 0.05)
-        rr_kill = rr_gate & (u_rr < q)
-        beta = torch.where((rr_gate & ~rr_kill)[..., None],
-                           beta / (1.0 - q)[..., None], beta)
-        cont2 = cont2 & ~rr_kill
+        # --- Russian roulette (off below the start depth)
+        if cfg.rr_enable and bounce > cfg.rr_start_depth:
+            rr_beta_max = torch.amax(beta * st["eta_scale"][..., None], dim=-1)
+            rr_gate = cont2 & (rr_beta_max < cfg.rr_threshold)
+            u_rr = draw(dim_base + DIM_RR)
+            q = torch.clamp_min(1.0 - rr_beta_max, 0.05)
+            rr_kill = rr_gate & (u_rr < q)
+            beta = torch.where((rr_gate & ~rr_kill)[..., None],
+                               beta / (1.0 - q)[..., None], beta)
+            cont2 = cont2 & ~rr_kill
 
     st["l"] = l
     st["beta"] = beta
@@ -865,25 +880,28 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
 def _sobol_draws(b_base, scramble, f_lo, f_hi, f_delta, inv_lo, inv_hi,
                  sobol_pack, sobol_scale, sobol_off_x, sobol_off_y, pxf, pyf):
     """One Sobol sample frame of a band: (draw, draw2, jx, jy)."""
-    idx_lo, idx_hi = sb.sobol_index(b_base, f_delta, f_lo, f_hi, inv_lo,
-                                    inv_hi)
-
     def draw(dim):
-        return sb.sobol_sample_dim(idx_lo, idx_hi, dim, scramble, sobol_pack)
+        with span("pt::sampler"):
+            return sb.sobol_sample_dim(idx_lo, idx_hi, dim, scramble,
+                                       sobol_pack)
 
     def draw2(dim):
-        return sb.sobol_sample_dim2(idx_lo, idx_hi, dim, scramble,
-                                    sobol_pack)
+        with span("pt::sampler"):
+            return sb.sobol_sample_dim2(idx_lo, idx_hi, dim, scramble,
+                                        sobol_pack)
 
-    # camera dims 0,1 remapped into the pixel, drawn UNSCRAMBLED (as the
-    # reference and PBRT's SobolSampler do)
-    s01 = sb.sobol_sample_dim2(idx_lo, idx_hi, 0, torch.zeros_like(scramble),
-                               sobol_pack)
-    one_minus = float(pm.ONE_MINUS_EPSILON)
-    jx = torch.clamp(s01[..., 0] * sobol_scale + sobol_off_x - pxf, 0.0,
-                     one_minus)
-    jy = torch.clamp(s01[..., 1] * sobol_scale + sobol_off_y - pyf, 0.0,
-                     one_minus)
+    with span("pt::sampler"):
+        idx_lo, idx_hi = sb.sobol_index(b_base, f_delta, f_lo, f_hi, inv_lo,
+                                        inv_hi)
+        # camera dims 0,1 remapped into the pixel, drawn UNSCRAMBLED (as
+        # the reference and PBRT's SobolSampler do)
+        s01 = sb.sobol_sample_dim2(idx_lo, idx_hi, 0,
+                                   torch.zeros_like(scramble), sobol_pack)
+        one_minus = float(pm.ONE_MINUS_EPSILON)
+        jx = torch.clamp(s01[..., 0] * sobol_scale + sobol_off_x - pxf, 0.0,
+                         one_minus)
+        jy = torch.clamp(s01[..., 1] * sobol_scale + sobol_off_y - pyf, 0.0,
+                         one_minus)
     return draw, draw2, jx, jy
 
 
@@ -891,18 +909,30 @@ def _hash_draws(sampler: str, pixel_hash, frame: int, total_spp_log2: int):
     """One sample frame of the stratified or random sampler: (draw,
     draw2, draw2_arr); draw2_arr is None for the random sampler."""
     if sampler == "stratified":
-        return (lambda dim: smp.stratified_sample_dim(
-                    pixel_hash, frame, total_spp_log2, dim),
-                # consecutive-dim pairs are 2D-grid stratified
-                lambda dim: smp.stratified_sample_dim2(
-                    pixel_hash, frame, total_spp_log2, dim),
-                lambda dim, i, n: smp.lhs_2d_dim(pixel_hash, frame, dim, i,
-                                                 n))
+        def draw(dim):
+            with span("pt::sampler"):
+                return smp.stratified_sample_dim(pixel_hash, frame,
+                                                 total_spp_log2, dim)
+
+        def draw2(dim):
+            # consecutive-dim pairs are 2D-grid stratified
+            with span("pt::sampler"):
+                return smp.stratified_sample_dim2(pixel_hash, frame,
+                                                  total_spp_log2, dim)
+
+        def draw2_arr(dim, i, n):
+            with span("pt::sampler"):
+                return smp.lhs_2d_dim(pixel_hash, frame, dim, i, n)
+        return draw, draw2, draw2_arr
 
     def draw(dim):
-        return smp.random_sample_dim(pixel_hash, frame, dim)
-    return draw, lambda dim: torch.stack([draw(dim), draw(dim + 1)],
-                                         dim=-1), None
+        with span("pt::sampler"):
+            return smp.random_sample_dim(pixel_hash, frame, dim)
+
+    def draw2(dim):
+        with span("pt::sampler"):
+            return torch.stack([draw(dim), draw(dim + 1)], dim=-1)
+    return draw, draw2, None
 
 
 def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
@@ -937,37 +967,43 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
     rays_total = torch.zeros((), device=px.device)
     bad_total = torch.zeros((), device=px.device)
     if cfg.sampler != "sobol":
-        pixel_hash = smp.pixel_hash(px, py)
+        with span("pt::sampler"):
+            pixel_hash = smp.pixel_hash(px, py)
     for s in range(spp):
-        draw2_arr = None
-        if cfg.sampler == "sobol":
-            draw, draw2, jx, jy = _sobol_draws(
-                b_base, scramble, frame_lo[s], frame_hi[s], frame_delta[s],
-                inv_lo, inv_hi, sobol_pack, sobol_scale, sobol_off_x,
-                sobol_off_y, pxf, pyf)
-        else:
-            draw, draw2, draw2_arr = _hash_draws(
-                cfg.sampler, pixel_hash, frame_base + s, total_spp_log2)
-            jx = draw(0)
-            jy = draw(1)
-        p_film = torch.stack([pxf + jx, pyf + jy], dim=-1)
-        if dxdy_cam is not None and (scene.has_tex or scene.has_normal_maps):
-            o, d, rxd, ryd = generate_rays_diff(r2c, cam_rot, cam_pos,
-                                                p_film, dxdy_cam, diff_scale)
-        else:
-            o, d = generate_rays(r2c, cam_rot, cam_pos, p_film)
-            rxd = ryd = None
-        radiance, rays, n_bad = trace_wave(scene, cfg, draw, draw2, o, d,
-                                           rxd, ryd, lane_valid=valid_lanes,
-                                           draw2_arr=draw2_arr,
-                                           occupancy=occupancy)
-        tile = splat_tile(radiance.reshape(th, tw, 3), jx.reshape(th, tw),
-                          jy.reshape(th, tw), valid, filter_f1d,
-                          radius=filter_radius)
-        film_pad = film_pad_accumulate(film_pad, tile, band_x0, band_y0,
-                                       half=splat_halfwidth(filter_radius))
-        rays_total = rays_total + rays
-        bad_total = bad_total + n_bad
+        with span("pt::band_frame"):
+            draw2_arr = None
+            if cfg.sampler == "sobol":
+                draw, draw2, jx, jy = _sobol_draws(
+                    b_base, scramble, frame_lo[s], frame_hi[s],
+                    frame_delta[s], inv_lo, inv_hi, sobol_pack, sobol_scale,
+                    sobol_off_x, sobol_off_y, pxf, pyf)
+            else:
+                draw, draw2, draw2_arr = _hash_draws(
+                    cfg.sampler, pixel_hash, frame_base + s, total_spp_log2)
+                jx = draw(0)
+                jy = draw(1)
+            with span("pt::camera"):
+                p_film = torch.stack([pxf + jx, pyf + jy], dim=-1)
+                if dxdy_cam is not None and (scene.has_tex
+                                             or scene.has_normal_maps):
+                    o, d, rxd, ryd = generate_rays_diff(
+                        r2c, cam_rot, cam_pos, p_film, dxdy_cam, diff_scale)
+                else:
+                    o, d = generate_rays(r2c, cam_rot, cam_pos, p_film)
+                    rxd = ryd = None
+            radiance, rays, n_bad = trace_wave(
+                scene, cfg, draw, draw2, o, d, rxd, ryd,
+                lane_valid=valid_lanes, draw2_arr=draw2_arr,
+                occupancy=occupancy)
+            with span("pt::film"):
+                tile = splat_tile(radiance.reshape(th, tw, 3),
+                                  jx.reshape(th, tw), jy.reshape(th, tw),
+                                  valid, filter_f1d, radius=filter_radius)
+                film_pad = film_pad_accumulate(
+                    film_pad, tile, band_x0, band_y0,
+                    half=splat_halfwidth(filter_radius))
+            rays_total = rays_total + rays
+            bad_total = bad_total + n_bad
     return film_pad, rays_total, bad_total
 
 
@@ -1158,20 +1194,23 @@ class PathIntegrator:
                  for bi in range(n_bands)]
         for s0 in range(s_start, self.spp, chunk):
             n_frames = min(chunk, self.spp - s0)
-            stats = []  # device scalars; one sync per chunk, not per band
-            for b in bands:
-                film_pad, rays, n_bad = self.render_frames(
-                    su, film_pad, b, s0, n_frames, occupancy)
-                stats.append((rays, n_bad))
-            for rays, n_bad in stats:
-                self.last_ray_count += float(rays)
-                self.bad_sample_count += float(n_bad)
-            if occupancy is not None:
-                self.bounce_occupancy = occupancy.cpu().numpy().astype(
-                    np.float64)
-            if checkpoint:
-                np.savez(checkpoint, film_pad=film_pad.cpu().numpy(),
-                         next_frame=s0 + n_frames, spp=self.spp)
-            if callback is not None:
-                callback(film_crop(film_pad, w, h), s0 + n_frames)
+            with span("pt::chunk"):
+                stats = []  # device scalars; one sync a chunk, not a band
+                for b in bands:
+                    film_pad, rays, n_bad = self.render_frames(
+                        su, film_pad, b, s0, n_frames, occupancy)
+                    stats.append((rays, n_bad))
+                with span("pt::chunk_sync"):
+                    for rays, n_bad in stats:
+                        self.last_ray_count += float(rays)
+                        self.bad_sample_count += float(n_bad)
+                    if occupancy is not None:
+                        self.bounce_occupancy = \
+                            occupancy.cpu().numpy().astype(np.float64)
+                    if checkpoint:
+                        np.savez(checkpoint, film_pad=film_pad.cpu().numpy(),
+                                 next_frame=s0 + n_frames, spp=self.spp)
+                if callback is not None:
+                    with span("pt::callback"):
+                        callback(film_crop(film_pad, w, h), s0 + n_frames)
         return film_crop(film_pad, w, h)

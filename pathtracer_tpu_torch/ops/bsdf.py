@@ -33,6 +33,7 @@ from ..scene.scene import (MA_ETA, MA_K, MA_KD, MA_KS, MA_MISC, MA_REMAP,
                            MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_ROUGHGLASS,
                            MAT_SUBSTRATE, pack_mat_attr)
 from ..scene.texture import lookup_width
+from ..utils.spans import span
 from .cuda import texture_cu
 
 INV_PI = float(np.float32(1.0 / np.pi))
@@ -269,8 +270,8 @@ def eval_texture(scene, txd_id, uv, fallback, duv=None, image=True):
     """Evaluate texture descriptors ``txd_id`` (N,) at uv (N, 2)
     (``eval_texture_plain`` has the semantics): kernel K3 on the card
     (``ops/cuda/texture_cu.texture_eval``, one launch), the plain version
-    on the CPU. Tagged ``texture_lookup`` for torch.profiler."""
-    with torch.profiler.record_function("texture_lookup"):
+    on the CPU. Spanned ``pt::texture`` (``utils/spans.py``)."""
+    with span("pt::texture"):
         return texture_cu.texture_eval(scene, txd_id, uv, fallback, duv=duv,
                                        image=image)
 

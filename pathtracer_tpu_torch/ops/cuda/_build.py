@@ -40,6 +40,8 @@ import tempfile
 
 import torch
 
+from ...utils.spans import span
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -243,13 +245,15 @@ _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 def launch(fn, what: str, index: int, *args) -> None:
     """Call the C launcher ``fn`` (from ``bind``) with ``(*args, stream)``
-    on PyTorch's current stream of CUDA device ``index``; raise if the
+    on PyTorch's current stream of CUDA device ``index``, inside the span
+    ``pt::k:<what>``, which holds the launch's runtime call; raise if the
     launch reports an error."""
     call, address = fn
-    if index == _current_device():
-        err = call(address, *args, _raw_stream(index))
-    else:
-        with torch.cuda.device(index):
+    with span("pt::k:" + what):
+        if index == _current_device():
             err = call(address, *args, _raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = call(address, *args, _raw_stream(index))
     if err:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

@@ -223,24 +223,23 @@ def lookup_width(pool: TexturePool, tex, st, width):
     past the camera's carry no differentials); any tensor, all zeros
     included, takes the trilinear path at level n_levels - 1 +
     log2(max(width, 1e-8)), as the reference does (the two round
-    differently). Tagged ``texture_lookup`` for torch.profiler.
+    differently).
     """
-    with torch.profiler.record_function("texture_lookup"):
-        tex = tex.long()
-        if isinstance(width, (int, float)) and float(width) == 0.0:
-            zero = torch.zeros(st.shape[:-1], dtype=torch.long,
-                               device=st.device)
-            return _triangle(pool, tex, zero, st)
-        n_lev = pool.n_levels[tex].to(torch.float32)
-        width = torch.as_tensor(width, dtype=torch.float32,
-                                device=st.device).expand(st.shape[:-1])
-        level = n_lev - 1.0 + torch.log2(torch.clamp_min(width, 1e-8))
-        lo = torch.floor(torch.minimum(torch.clamp_min(level, 0.0),
-                                       n_lev - 1.0)).to(torch.long)
-        delta = torch.clamp(level - lo.to(torch.float32), 0.0, 1.0)[..., None]
-        v0 = _triangle(pool, tex, lo, st)
-        v1 = _triangle(pool, tex, lo + 1, st)
-        return v0 * (1 - delta) + v1 * delta
+    tex = tex.long()
+    if isinstance(width, (int, float)) and float(width) == 0.0:
+        zero = torch.zeros(st.shape[:-1], dtype=torch.long,
+                           device=st.device)
+        return _triangle(pool, tex, zero, st)
+    n_lev = pool.n_levels[tex].to(torch.float32)
+    width = torch.as_tensor(width, dtype=torch.float32,
+                            device=st.device).expand(st.shape[:-1])
+    level = n_lev - 1.0 + torch.log2(torch.clamp_min(width, 1e-8))
+    lo = torch.floor(torch.minimum(torch.clamp_min(level, 0.0),
+                                   n_lev - 1.0)).to(torch.long)
+    delta = torch.clamp(level - lo.to(torch.float32), 0.0, 1.0)[..., None]
+    v0 = _triangle(pool, tex, lo, st)
+    v1 = _triangle(pool, tex, lo + 1, st)
+    return v0 * (1 - delta) + v1 * delta
 
 
 def pack_descriptors(kind, uv, rgb0, rgb1, scale, image, channel, srgb,

@@ -54,9 +54,9 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "bench_torch.py",
-                                    "kernel_ab.py", "render_ab.py",
-                                    "host_steps.py", "k1_variants.py",
-                                    "k2_variants.py", "probe_variants.py"])
+                                    "kernel_ab.py", "host_steps.py",
+                                    "k1_variants.py", "k2_variants.py",
+                                    "probe_variants.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts run on the card, where JAX is absent, import neither
     JAX nor the JAX package."""
