@@ -3065,15 +3065,17 @@ def annotated_device_ms(events, names: tuple, annotation: str):
     for a whole render): the device time and count of every device
     event, of those whose name contains each of ``names``, and of the
     kernels launched by host ops that start inside a ``record_function``
-    range named ``annotation`` (a kernel names its launching aten op by
-    correlation id). A hand kernel's launch is no aten op: its kernel's
-    correlation id names the ``cudaLaunchKernel`` inside its
-    ``pt::k:<kernel>`` span, so the hand kernels are counted by name,
-    with how many of each name link so to a ``pt::k:`` span
-    (``hand_linked``). The device-side copies of the ranges are not work
-    and are left out. Returns (device_ms, launches, {name: (device_ms,
-    launches)}, {annotation, annotation_ranges, annotated_device_ms,
-    annotated_launches, hand_linked})."""
+    range named ``annotation``: those whose runtime call (``cudaLaunchKernel``
+    inside the torch op, or, for a band-frame replayed from CUDA graphs,
+    the ``cudaGraphLaunch`` that the replay makes inside the same ranges,
+    ``utils/span_graph.py``) starts inside it, and not inside a hand
+    kernel's ``pt::k:<kernel>`` span. A hand kernel's correlation id names
+    the launch inside its ``pt::k:`` span, so the hand kernels are
+    counted by name, with how many of each name link so to a ``pt::k:``
+    span (``hand_linked``). The device-side copies of the ranges are not
+    work and are left out. Returns (device_ms, launches, {name:
+    (device_ms, launches)}, {annotation, annotation_ranges,
+    annotated_device_ms, annotated_launches, hand_linked})."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -3098,9 +3100,6 @@ def annotated_device_ms(events, names: tuple, annotation: str):
     if not n_ranges:
         raise AssertionError(f"the trace holds no {annotation} range")
     in_launch, _ = within(lambda n: n.startswith("pt::k:"))
-    # the ops themselves, not the runtime's launch calls
-    ops = {e.correlation_id() for e in host
-           if e.name().startswith("aten::") and in_annotation(e.start_ns())}
     runtime = {e.correlation_id(): e.start_ns() for e in host
                if e.name().startswith("cu")}
     device = [e for e in device
@@ -3115,7 +3114,9 @@ def annotated_device_ms(events, names: tuple, annotation: str):
         and in_launch(runtime[e.correlation_id()]))
         for name in names}
     by_op = [e.duration_ns() for e in device
-             if e.linked_correlation_id() in ops]
+             if e.correlation_id() in runtime
+             and in_annotation(runtime[e.correlation_id()])
+             and not in_launch(runtime[e.correlation_id()])]
     extra = dict(annotation=annotation, annotation_ranges=n_ranges,
                  annotated_device_ms=sum(by_op) / 1e6,
                  annotated_launches=len(by_op), hand_linked=hand_linked)

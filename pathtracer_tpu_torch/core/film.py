@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .filter import FILTER_TABLE_WIDTH
-from .math import gamma_correct
+from .math import device_const, gamma_correct
 
 FILM_PAD = 4  # padded border: filter radius 2 (sample bounds) + 2 (splat)
 
@@ -116,8 +116,8 @@ def splat_tile(radiance, jx, jy, valid, filter_f1d, radius: float = 2.0):
     tile = torch.zeros((4, th + pad, tw + pad), dtype=torch.float32,
                        device=radiance.device)
     inv_r = 1.0 / radius
-    f1d = torch.as_tensor(np.asarray(filter_f1d, np.float32),
-                          device=radiance.device)
+    f1d = device_const(tuple(float(v) for v in np.asarray(
+        filter_f1d, np.float32)), radiance.device)
 
     def axis_weights(j, d):
         off = d - j + 0.5

@@ -21,6 +21,21 @@ HALF_MAX_I32 = np.int32(np.iinfo(np.int32).max // 2)
 SHADOW_EPSILON = np.float32(1e-4)
 
 
+_CONSTS: dict = {}
+
+
+def device_const(values: tuple, device, dtype=torch.float32) -> torch.Tensor:
+    """The small constant tensor ``values`` on ``device``, copied there
+    once a process and shared by every caller (who must not write it): a
+    host-to-device copy in the bounce loop waits for the device, and a
+    CUDA graph's capture refuses one."""
+    key = (values, torch.device(device), dtype)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
+
 def gamma(n: int) -> np.float32:
     """Floating-point error bound gamma(n) = n*eps/(1-n*eps)."""
     ne = np.float32(n) * MACHINE_EPSILON

@@ -7,7 +7,10 @@ Sobol, stratified and random samplers, one light or all lights a vertex,
 and both MIS modes ("ref" and "onesample"). Camera rays
 carry ray differentials when the scene binds a texture, so the first
 hit's texture lookups filter by footprint. The bounce loop is a
-Python loop over SoA wavefront state; PyTorch runs it eagerly. Every
+Python loop over SoA wavefront state; PyTorch runs it eagerly, or, on a
+card where a band-frame asks nothing of the host (``_graph_engages``),
+captures one band-frame as a CUDA graph and replays it for every band
+and frame of that shape (``_BandGraph``). Every
 closest-hit and shadow query goes to one of two kernels, as in the
 reference: scenes of at most 128 triangles to the brute-force
 ``ops/cuda/intersect_cu.intersect`` (K1), larger ones to the BVH32
@@ -59,9 +62,10 @@ from .ops import lights as lt
 from .ops import samplers as smp
 from .ops import sobol as sb
 from .ops.cuda.bvhw_cu import bvhw_intersect
-from .ops.cuda import texture_cu
+from .ops.cuda import _build, texture_cu
 from .ops.cuda.intersect_cu import intersect
 from .ops.intersect import GAMMA7, intersect_alpha_dense
+from .utils.span_graph import SpanGraph
 from .utils.spans import span
 from .scene.scene import (LIGHT_AREA, MAT_GLASS, MAT_MATTE, MAT_MIRROR,
                           TA_ALPHA, TA_NG0, TA_P0, TA_P1, TA_P2, TA_UV0,
@@ -99,6 +103,11 @@ ALPHA_RETRIES = 3
 # "alpha_tree", the queries of the alpha subset's BVH32 table (one K2
 # launch each on the card)
 RETRY_COUNTS = dict(syncs=0, passes=0, alpha_tree=0)
+# band-frames over a process by how they ran: "captures", the first of a
+# CUDA graph's key (run eagerly as the capture's warm-up, then captured);
+# "replays", replays of a captured graph; "eager", the rest
+# (``_graph_engages``)
+GRAPH_COUNTS = dict(captures=0, replays=0, eager=0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -935,6 +944,60 @@ def _hash_draws(sampler: str, pixel_hash, frame: int, total_spp_log2: int):
     return draw, draw2, None
 
 
+def band_frame(scene, cfg: PathConfig, band_shape: tuple[int, int],
+               valid_lanes, px, py, b_base, scramble, frame_lo, frame_hi,
+               frame_delta, inv_lo, inv_hi, r2c, cam_rot, cam_pos, filter_f1d,
+               sobol_pack, sobol_scale, sobol_off_x, sobol_off_y,
+               filter_radius: float = 2.0, dxdy_cam=None, diff_scale=1.0,
+               frame: int = 0, total_spp_log2: int = 0, pixel_hash=None,
+               occupancy=None):
+    """One sample frame of one row band, up to its splat tile: the
+    sampler's draws, the camera rays, ``trace_wave`` and ``splat_tile``.
+    Returns (tile (4, Th+2h, Tw+2h), ray count, non-finite count).
+
+    Arguments as ``render_band``'s, for the one frame: frame_lo / hi /
+    delta are its Sobol words, host ints or 0-d int64 tensors on the
+    device (``ops/sobol.sobol_index``); the Sobol scalars and
+    ``diff_scale`` are host floats or 0-d float32 tensors on the device,
+    which give the same bits; ``frame`` is its index for the
+    stratified and random samplers, which read ``pixel_hash``
+    (``samplers.pixel_hash``) instead. Every tensor it reads is an
+    argument or the scene's, and it copies nothing from the host once
+    the constants it shares (``core/math.device_const``) exist, so a CUDA
+    graph can hold it (``_BandGraph``).
+    """
+    th, tw = band_shape
+    pxf = px.to(torch.float32)
+    pyf = py.to(torch.float32)
+    draw2_arr = None
+    if cfg.sampler == "sobol":
+        draw, draw2, jx, jy = _sobol_draws(
+            b_base, scramble, frame_lo, frame_hi, frame_delta, inv_lo,
+            inv_hi, sobol_pack, sobol_scale, sobol_off_x, sobol_off_y, pxf,
+            pyf)
+    else:
+        draw, draw2, draw2_arr = _hash_draws(cfg.sampler, pixel_hash, frame,
+                                             total_spp_log2)
+        jx = draw(0)
+        jy = draw(1)
+    with span("pt::camera"):
+        p_film = torch.stack([pxf + jx, pyf + jy], dim=-1)
+        if dxdy_cam is not None and (scene.has_tex or scene.has_normal_maps):
+            o, d, rxd, ryd = generate_rays_diff(
+                r2c, cam_rot, cam_pos, p_film, dxdy_cam, diff_scale)
+        else:
+            o, d = generate_rays(r2c, cam_rot, cam_pos, p_film)
+            rxd = ryd = None
+    radiance, rays, n_bad = trace_wave(
+        scene, cfg, draw, draw2, o, d, rxd, ryd, lane_valid=valid_lanes,
+        draw2_arr=draw2_arr, occupancy=occupancy)
+    with span("pt::film"):
+        tile = splat_tile(radiance.reshape(th, tw, 3), jx.reshape(th, tw),
+                          jy.reshape(th, tw), valid_lanes.reshape(th, tw),
+                          filter_f1d, radius=filter_radius)
+    return tile, rays, n_bad
+
+
 def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
                 valid_lanes, film_pad, band_x0: int, band_y0: int, px, py,
                 b_base, scramble, frame_lo, frame_hi, frame_delta,
@@ -944,7 +1007,8 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
                 dxdy_cam=None, diff_scale: float = 1.0, frame_base: int = 0,
                 total_spp_log2: int = 0, occupancy=None):
     """Render ``spp`` sampler frames for one row band into the padded film
-    (in place). Returns (film_pad, ray count, non-finite count).
+    (in place), each an eager ``band_frame``. Returns (film_pad, ray
+    count, non-finite count).
 
     band_shape = (Th, Tw); px/py: (Th*Tw,) absolute pixel coords;
     valid_lanes: (Th*Tw,) bool (padding rows carry zero weight); b_base /
@@ -960,51 +1024,163 @@ def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
     ``occupancy``: as ``trace_wave``'s, summed over the frames.
     """
     _check_config(cfg)
-    th, tw = band_shape
-    pxf = px.to(torch.float32)
-    pyf = py.to(torch.float32)
-    valid = valid_lanes.reshape(th, tw)
-    rays_total = torch.zeros((), device=px.device)
-    bad_total = torch.zeros((), device=px.device)
+    pixel_hash = None
     if cfg.sampler != "sobol":
         with span("pt::sampler"):
             pixel_hash = smp.pixel_hash(px, py)
-    for s in range(spp):
+
+    def frame(s):
+        GRAPH_COUNTS["eager"] += 1
+        sobol_words = (None, None, None) if frame_lo is None else \
+            (frame_lo[s], frame_hi[s], frame_delta[s])
+        return band_frame(
+            scene, cfg, band_shape, valid_lanes, px, py, b_base, scramble,
+            *sobol_words, inv_lo, inv_hi, r2c, cam_rot, cam_pos, filter_f1d,
+            sobol_pack, sobol_scale, sobol_off_x, sobol_off_y,
+            filter_radius=filter_radius, dxdy_cam=dxdy_cam,
+            diff_scale=diff_scale, frame=frame_base + s,
+            total_spp_log2=total_spp_log2, pixel_hash=pixel_hash,
+            occupancy=occupancy)
+    return _band_frames(frame, spp, film_pad, band_x0, band_y0,
+                        filter_radius, px.device)
+
+
+def _band_frames(frame, n_frames: int, film_pad, band_x0: int, band_y0: int,
+                 filter_radius: float, device):
+    """Run ``n_frames`` band-frames ``frame(s)`` -> (tile, ray count,
+    non-finite count), each in ``pt::band_frame``, and splat each tile
+    into the padded film (in place) at the band's offset. Returns
+    (film_pad, ray count, non-finite count)."""
+    rays_total = torch.zeros((), device=device)
+    bad_total = torch.zeros((), device=device)
+    half = splat_halfwidth(filter_radius)
+    for s in range(n_frames):
         with span("pt::band_frame"):
-            draw2_arr = None
-            if cfg.sampler == "sobol":
-                draw, draw2, jx, jy = _sobol_draws(
-                    b_base, scramble, frame_lo[s], frame_hi[s],
-                    frame_delta[s], inv_lo, inv_hi, sobol_pack, sobol_scale,
-                    sobol_off_x, sobol_off_y, pxf, pyf)
-            else:
-                draw, draw2, draw2_arr = _hash_draws(
-                    cfg.sampler, pixel_hash, frame_base + s, total_spp_log2)
-                jx = draw(0)
-                jy = draw(1)
-            with span("pt::camera"):
-                p_film = torch.stack([pxf + jx, pyf + jy], dim=-1)
-                if dxdy_cam is not None and (scene.has_tex
-                                             or scene.has_normal_maps):
-                    o, d, rxd, ryd = generate_rays_diff(
-                        r2c, cam_rot, cam_pos, p_film, dxdy_cam, diff_scale)
-                else:
-                    o, d = generate_rays(r2c, cam_rot, cam_pos, p_film)
-                    rxd = ryd = None
-            radiance, rays, n_bad = trace_wave(
-                scene, cfg, draw, draw2, o, d, rxd, ryd,
-                lane_valid=valid_lanes, draw2_arr=draw2_arr,
-                occupancy=occupancy)
-            with span("pt::film"):
-                tile = splat_tile(radiance.reshape(th, tw, 3),
-                                  jx.reshape(th, tw), jy.reshape(th, tw),
-                                  valid, filter_f1d, radius=filter_radius)
-                film_pad = film_pad_accumulate(
-                    film_pad, tile, band_x0, band_y0,
-                    half=splat_halfwidth(filter_radius))
+            tile, rays, n_bad = frame(s)
+            film_pad = film_pad_accumulate(film_pad, tile, band_x0, band_y0,
+                                           half=half)
             rays_total = rays_total + rays
             bad_total = bad_total + n_bad
     return film_pad, rays_total, bad_total
+
+
+def _graph_engages(scene, cfg: PathConfig) -> bool:
+    """Whether a band-frame of ``scene`` under ``cfg`` runs as the replay
+    of a captured CUDA graph (``_BandGraph``) rather than eagerly.
+
+    A graph holds a band-frame whose every host step is the same from
+    one frame to the next and whose device work asks nothing of the host:
+    on a CUDA device, a scene without alpha masks, the Sobol sampler, no
+    occupancy count. Each case left out breaks that:
+
+    - CPU tensors: CUDA graphs exist only on a CUDA device.
+    - Alpha masks (``has_alpha``: the split subset's table or dense pass,
+      the all-masked binary tree's inline mask, K1's re-spawn retries):
+      the retry loops end early on a host sync (``_any``,
+      ``ops/intersect.intersect_alpha_dense``), which a capture refuses.
+    - The stratified and random samplers: they take the frame's index as
+      a host scalar (``ops/samplers.py``), which a capture would freeze.
+    - ``count_occupancy``: it adds into a tensor that each render makes
+      anew, whose address a capture would freeze.
+    """
+    return (scene.device.type == "cuda" and not scene.has_alpha
+            and cfg.sampler == "sobol" and not cfg.count_occupancy)
+
+
+class _BandGraph:
+    """One band-frame of one band shape, captured as CUDA graphs
+    (``utils/span_graph.SpanGraph``: one graph, and, for replays under a
+    profiler, a graph for each stretch of device work between two spans,
+    replayed inside the same spans).
+
+    It owns the graphs, their memory pool (the tensors the captures made,
+    the outputs among them) and the static buffers the graphs read: a
+    band's pixel statics, the camera's parameters, the Sobol tables and
+    scalars, the differentials' scale and the frame's three Sobol words.
+    ``stage`` copies a render's band into them, ``run`` a frame's words;
+    the first ``run`` runs the band-frame eagerly on the capture's stream
+    (the warm-up PyTorch's graph docs prescribe; its result is that
+    band-frame's) and then captures it, every later one replays it. A
+    replay runs the same kernels on the same bits as the eager
+    ``band_frame``, and counts the hand kernels' launches that the
+    capture tallied (``ops/cuda/_build.replayed``).
+    """
+
+    WORDS = ("frame_lo", "frame_hi", "frame_delta")
+    SCALARS = ("sobol_scale", "sobol_off_x", "sobol_off_y", "diff_scale")
+
+    def __init__(self, integ: "PathIntegrator", su: "RenderSetup",
+                 band: tuple):
+        self.scene, self.cfg, self.device = su.scene, integ.cfg, su.device
+        # host values the capture bakes in (the rest of the graph's key)
+        self.host_args = dict(band_shape=(band[1], su.ws),
+                              filter_f1d=integ.filter_f1d,
+                              filter_radius=integ.filter_radius)
+        self.static = {k: None if v is None else torch.empty_like(v)
+                       for k, v in self._inputs(su, band).items()}
+        for keys, dtype in ((self.WORDS, torch.int64),
+                            (self.SCALARS, torch.float32)):
+            for k in keys:
+                self.static[k] = torch.zeros((), dtype=dtype,
+                                             device=self.device)
+        self.graph = SpanGraph(self.device)
+        self.launches = None  # a replay's hand kernel launches, once captured
+
+    @staticmethod
+    def _inputs(su, band) -> dict:
+        """``band_frame``'s tensor arguments of a band of a render."""
+        _, _, px, py, valid, b_base, scramble = band
+        return dict(valid_lanes=valid, px=px, py=py, b_base=b_base,
+                    scramble=scramble, inv_lo=su.inv_lo, inv_hi=su.inv_hi,
+                    sobol_pack=su.sobol_pack, r2c=su.r2c,
+                    cam_rot=su.cam_rot, cam_pos=su.cam_pos,
+                    dxdy_cam=su.dxdy_cam)
+
+    def stage(self, su, band) -> None:
+        """Copy a band's statics, the camera, the Sobol tables and the
+        render's scalars into the static buffers (on the current stream,
+        before the frames)."""
+        for k, v in self._inputs(su, band).items():
+            if v is not None:
+                self.static[k].copy_(v)
+        for k, v in zip(self.SCALARS, (*su.sobol_consts, su.diff_scale)):
+            self.static[k].fill_(v)
+
+    def _body(self):
+        return band_frame(self.scene, self.cfg, **self.host_args,
+                          **self.static)
+
+    def run(self, words) -> tuple:
+        """One band-frame at the Sobol words ``words`` (lo, hi, delta):
+        (tile, ray count, non-finite count). The outputs of a replay are
+        the graph's own: read them before the next ``run``."""
+        for k, w in zip(self.WORDS, words):
+            self.static[k].fill_(int(w))
+        if self.launches is not None:
+            with span("pt::graph_replay"):
+                out = self.graph.replay()
+            _build.replayed(self.launches)
+            GRAPH_COUNTS["replays"] += 1
+            return out
+        with span("pt::graph_capture"):
+            cur = torch.cuda.current_stream(self.device)
+            self.graph.stream.wait_stream(cur)
+            with torch.cuda.stream(self.graph.stream):
+                out = self._body()
+            for t in out:  # made on the side stream, read on this one
+                t.record_stream(cur)
+            tallies = []
+
+            def body():  # each capture's launches, apart
+                with _build.capturing() as tally:
+                    got = self._body()
+                tallies.append(tally)
+                return got
+            self.graph.capture(body)
+            self.launches = tallies[0]
+            cur.wait_stream(self.graph.stream)
+        GRAPH_COUNTS["captures"] += 1
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1042,7 +1218,9 @@ class RenderSetup:
 
 class PathIntegrator:
     """Host-side render loop: builds the sample-bounds pixel grid, cuts it into
-    row bands of about WAVE_LANES rays, and renders each band.
+    row bands of about WAVE_LANES rays, and renders each band. It keeps
+    the CUDA graphs its band-frames were captured in (``_band_graph``),
+    so later renders of the same scene and band shape replay them.
 
     ``no_diff`` turns the camera rays' differentials off, so every texture
     lookup takes level 0: the reference's environment switch
@@ -1064,6 +1242,8 @@ class PathIntegrator:
         self.last_ray_count = 0.0
         self.bad_sample_count = 0.0
         self.bounce_occupancy = np.zeros(0, np.float64)
+        self._graphs: dict = {}  # _band_graph's captured band-frames
+        self._traced = None  # (SceneData, its TracedScene): setup's last
 
     def render(self, camera: Camera, scene) -> torch.Tensor:
         """Returns the (H, W, 4) film accumulator on the scene's device."""
@@ -1083,9 +1263,13 @@ class PathIntegrator:
 
     def setup(self, camera: Camera, scene) -> RenderSetup:
         """The RenderSetup of a render of ``camera`` on the scene's
-        device."""
+        device. A SceneData is traced once and its TracedScene reused
+        while the same SceneData comes again, unchanged (so its band-frame
+        graphs are too)."""
         if not isinstance(scene, TracedScene):
-            scene = TracedScene.create(scene)
+            if self._traced is None or self._traced[0] is not scene:
+                self._traced = (scene, TracedScene.create(scene))
+            scene = self._traced[1]
         dev = scene.device
         w, h = camera.resolution
         (x0, y0), (x1, y1) = sample_bounds(w, h, self.filter_radius)
@@ -1132,10 +1316,28 @@ class PathIntegrator:
         return (by0, rows, t(px, torch.int32), t(py, torch.int32),
                 t(py < y_stop, torch.bool), b_base, scramble)
 
+    def _band_graph(self, su: RenderSetup, band: tuple) -> _BandGraph:
+        """The captured band-frame for ``band``'s shape, made at first use.
+        A graph serves every band, frame and render of its key (the scene,
+        the band's shape, differentials on or off: cameras, spp and
+        resolutions of that band shape only fill its buffers). Capturing
+        one drops the device's others, and with them their memory pools."""
+        key = (su.device, id(su.scene), self.cfg, band[1], su.ws,
+               su.dxdy_cam is not None)
+        entry = self._graphs.get(key)
+        if entry is None:
+            self._graphs = {k: g for k, g in self._graphs.items()
+                            if k[0] != su.device}
+            entry = self._graphs[key] = _BandGraph(self, su, band)
+        return entry
+
     def render_frames(self, su: RenderSetup, film_pad, band: tuple,
                       s0: int, n_frames: int, occupancy=None):
         """Render frames ``[s0, s0 + n_frames)`` of one ``band`` into the
-        padded film (in place): (film_pad, ray count, non-finite count)."""
+        padded film (in place): (film_pad, ray count, non-finite count).
+        Where ``_graph_engages``, each frame is a replay of the band's
+        captured graph (``_BandGraph``), else ``render_band`` runs them
+        eagerly."""
         by0, rows, px, py, valid, b_base, scramble = band
         frame_lo = frame_hi = frame_delta = None
         if su.domain is not None:
@@ -1143,6 +1345,13 @@ class PathIntegrator:
                       for i in range(n_frames)]
             frame_lo, frame_hi, frame_delta = (
                 [int(f[k]) for f in frames] for k in range(3))
+        if _graph_engages(su.scene, self.cfg):
+            graph = self._band_graph(su, band)
+            graph.stage(su, band)
+            words = list(zip(frame_lo, frame_hi, frame_delta))
+            return _band_frames(lambda s: graph.run(words[s]), n_frames,
+                                film_pad, su.x0, by0, self.filter_radius,
+                                su.device)
         return render_band(
             su.scene, self.cfg, n_frames, (rows, su.ws), valid, film_pad,
             su.x0, by0, px, py, b_base, scramble, frame_lo, frame_hi,

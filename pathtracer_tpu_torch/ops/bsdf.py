@@ -89,7 +89,7 @@ def refract(wi, n, eta):
 
 
 def _flip_to_wo_side(wi, wo):
-    flip = torch.tensor([1.0, 1.0, -1.0], dtype=wi.dtype, device=wi.device)
+    flip = pm.device_const((1.0, 1.0, -1.0), wi.device, wi.dtype)
     return torch.where((wo[..., 2] < 0.0)[..., None], wi * flip, wi)
 
 
@@ -731,7 +731,7 @@ def sample_f(mp, wo, u, reflect_ng_fn, present=ALL_MATERIALS):
         f = _sel3(preds, fs, zero3)
         pdf = select(preds, pdfs, zero1)
     else:
-        wi = torch.tensor([0.0, 0.0, 1.0], device=wo.device).expand(wo.shape)
+        wi = pm.device_const((0.0, 0.0, 1.0), wo.device).expand(wo.shape)
         f, pdf = zero3, zero1
     specular = (mtype == MAT_MIRROR) | (mtype == MAT_GLASS)
     return dict(wi=wi, f=f, pdf=pdf, specular=specular,

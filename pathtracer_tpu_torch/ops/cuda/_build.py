@@ -21,12 +21,16 @@ launch path is the host's cost of every call, so it does the least it
 can: the stream's raw handle comes from
 ``torch._C._cuda_getCurrentRawStream`` (what ``torch.compile``'s generated
 code calls), and a device guard is entered only for a tensor that is not
-on the current device. Each wrapper calls ``launch`` itself and counts the
-launch, with no helper frame between them.
+on the current device. Each wrapper calls ``launch`` itself, with no
+helper frame between them, and ``launch`` counts the launch in the
+wrapper module's ``LAUNCHES`` (``counted``). A CUDA graph's capture
+launches nothing: inside ``capturing`` the launches are tallied instead,
+and each replay of the graph counts the tally (``replayed``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import importlib.machinery
@@ -35,6 +39,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import sysconfig
 import tempfile
 
@@ -243,11 +248,58 @@ _current_device = getattr(torch._C, "_cuda_getDevice", None)
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
+# the module whose ``LAUNCHES`` counts each kernel, by the name it
+# launches under (``counted``)
+_COUNTERS: dict = {}
+# the launches of the CUDA graph being captured, by kernel; None while
+# none is (``capturing``)
+_tally = None
+
+
+def counted(module: str, kernels) -> None:
+    """Count each launch of ``kernels`` (their names) in ``LAUNCHES`` of
+    the module named ``module``: an int where it launches one kernel,
+    else a dict by kernel."""
+    for what in kernels:
+        _COUNTERS[what] = module
+
+
+def _count(what: str, n: int) -> None:
+    module = _COUNTERS.get(what)
+    if module is None:  # a launcher no wrapper module counts
+        return
+    mod = sys.modules[module]
+    if isinstance(mod.LAUNCHES, dict):
+        mod.LAUNCHES[what] += n
+    else:
+        mod.LAUNCHES += n
+
+
+@contextlib.contextmanager
+def capturing():
+    """Inside, launches are tallied and not counted, as a CUDA graph's
+    capture launches nothing. Yields the tally ({kernel: launches}) that
+    each replay of the graph counts (``replayed``)."""
+    global _tally
+    _tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _tally = None
+
+
+def replayed(tally: dict) -> None:
+    """Count the launches of one replay of a graph whose capture tallied
+    ``tally``."""
+    for what, n in tally.items():
+        _count(what, n)
+
+
 def launch(fn, what: str, index: int, *args) -> None:
     """Call the C launcher ``fn`` (from ``bind``) with ``(*args, stream)``
     on PyTorch's current stream of CUDA device ``index``, inside the span
     ``pt::k:<what>``, which holds the launch's runtime call; raise if the
-    launch reports an error."""
+    launch reports an error, else count it (``counted``, ``capturing``)."""
     call, address = fn
     with span("pt::k:" + what):
         if index == _current_device():
@@ -257,3 +309,7 @@ def launch(fn, what: str, index: int, *args) -> None:
                 err = call(address, *args, _raw_stream(index))
     if err:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+    if _tally is None:
+        _count(what, 1)
+    else:
+        _tally[what] = _tally.get(what, 0) + 1

@@ -23,8 +23,10 @@ SOURCE = "bvhw.cu"
 # rows, n, any_hit, stackw; g, g2, g3, g5; valid, t, tri, b, stream
 SIGNATURES = {"bvhw": "ppppiiiiffffppppp"}
 
-# kernel launches made by ``bvhw_intersect`` (CPU calls never count)
+# kernel launches made by ``bvhw_intersect`` (``_build.launch`` counts them;
+# CPU calls never launch)
 LAUNCHES = 0
+_build.counted(__name__, SIGNATURES)
 
 _fns = None
 
@@ -85,7 +87,6 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
     t (N,) (0 on a miss), tri (N,) i32 (0 on a miss), b (N, 3) (0 on a
     miss)) or, with any_hit, an (N,) bool tensor.
     """
-    global LAUNCHES
     dev, n = _check(table, o, d, t_max)
     if not 1 <= stackw <= STACKW:
         raise ValueError(f"stackw must be in [1, {STACKW}], got {stackw}")
@@ -105,7 +106,6 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), table.shape[0], n,
             int(bool(any_hit)), int(stackw), G_SLAB, GAMMA2, GAMMA3, GAMMA5,
             *outs)
-        LAUNCHES += 1
     if any_hit:
         return valid
     return dict(valid=valid, t=t, tri=tri, b=b)

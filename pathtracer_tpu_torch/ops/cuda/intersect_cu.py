@@ -26,8 +26,10 @@ SOURCE = "intersect.cu"
 # n, f, any_hit; g2, g3, g5; valid, t, tri, b, stream
 SIGNATURES = {"intersect": "ppppiiifffppppp"}
 
-# kernel launches made by ``intersect`` (CPU calls never count)
+# kernel launches made by ``intersect`` (``_build.launch`` counts them;
+# CPU calls never launch)
 LAUNCHES = 0
+_build.counted(__name__, SIGNATURES)
 
 _fns = None
 
@@ -99,7 +101,6 @@ def intersect(o, d, t_max, tri_pack, any_hit: bool = False):
     is not > 0 (0, negative, NaN) is a miss, as in the plain version; the
     kernel tests nothing for it.
     """
-    global LAUNCHES
     dev, n = _check(o, d, t_max, tri_pack)
     if dev < 0:
         return intersect_plain(o, d, t_max, tri_pack, any_hit)
@@ -117,7 +118,6 @@ def intersect(o, d, t_max, tri_pack, any_hit: bool = False):
             d.data_ptr(), t_max.data_ptr(), tri_pack.data_ptr(), n,
             tri_pack.shape[0], int(bool(any_hit)), GAMMA2, GAMMA3, GAMMA5,
             *outs)
-        LAUNCHES += 1
     if any_hit:
         return valid
     return dict(valid=valid, t=t, tri=tri, b=b)

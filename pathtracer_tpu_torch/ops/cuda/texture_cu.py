@@ -34,9 +34,10 @@ SOURCE = "texture.cu"
 SIGNATURES = {"texture_eval": "ppppppiippppiiipp",
               "alpha_cut": "pppppppifppppp"}
 
-# kernel launches made by ``texture_eval`` and ``alpha_cut`` (CPU calls
-# never count)
+# kernel launches made by ``texture_eval`` and ``alpha_cut``
+# (``_build.launch`` counts them; CPU calls never launch)
 LAUNCHES = {"texture_eval": 0, "alpha_cut": 0}
+_build.counted(__name__, SIGNATURES)
 
 _fns = None
 
@@ -132,7 +133,6 @@ def texture_eval(scene, txd_id, uv, fallback, duv=None, image: bool = True):
             txd_id.data_ptr(), uv.data_ptr(), fallback.data_ptr(), fb_row,
             fb_col, *derivs, n, int(duv is not None), int(bool(image)),
             out.data_ptr())
-        LAUNCHES["texture_eval"] += 1
     return out
 
 
@@ -197,5 +197,4 @@ def alpha_cut(scene, hit):
             scene.tri_attr.data_ptr(), hit["tri"].data_ptr(), b.data_ptr(),
             hit["valid"].data_ptr(), n, GAMMA7, cut.data_ptr(),
             p_hit.data_ptr(), p_err.data_ptr(), ng.data_ptr())
-        LAUNCHES["alpha_cut"] += 1
     return cut, p_hit, p_err, ng

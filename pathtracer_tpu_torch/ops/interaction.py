@@ -136,7 +136,7 @@ def apply_normal_mapping(scene, it, duv=None):
     keep their frame."""
     ntx = scene.mat_normal_tx[it["material"].long()]
     has = ntx >= 0
-    flat = torch.tensor([0.5, 0.5, 1.0], device=it["ns"].device)
+    flat = pm.device_const((0.5, 0.5, 1.0), it["ns"].device)
     rgb = eval_texture(scene, ntx, it["uv"], flat.expand(it["ns"].shape),
                        duv=duv)
     n_tan = pm.normalize(2.0 * rgb - 1.0)

@@ -139,16 +139,25 @@ def _index_bits(word, nbits: int):
     return (word[..., None] >> shifts) & 1
 
 
+def _word(w):
+    """A frame word as an XOR operand: a device tensor as it is, a host
+    integer (numpy's included) as a Python int."""
+    return w if isinstance(w, torch.Tensor) else int(w)
+
+
 def sobol_index(b_base, delta, shifted_lo, shifted_hi, inv_lo, inv_hi):
     """Per-pixel 64-bit Sobol sample index as (lo, hi) words.
 
-    b_base: (N,) int64 words; delta/shifted_*: host ints; inv_lo/hi: (52,)
-    rows from vdc_inv_rows. Only the low 32 index bits can be set.
+    b_base: (N,) int64 words; delta/shifted_*: the frame's words
+    (frame_statics), host ints or 0-d int64 tensors on b_base's device
+    (the same bits: a captured CUDA graph reads them from its buffers);
+    inv_lo/hi: (52,) rows from vdc_inv_rows. Only the low 32 index bits
+    can be set.
     """
-    bits = _index_bits(b_base ^ int(delta), 32)
+    bits = _index_bits(b_base ^ _word(delta), 32)
     lo = _xor_reduce(bits * inv_lo[:32])
     hi = _xor_reduce(bits * inv_hi[:32])
-    return lo ^ int(shifted_lo), hi ^ int(shifted_hi)
+    return lo ^ _word(shifted_lo), hi ^ _word(shifted_hi)
 
 
 def _dim_value(idx_lo, idx_hi, rows):

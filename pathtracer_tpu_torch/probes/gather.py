@@ -43,13 +43,15 @@ D = 64           # stack depth
 
 SOURCE = "gather_probe.cu"
 
-# kernel launches by wrapper (CPU calls never count)
+# kernel launches by wrapper (``_build.launch`` counts them;
+# CPU calls never launch)
 LAUNCHES = {"gather_rows": 0, "gather_cols": 0, "gather_rows_warp": 0,
             "stack_push_read": 0}
 
 # each launcher's signature (ops/cuda/_build.bind)
 SIGNATURES = {"gather_rows": "ppiiipp", "gather_cols": "ppiiipp",
               "gather_rows_warp": "ppiiipp", "stack_push_read": "ppiipp"}
+_build.counted(__name__, SIGNATURES)
 
 _fns = None
 
@@ -133,7 +135,6 @@ def gather_rows(table, idx):
         _build.launch((_fns or _load())["gather_rows"], "gather_rows", dev,
                       table.data_ptr(), idx.data_ptr(), n, m, w,
                       out.data_ptr())
-        LAUNCHES["gather_rows"] += 1
     return out
 
 
@@ -147,7 +148,6 @@ def gather_rows_warp(table, idx):
         _build.launch((_fns or _load())["gather_rows_warp"],
                       "gather_rows_warp", dev, table.data_ptr(),
                       idx.data_ptr(), n, m, w, out.data_ptr())
-        LAUNCHES["gather_rows_warp"] += 1
     return out
 
 
@@ -161,7 +161,6 @@ def gather_cols(table_t, idx):
         _build.launch((_fns or _load())["gather_cols"], "gather_cols", dev,
                       table_t.data_ptr(), idx.data_ptr(), n, m, w,
                       out.data_ptr())
-        LAUNCHES["gather_cols"] += 1
     return out
 
 
@@ -190,7 +189,6 @@ def stack_push_read(sp, v, depth: int = D):
         _build.launch((_fns or _load())["stack_push_read"], "stack_push_read",
                       dev, sp.data_ptr(), v.data_ptr(), out.shape[0], depth,
                       out.data_ptr())
-        LAUNCHES["stack_push_read"] += 1
     return out
 
 

@@ -39,13 +39,15 @@ C, S, L = 548, 64, 128  # table rows (chunks), index rows, lane width
 
 SOURCE = "gather_probe2.cu"
 
-# kernel launches by wrapper (CPU calls never count)
+# kernel launches by wrapper (``_build.launch`` counts them;
+# CPU calls never launch)
 LAUNCHES = {"gather_sublane": 0, "gather_lane": 0, "gather_two_step": 0,
             "onehot_matmul": 0}
 
 # each launcher's signature (ops/cuda/_build.bind)
 SIGNATURES = {"gather_sublane": "ppiipp", "gather_lane": "ppipp",
               "gather_two_step": "ppiipp", "onehot_matmul": "ppipp"}
+_build.counted(__name__, SIGNATURES)
 
 _fns = None
 
@@ -134,7 +136,6 @@ def gather_sublane(data, idx):
         _build.launch((_fns or _load())["gather_sublane"], "gather_sublane",
                       dev, data.data_ptr(), idx.data_ptr(), s, data.shape[0],
                       out.data_ptr())
-        LAUNCHES["gather_sublane"] += 1
     return out
 
 
@@ -147,7 +148,6 @@ def gather_lane(data, idx):
     if s:
         _build.launch((_fns or _load())["gather_lane"], "gather_lane", dev,
                       data.data_ptr(), idx.data_ptr(), s, out.data_ptr())
-        LAUNCHES["gather_lane"] += 1
     return out
 
 
@@ -162,7 +162,6 @@ def gather_two_step(flat2, idx):
         _build.launch((_fns or _load())["gather_two_step"], "gather_two_step",
                       dev, flat2.data_ptr(), idx.data_ptr(), s,
                       flat2.shape[0], out.data_ptr())
-        LAUNCHES["gather_two_step"] += 1
     return out
 
 
@@ -187,7 +186,6 @@ def onehot_matmul(tbl, idx, out=None):
     if s:
         _build.launch((_fns or _load())["onehot_matmul"], "onehot_matmul",
                       dev, tbl_ptr, idx.data_ptr(), s * L, out.data_ptr())
-        LAUNCHES["onehot_matmul"] += 1
     return out
 
 

@@ -16,7 +16,14 @@ The spans (``pt::`` names; parent by nesting):
   ``pt::chunk_sync`` (the chunk's host reads of its counts, the
   occupancy read, the checkpoint save) and ``pt::callback``;
 - ``pt::band_frame``: one row band's one sample frame; in it
-  ``pt::sampler``, ``pt::camera``, ``pt::bounce`` and ``pt::film``;
+  ``pt::sampler``, ``pt::camera``, ``pt::bounce`` and ``pt::film``.
+  Where the band-frame runs as CUDA graphs (``integrator._BandGraph``)
+  they lie in ``pt::graph_capture`` (the eager warm-up and the captures,
+  once a graph) or ``pt::graph_replay`` (a replay). A replay under a
+  profiler opens the spans its capture met, in their order, and launches
+  each stretch of device work between two of them as a graph of its own
+  (``utils/span_graph.py``): a replayed kernel's correlation id names a
+  ``cudaGraphLaunch`` in the span its eager launch would lie in;
 - in a bounce: ``pt::intersect`` (a closest-hit or shadow query, alpha
   walks included), ``pt::shade`` (the hit's frame, emission, the
   material's parameters), ``pt::nee`` (one ``estimate_direct``),
@@ -33,11 +40,17 @@ import torch
 
 _OFF = contextlib.nullcontext()
 _recording = torch.autograd._profiler_enabled
+# while a ``span_graph.SpanGraph`` captures, the function that makes its
+# spans (each cuts the capture: ``SpanGraph._span``); else None
+capture = None
 
 
 def span(name: str):
     """A ``record_function`` range named ``name`` while a profiler
-    records; otherwise a shared ``nullcontext``."""
+    records; otherwise a shared ``nullcontext``. While a ``SpanGraph``
+    captures, its own span, which records the span in the capture."""
+    if capture is not None:
+        return capture(name)
     if not _recording():
         return _OFF
     return torch.profiler.record_function(name)

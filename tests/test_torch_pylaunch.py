@@ -11,7 +11,9 @@ import ctypes
 import os
 import shutil
 import subprocess
+import sys
 import sysconfig
+import types
 
 import pytest
 
@@ -126,6 +128,58 @@ def test_launch_raises_on_a_nonzero_code(built, monkeypatch):
     with pytest.raises(RuntimeError,
                        match="probe kernel launch failed: CUDA error 700"):
         _build.launch(fn, "probe", 0, 1 << 33, 2, 7, 3)
+
+
+def test_launch_counts_and_a_capture_tallies(built, monkeypatch):
+    """``_build.launch`` counts each launch in its module's ``LAUNCHES``
+    (an int, or a dict by kernel); inside ``capturing`` it tallies the
+    launches instead, and ``replayed`` counts the tally once a replay. A
+    failed launch counts nothing."""
+    mod, lib = built
+    fn = (mod.ppipp, ctypes.cast(lib.pt_ppipp_launch, ctypes.c_void_p).value)
+    monkeypatch.setattr(_build, "_current_device", lambda: 0)
+    monkeypatch.setattr(_build, "_raw_stream", lambda index: 1 << 45)
+    ret = ctypes.c_int.in_dll(lib, "ret_code")
+    one = types.ModuleType("one_kernel")
+    one.LAUNCHES = 0
+    two = types.ModuleType("two_kernels")
+    two.LAUNCHES = {"probe_a": 0, "probe_b": 0}
+    for m in (one, two):
+        monkeypatch.setitem(sys.modules, m.__name__, m)
+    monkeypatch.setattr(_build, "_COUNTERS", {})
+    _build.counted("one_kernel", {"probe": "ppipp"})
+    _build.counted("two_kernels", ("probe_a", "probe_b"))
+    ret.value = 0
+    args = (1 << 33, 2, 7, 3)
+    for what in ("probe", "probe_b", "probe_b", "unlisted"):
+        _build.launch(fn, what, 0, *args)
+    assert one.LAUNCHES == 1 and two.LAUNCHES == dict(probe_a=0, probe_b=2)
+    with _build.capturing() as tally:
+        _build.launch(fn, "probe", 0, *args)
+        _build.launch(fn, "probe_a", 0, *args)
+        _build.launch(fn, "probe", 0, *args)
+    assert tally == dict(probe=2, probe_a=1) and _build._tally is None
+    assert one.LAUNCHES == 1 and two.LAUNCHES == dict(probe_a=0, probe_b=2)
+    for _ in range(3):
+        _build.replayed(tally)
+    assert one.LAUNCHES == 7 and two.LAUNCHES == dict(probe_a=3, probe_b=2)
+    ret.value = 700
+    with pytest.raises(RuntimeError):
+        _build.launch(fn, "probe", 0, *args)
+    assert one.LAUNCHES == 7
+    ret.value = 0
+
+
+@pytest.mark.parametrize("module", MODULES, ids=lambda m: m.__name__)
+def test_every_wrapper_kernel_is_counted_in_its_module(module):
+    """Each kernel of a wrapper module's ``SIGNATURES`` counts in that
+    module's ``LAUNCHES`` (its own key where that is a dict)."""
+    for kernel in module.SIGNATURES:
+        assert _build._COUNTERS[kernel] == module.__name__
+        if isinstance(module.LAUNCHES, dict):
+            assert kernel in module.LAUNCHES
+    if not isinstance(module.LAUNCHES, dict):
+        assert len(module.SIGNATURES) == 1
 
 
 def test_every_wrapper_signature_has_its_trampoline():

@@ -10,6 +10,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -153,6 +154,91 @@ def test_options_outside_the_slice_raise(kwargs):
         # bounce 0 counts every camera lane of the 12 x 12 sample rectangle
         assert integ.bounce_occupancy.tolist()[0] == 12 * 12
         assert len(integ.bounce_occupancy) == 2
+
+
+def _cuda_stand_in(ts):
+    """What ``_graph_engages`` reads of a traced scene, as if on a card."""
+    return types.SimpleNamespace(device=torch.device("cuda"),
+                                 has_alpha=ts.has_alpha)
+
+
+@pytest.mark.parametrize("case", [
+    "card", "cpu", "brute", "dense", "tree", "binary", "count_occupancy",
+    "stratified", "random"])
+def test_graph_engages_only_where_a_capture_holds_the_band_frame(case):
+    """The CUDA graph takes cornell's band-frames on a card and nowhere
+    else: not on the CPU, not for any alpha route (split subset, dense
+    pass, its own table, the all-masked binary tree, K1's retries), not
+    under count_occupancy, not under the hash samplers."""
+    from pathtracer_tpu_torch.integrator import TracedScene, _graph_engages
+    from pathtracer_tpu_torch.scene.scene import SceneBuilder
+    from torch_alpha_scenes import ROUTES, build
+    cfg = PathConfig(max_depth=5, mis_mode="onesample")
+    if case in ROUTES:
+        fill, use_bvh, attr = ROUTES[case]
+        ts = TracedScene.create(build(SceneBuilder, fill), use_bvh=use_bvh)
+        route = True if attr is None else getattr(ts, attr)
+        assert ts.has_alpha and route is not None and route is not False
+    else:
+        _, sd, _ = load_mitsuba(CORNELL, resolution=(8, 8), device="cpu")
+        ts = TracedScene.create(sd)
+        assert not ts.has_alpha
+    if case == "count_occupancy":
+        cfg = dataclasses.replace(cfg, count_occupancy=True)
+    if case in ("stratified", "random"):
+        cfg = dataclasses.replace(cfg, sampler=case)
+    scene = ts if case == "cpu" else _cuda_stand_in(ts)
+    assert _graph_engages(scene, cfg) == (case == "card")
+
+
+def test_cpu_render_counts_its_band_frames_eager():
+    """A CPU render runs every band-frame eagerly and says so in
+    GRAPH_COUNTS: bands x spp under "eager", no capture, no replay."""
+    from pathtracer_tpu_torch import integrator as pint
+    cam, sd, _ = load_mitsuba(CORNELL, resolution=(16, 12), device="cpu")
+    integ = PathIntegrator(PathConfig(max_depth=2, mis_mode="onesample"),
+                           spp=4, band_rows=6)
+    before = dict(pint.GRAPH_COUNTS)
+    integ.render_progressive(cam, sd, chunk_spp=2)
+    got = {k: v - before[k] for k, v in pint.GRAPH_COUNTS.items()}
+    assert got == dict(captures=0, replays=0,
+                       eager=integ.band_layout(cam)[1] * 4)
+    assert integ.band_layout(cam)[1] == 3
+
+
+def test_one_band_graph_a_device_and_one_trace_a_scene_data(monkeypatch):
+    """A SceneData passed again is traced once (its TracedScene, and so
+    its graphs, are reused). The integrator keeps one captured
+    band-frame a device: a moved camera finds it, as its buffers take the
+    camera; another band shape or another scene replaces it."""
+    from pathtracer_tpu_torch import integrator as pint
+    made = []
+
+    class StandIn:
+        def __init__(self, integ, su, band):
+            made.append(self)
+
+    monkeypatch.setattr(pint, "_BandGraph", StandIn)
+    cam, sd, _ = load_mitsuba(CORNELL, resolution=(16, 12), device="cpu")
+    moved = dataclasses.replace(cam, cam_to_world=cam.cam_to_world * 1.01)
+    integ = PathIntegrator(PathConfig(max_depth=2), spp=4, band_rows=6)
+
+    def graph(camera, scene):
+        su = integ.setup(camera, scene)
+        return su, integ._band_graph(su, integ.band(su, su.y0, 6, su.y1))
+
+    su, g = graph(cam, sd)
+    su2, g2 = graph(moved, sd)
+    assert su2.scene is su.scene and g2 is g and len(made) == 1
+    wide = dataclasses.replace(cam, resolution=(20, 12))
+    _, g3 = graph(wide, su.scene)
+    assert g3 is not g and list(integ._graphs.values()) == [g3]
+    _, g4 = graph(wide, sd)  # the same TracedScene: the same graph
+    assert g4 is g3
+    _, sd_b, _ = load_mitsuba(CORNELL, resolution=(20, 12), device="cpu")
+    su5, g5 = graph(wide, sd_b)
+    assert su5.scene is not su.scene and g5 is not g3
+    assert list(integ._graphs.values()) == [g5] and len(made) == 3
 
 
 def test_port_render_imports_no_jax():

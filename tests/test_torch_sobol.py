@@ -128,3 +128,21 @@ def test_render_past_the_table_runs():
                               device="cpu")
     film = PathIntegrator(PathConfig(max_depth=130), spp=1).render(cam, sd)
     assert torch.isfinite(film).all() and (film[..., 3] > 0).all()
+
+
+@pytest.mark.parametrize("frame", range(64))
+def test_index_takes_frame_words_as_tensors(frame):
+    """The frame's words as 0-d int64 tensors (what a captured CUDA graph
+    reads from its buffers) give the bits of the host ints, over every
+    frame of a 64-spp render at 640x480."""
+    dom = psb.SobolDomain.create((-2, -2), (644, 484), 64)
+    px, py = _pixels(((-2, -2), (644, 484), 64), n=512, seed=frame)
+    _, b_base = psb.pixel_statics(dom, px, py)
+    b_base = torch.as_tensor(b_base.astype(np.int64))
+    inv = psb.vdc_inv_rows(dom, "cpu")
+    lo_s, hi_s, delta = psb.frame_statics(dom, frame)
+    want = psb.sobol_index(b_base, int(delta), int(lo_s), int(hi_s), *inv)
+    got = psb.sobol_index(b_base, *(torch.tensor(int(w), dtype=torch.int64)
+                                    for w in (delta, lo_s, hi_s)), *inv)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64 and torch.equal(g, w)

@@ -5,9 +5,9 @@ small render holds every span of the render loop, nested chunk >
 band-frame > bounce > leaf, one band-frame a band and sample frame and
 ``max_depth + 1`` bounces in each, and nearly every top-level torch op
 of a band-frame in a layer span below it; the film is the same bits with
-and without the profiler. The ``cuda`` test pairs each K1 kernel of a
-card render to its ``pt::k:intersect`` span inside ``pt::intersect`` by
-its correlation id.
+and without the profiler. The ``cuda`` tests pair each K1 kernel of a
+card render, replayed from CUDA graphs or eager, to its
+``pt::k:intersect`` span inside ``pt::intersect`` by its correlation id.
 """
 
 import numpy as np
@@ -231,10 +231,24 @@ def card():
 
 @pytest.mark.cuda
 def test_every_k1_kernel_links_to_its_launch_span(card):
-    """A short cornell render on the card: as many ``intersect_kernel``s
-    as ``pt::k:intersect`` spans, each span in ``pt::intersect``, and
-    each kernel's correlation id naming a runtime call inside a span of
-    its own, before the kernel starts."""
+    """A short cornell render on the card (its band-frames replayed from
+    CUDA graphs cut at every span, ``utils/span_graph.py``): as many
+    ``intersect_kernel``s as ``pt::k:intersect`` spans, each span in
+    ``pt::intersect``, and each kernel's correlation id naming a runtime
+    call inside a span of its own, before the kernel starts."""
+    _k1_links(card)
+
+
+@pytest.mark.cuda
+def test_every_k1_kernel_links_to_its_launch_span_eager(card, monkeypatch):
+    """As above, the band-frames run eagerly (as an alpha scene's do)."""
+    from pathtracer_tpu_torch import integrator
+
+    monkeypatch.setattr(integrator, "_graph_engages", lambda s, c: False)
+    _k1_links(card)
+
+
+def _k1_links(card):
     from torch.autograd import DeviceType
 
     from pathtracer_tpu_torch.ops.cuda import intersect_cu
