@@ -165,8 +165,7 @@ def main(argv=None) -> int:
         pass
 
     from ..integrator import PathConfig, PathIntegrator, TracedScene
-    cfg = PathConfig(max_depth=args.max_depth, mis_mode=args.mis,
-                     count_occupancy=bool(args.profile))
+    cfg = PathConfig(max_depth=args.max_depth, mis_mode=args.mis)
 
     if mesh:
         # each rank loads the scene on its own device (the reference

@@ -35,9 +35,10 @@ the wavefront sort, the one-hot MXU row gather (``table[idx]`` here), the
 lane-bounce budget, the segmented renderer and the traversal's chunk and
 interleave knobs.
 
-Under ``PathConfig.count_occupancy`` each wave counts its live lanes a
-bounce into one (max_depth + 1,) int64 tensor on the device, which the
-host reads once a chunk into ``PathIntegrator.bounce_occupancy``.
+Each band-frame counts its live lanes a bounce (``trace_wave``'s
+``occupancy``) into a (max_depth + 1,) float64 tensor of the render's on
+the device, which the host reads at each chunk's sync into
+``PathIntegrator.bounce_occupancy`` and ``PathIntegrator.lane_bounces``.
 """
 
 from __future__ import annotations
@@ -112,7 +113,8 @@ GRAPH_COUNTS = dict(captures=0, replays=0, eager=0)
 
 @dataclasses.dataclass(frozen=True)
 class PathConfig:
-    """Integrator knobs (same fields and defaults as the reference)."""
+    """Integrator knobs (the reference's fields and defaults, but for its
+    ``count_occupancy``: the port counts the live lanes always)."""
 
     max_depth: int = 15
     rr_threshold: float = 1.0
@@ -121,9 +123,6 @@ class PathConfig:
     sanitize: bool = True  # zero non-finite radiance
     sampler: str = "sobol"
     light_strategy: str = "one"
-    # live lanes a bounce (PathIntegrator.bounce_occupancy; the CLI's
-    # --profile turns it on)
-    count_occupancy: bool = False
     # "ref": estimate_direct's BSDF branch re-intersects the scene;
     # "onesample": the continuation ray doubles as the MIS BSDF branch
     mis_mode: str = "ref"
@@ -619,20 +618,23 @@ def trace_wave(scene, cfg: PathConfig, draw, draw2, o, d, rxd=None,
     (the stratified sampler's arrays for the all-lights strategy; None
     otherwise); rxd / ryd are the camera rays' differential directions
     (None: none), used at the first hit only. ``occupancy``, a
-    (max_depth + 1,) int64 tensor or None, gets each bounce's live lanes
-    added in place (the reference returns them as a fourth value).
+    (max_depth + 1,) float tensor or None, gets each bounce's live lanes
+    (the bounce's own count, ``_wave_bounce``'s ``live``) added in place,
+    one add a wave (the reference returns them as a fourth value).
     Returns (L (N, 3), ray count, non-finite sample count), the two counts
     as 0-d tensors.
     """
     st = _wave_init(scene, cfg, o, d, lane_valid=lane_valid)
+    live = []
     for bounce in range(cfg.max_depth + 1):
-        if occupancy is not None:
-            occupancy[bounce] += torch.count_nonzero(st["active"])
         with span("pt::bounce"):
             st = _wave_bounce(scene, cfg, bounce, st, draw, draw2,
                               draw2_arr=draw2_arr,
                               rxd=rxd if bounce == 0 else None,
                               ryd=ryd if bounce == 0 else None)
+        live.append(st["live"])
+    if occupancy is not None:
+        occupancy += torch.stack(live)
     out, n_bad = _wave_radiance(cfg, st)
     return out, st["rays"], n_bad
 
@@ -712,7 +714,9 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
     prev_pdf, prev_p = st["prev_pdf"], st["prev_p"]
     prev_perr, prev_ng = st["prev_perr"], st["prev_ng"]
 
-    st["rays"] = st["rays"] + torch.sum(active.to(torch.float32))
+    # the lanes that start the bounce (0-d float32, exact below 2^24)
+    st["live"] = torch.sum(active.to(torch.float32))
+    st["rays"] = st["rays"] + st["live"]
     # finished paths test nothing: t_max 0 on the lanes not active
     hit = _scene_intersect(scene, o, d, torch.inf, live=active)
     found = hit["valid"] & active
@@ -1070,8 +1074,8 @@ def _graph_engages(scene, cfg: PathConfig) -> bool:
 
     A graph holds a band-frame whose every host step is the same from
     one frame to the next and whose device work asks nothing of the host:
-    on a CUDA device, a scene without alpha masks, the Sobol sampler, no
-    occupancy count. Each case left out breaks that:
+    on a CUDA device, a scene without alpha masks, the Sobol sampler.
+    Each case left out breaks that:
 
     - CPU tensors: CUDA graphs exist only on a CUDA device.
     - Alpha masks (``has_alpha``: the split subset's table or dense pass,
@@ -1080,11 +1084,9 @@ def _graph_engages(scene, cfg: PathConfig) -> bool:
       ``ops/intersect.intersect_alpha_dense``), which a capture refuses.
     - The stratified and random samplers: they take the frame's index as
       a host scalar (``ops/samplers.py``), which a capture would freeze.
-    - ``count_occupancy``: it adds into a tensor that each render makes
-      anew, whose address a capture would freeze.
     """
     return (scene.device.type == "cuda" and not scene.has_alpha
-            and cfg.sampler == "sobol" and not cfg.count_occupancy)
+            and cfg.sampler == "sobol")
 
 
 class _BandGraph:
@@ -1094,9 +1096,10 @@ class _BandGraph:
     replayed inside the same spans).
 
     It owns the graphs, their memory pool (the tensors the captures made,
-    the outputs among them) and the static buffers the graphs read: a
-    band's pixel statics, the camera's parameters, the Sobol tables and
-    scalars, the differentials' scale and the frame's three Sobol words.
+    the outputs among them: the band-frame's tile and counts, and its live
+    lanes a bounce) and the static buffers the graphs read: a band's pixel
+    statics, the camera's parameters, the Sobol tables and scalars, the
+    differentials' scale and the frame's three Sobol words.
     ``stage`` copies a render's band into them, ``run`` a frame's words;
     the first ``run`` runs the band-frame eagerly on the capture's stream
     (the warm-up PyTorch's graph docs prescribe; its result is that
@@ -1147,13 +1150,16 @@ class _BandGraph:
             self.static[k].fill_(v)
 
     def _body(self):
-        return band_frame(self.scene, self.cfg, **self.host_args,
-                          **self.static)
+        live = torch.zeros((self.cfg.max_depth + 1,), dtype=torch.float32,
+                           device=self.device)
+        return (*band_frame(self.scene, self.cfg, **self.host_args,
+                            **self.static, occupancy=live), live)
 
     def run(self, words) -> tuple:
         """One band-frame at the Sobol words ``words`` (lo, hi, delta):
-        (tile, ray count, non-finite count). The outputs of a replay are
-        the graph's own: read them before the next ``run``."""
+        (tile, ray count, non-finite count, live lanes a bounce). The
+        outputs of a replay are the graph's own: read them before the next
+        ``run``."""
         for k, w in zip(self.WORDS, words):
             self.static[k].fill_(int(w))
         if self.launches is not None:
@@ -1225,9 +1231,13 @@ class PathIntegrator:
     ``no_diff`` turns the camera rays' differentials off, so every texture
     lookup takes level 0: the reference's environment switch
     ``PTPU_NO_DIFF``, here an explicit argument (ROADMAP Queue 3).
-    Under ``cfg.count_occupancy`` a render leaves its live lanes a bounce,
-    summed over bands and frames, in ``bounce_occupancy`` (float64,
-    max_depth + 1 entries)."""
+    A render leaves its live lanes a bounce, summed over bands and frames,
+    in ``bounce_occupancy`` (float64, max_depth + 1 entries), read at each
+    chunk's sync. ``lane_bounces`` sums over every render of the
+    integrator, at the same syncs, the lane-bounces run (``run``: every
+    lane of every band-frame, padding lanes too, at each of its bounces,
+    as the bounce loop runs them all) and those of them whose lane was
+    live (``live``)."""
 
     def __init__(self, cfg: PathConfig = PathConfig(), spp: int = 4,
                  filter_kind: str = "gaussian", band_rows: int | None = None,
@@ -1242,6 +1252,7 @@ class PathIntegrator:
         self.last_ray_count = 0.0
         self.bad_sample_count = 0.0
         self.bounce_occupancy = np.zeros(0, np.float64)
+        self.lane_bounces = dict(live=0.0, run=0.0)
         self._graphs: dict = {}  # _band_graph's captured band-frames
         self._traced = None  # (SceneData, its TracedScene): setup's last
 
@@ -1334,9 +1345,11 @@ class PathIntegrator:
     def render_frames(self, su: RenderSetup, film_pad, band: tuple,
                       s0: int, n_frames: int, occupancy=None):
         """Render frames ``[s0, s0 + n_frames)`` of one ``band`` into the
-        padded film (in place): (film_pad, ray count, non-finite count).
-        Where ``_graph_engages``, each frame is a replay of the band's
-        captured graph (``_BandGraph``), else ``render_band`` runs them
+        padded film (in place): (film_pad, ray count, non-finite count),
+        each frame's live lanes a bounce added into ``occupancy`` (None:
+        not counted). Where ``_graph_engages``, each frame is a replay of
+        the band's captured graph (``_BandGraph``), its live lanes added
+        after it as its tile is; else ``render_band`` runs them
         eagerly."""
         by0, rows, px, py, valid, b_base, scramble = band
         frame_lo = frame_hi = frame_delta = None
@@ -1349,9 +1362,14 @@ class PathIntegrator:
             graph = self._band_graph(su, band)
             graph.stage(su, band)
             words = list(zip(frame_lo, frame_hi, frame_delta))
-            return _band_frames(lambda s: graph.run(words[s]), n_frames,
-                                film_pad, su.x0, by0, self.filter_radius,
-                                su.device)
+
+            def frame(s):
+                tile, rays, n_bad, live = graph.run(words[s])
+                if occupancy is not None:
+                    occupancy.add_(live)
+                return tile, rays, n_bad
+            return _band_frames(frame, n_frames, film_pad, su.x0, by0,
+                                self.filter_radius, su.device)
         return render_band(
             su.scene, self.cfg, n_frames, (rows, su.ws), valid, film_pad,
             su.x0, by0, px, py, b_base, scramble, frame_lo, frame_hi,
@@ -1382,9 +1400,8 @@ class PathIntegrator:
         self.bad_sample_count = 0.0
         self.bounce_occupancy = np.zeros(self.cfg.max_depth + 1, np.float64)
         # the live lanes stay on the device; read once a chunk
-        occupancy = torch.zeros((self.cfg.max_depth + 1,), dtype=torch.int64,
-                                device=dev) \
-            if self.cfg.count_occupancy else None
+        occupancy = torch.zeros((self.cfg.max_depth + 1,),
+                                dtype=torch.float64, device=dev)
         w, h = camera.resolution
         band, n_bands = self.band_layout(camera)
         chunk = pm.round_up_pow2(min(chunk_spp or self.spp, self.spp))
@@ -1413,9 +1430,13 @@ class PathIntegrator:
                     for rays, n_bad in stats:
                         self.last_ray_count += float(rays)
                         self.bad_sample_count += float(n_bad)
-                    if occupancy is not None:
-                        self.bounce_occupancy = \
-                            occupancy.cpu().numpy().astype(np.float64)
+                    occ = occupancy.cpu().numpy().copy()  # a CPU tensor's own
+                    self.lane_bounces["live"] += float(
+                        occ.sum() - self.bounce_occupancy.sum())
+                    self.lane_bounces["run"] += float(
+                        n_frames * len(bands) * band * su.ws
+                        * (self.cfg.max_depth + 1))
+                    self.bounce_occupancy = occ
                     if checkpoint:
                         np.savez(checkpoint, film_pad=film_pad.cpu().numpy(),
                                  next_frame=s0 + n_frames, spp=self.spp)

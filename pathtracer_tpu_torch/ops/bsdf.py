@@ -18,6 +18,11 @@ per-hit (ss, ts, ns) frame.
 Textures: constant, checker and image descriptors; an image descriptor
 reads the mip pool (``scene/texture.py``) at the filter width of the
 camera rays' differentials.
+
+While a profiler records, the branches of METAL, SUBSTRATE and GLASS
+each run in a span of their own (``pt::bsdf:metal``,
+``pt::bsdf:substrate``, ``pt::bsdf:glass``; ``utils/spans.py``), in
+``eval_f_pdf`` and ``sample_f`` alike.
 """
 
 from __future__ import annotations
@@ -529,14 +534,17 @@ def eval_f_pdf(mp, wo, wi, reflect_ng, present=ALL_MATERIALS):
         pdfs.append(_cosine_pdf(wo, wi))
 
     if MAT_METAL in present:
-        preds.append(mtype == MAT_METAL)
-        fs.append(_microfacet_f(mp["ks"], wo, wi, ax, ay, _conductor_fn(mp)))
-        pdfs.append(_microfacet_pdf(wo, wi, ax, ay))
+        with span("pt::bsdf:metal"):
+            preds.append(mtype == MAT_METAL)
+            fs.append(_microfacet_f(mp["ks"], wo, wi, ax, ay,
+                                    _conductor_fn(mp)))
+            pdfs.append(_microfacet_pdf(wo, wi, ax, ay))
 
     if MAT_SUBSTRATE in present:
-        preds.append(mtype == MAT_SUBSTRATE)
-        fs.append(_fresnel_blend_f(mp["kd"], mp["ks"], wo, wi, ax, ay))
-        pdfs.append(_fresnel_blend_pdf(wo, wi, ax, ay))
+        with span("pt::bsdf:substrate"):
+            preds.append(mtype == MAT_SUBSTRATE)
+            fs.append(_fresnel_blend_f(mp["kd"], mp["ks"], wo, wi, ax, ay))
+            pdfs.append(_fresnel_blend_pdf(wo, wi, ax, ay))
 
     if MAT_DISNEY in present:
         dif_c, c_spec0 = _disney_lobes(mp)
@@ -616,58 +624,62 @@ def sample_f(mp, wo, u, reflect_ng_fn, present=ALL_MATERIALS):
         pdfs.append(torch.ones_like(u0))
 
     if MAT_GLASS in present:
-        eta_a = torch.ones_like(mp["eta"])
-        eta_b = mp["eta"]
-        fr = fr_dielectric(cos_theta(wo), eta_a, eta_b)
-        take_refl = u0 < fr
-        wi_gr = reflect_local(wo)
-        f_gr = fr[..., None] * mp["kd"] / \
-            torch.clamp_min(abs_cos_theta(wi_gr), 1e-20)[..., None]
-        entering = cos_theta(wo) > 0.0
-        ei = torch.where(entering, eta_a, eta_b)
-        et = torch.where(entering, eta_b, eta_a)
-        zero = torch.zeros_like(u0)
-        n_ff = torch.stack([zero, zero, torch.where(entering, 1.0, -1.0)],
-                           dim=-1)
-        wi_gt, refr_ok = refract(wo, n_ff, ei / et)
-        ft = mp["ks"] * (1.0 - fr)[..., None] * \
-            ((ei * ei) / (et * et))[..., None] / \
-            torch.clamp_min(abs_cos_theta(wi_gt), 1e-20)[..., None]
-        f_gt = torch.where(refr_ok[..., None], ft, 0.0)
-        preds.append(mtype == MAT_GLASS)
-        wis.append(torch.where(take_refl[..., None], wi_gr, wi_gt))
-        fs.append(torch.where(take_refl[..., None], f_gr, f_gt))
-        pdfs.append(torch.where(take_refl, fr, 1.0 - fr))
-        glass_trans = (mtype == MAT_GLASS) & ~take_refl
+        with span("pt::bsdf:glass"):
+            eta_a = torch.ones_like(mp["eta"])
+            eta_b = mp["eta"]
+            fr = fr_dielectric(cos_theta(wo), eta_a, eta_b)
+            take_refl = u0 < fr
+            wi_gr = reflect_local(wo)
+            f_gr = fr[..., None] * mp["kd"] / \
+                torch.clamp_min(abs_cos_theta(wi_gr), 1e-20)[..., None]
+            entering = cos_theta(wo) > 0.0
+            ei = torch.where(entering, eta_a, eta_b)
+            et = torch.where(entering, eta_b, eta_a)
+            zero = torch.zeros_like(u0)
+            n_ff = torch.stack(
+                [zero, zero, torch.where(entering, 1.0, -1.0)], dim=-1)
+            wi_gt, refr_ok = refract(wo, n_ff, ei / et)
+            ft = mp["ks"] * (1.0 - fr)[..., None] * \
+                ((ei * ei) / (et * et))[..., None] / \
+                torch.clamp_min(abs_cos_theta(wi_gt), 1e-20)[..., None]
+            f_gt = torch.where(refr_ok[..., None], ft, 0.0)
+            preds.append(mtype == MAT_GLASS)
+            wis.append(torch.where(take_refl[..., None], wi_gr, wi_gt))
+            fs.append(torch.where(take_refl[..., None], f_gr, f_gt))
+            pdfs.append(torch.where(take_refl, fr, 1.0 - fr))
+            glass_trans = (mtype == MAT_GLASS) & ~take_refl
 
     if MAT_METAL in present:
-        wh_m = tr_sample_wh(wo, u, ax, ay)
-        wi_metal = reflect_about(wo, wh_m)
-        metal_ok = (wo[..., 2] != 0.0) & (pm.dot(wo, wh_m) >= 0.0) & \
-            same_hemisphere(wo, wi_metal)
-        preds.append(mtype == MAT_METAL)
-        wis.append(wi_metal)
-        pdfs.append(torch.where(
-            metal_ok,
-            tr_pdf(wo, wh_m, ax, ay) /
-            torch.clamp_min(4.0 * pm.dot(wo, wh_m), 1e-20), 0.0))
-        fs.append(torch.where(metal_ok[..., None], _microfacet_f(
-            mp["ks"], wo, wi_metal, ax, ay, _conductor_fn(mp)), 0.0))
+        with span("pt::bsdf:metal"):
+            wh_m = tr_sample_wh(wo, u, ax, ay)
+            wi_metal = reflect_about(wo, wh_m)
+            metal_ok = (wo[..., 2] != 0.0) & (pm.dot(wo, wh_m) >= 0.0) & \
+                same_hemisphere(wo, wi_metal)
+            preds.append(mtype == MAT_METAL)
+            wis.append(wi_metal)
+            pdfs.append(torch.where(
+                metal_ok,
+                tr_pdf(wo, wh_m, ax, ay) /
+                torch.clamp_min(4.0 * pm.dot(wo, wh_m), 1e-20), 0.0))
+            fs.append(torch.where(metal_ok[..., None], _microfacet_f(
+                mp["ks"], wo, wi_metal, ax, ay, _conductor_fn(mp)), 0.0))
 
     if MAT_SUBSTRATE in present:
-        half = u0 < 0.5
-        us = torch.stack([_remap_half(u0, half), u1], dim=-1)
-        wi_s_cos = _flip_to_wo_side(cosine_sample_hemisphere(us), wo)
-        wi_s_spec = reflect_about(wo, tr_sample_wh(wo, us, ax, ay))
-        wi_sub = torch.where(half[..., None], wi_s_cos, wi_s_spec)
-        sub_ok = half | same_hemisphere(wo, wi_sub)
-        preds.append(mtype == MAT_SUBSTRATE)
-        wis.append(wi_sub)
-        pdfs.append(torch.where(sub_ok,
-                                _fresnel_blend_pdf(wo, wi_sub, ax, ay), 0.0))
-        fs.append(torch.where(
-            sub_ok[..., None],
-            _fresnel_blend_f(mp["kd"], mp["ks"], wo, wi_sub, ax, ay), 0.0))
+        with span("pt::bsdf:substrate"):
+            half = u0 < 0.5
+            us = torch.stack([_remap_half(u0, half), u1], dim=-1)
+            wi_s_cos = _flip_to_wo_side(cosine_sample_hemisphere(us), wo)
+            wi_s_spec = reflect_about(wo, tr_sample_wh(wo, us, ax, ay))
+            wi_sub = torch.where(half[..., None], wi_s_cos, wi_s_spec)
+            sub_ok = half | same_hemisphere(wo, wi_sub)
+            preds.append(mtype == MAT_SUBSTRATE)
+            wis.append(wi_sub)
+            pdfs.append(torch.where(
+                sub_ok, _fresnel_blend_pdf(wo, wi_sub, ax, ay), 0.0))
+            fs.append(torch.where(
+                sub_ok[..., None],
+                _fresnel_blend_f(mp["kd"], mp["ks"], wo, wi_sub, ax, ay),
+                0.0))
 
     if MAT_DISNEY in present:
         # uniform pick of the two lobes, u0 remapped into the lobe

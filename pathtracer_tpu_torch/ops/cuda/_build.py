@@ -23,9 +23,11 @@ can: the stream's raw handle comes from
 code calls), and a device guard is entered only for a tensor that is not
 on the current device. Each wrapper calls ``launch`` itself, with no
 helper frame between them, and ``launch`` counts the launch in the
-wrapper module's ``LAUNCHES`` (``counted``). A CUDA graph's capture
-launches nothing: inside ``capturing`` the launches are tallied instead,
-and each replay of the graph counts the tally (``replayed``).
+wrapper module's ``LAUNCHES`` (``counted``); a wrapper counts more of a
+launch, such as the bytes it moves, through ``count``. A CUDA graph's
+capture launches nothing: inside ``capturing`` the launches and counts
+are tallied instead, and each replay of the graph counts the tally
+(``replayed``).
 """
 
 from __future__ import annotations
@@ -249,19 +251,24 @@ _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 # the module whose ``LAUNCHES`` counts each kernel, by the name it
-# launches under (``counted``)
+# launches under, and of each other count the module that keeps it
+# (``counted``); the counter a count adds to, where not ``LAUNCHES``
 _COUNTERS: dict = {}
+_ATTRS: dict = {}
 # the launches of the CUDA graph being captured, by kernel; None while
 # none is (``capturing``)
 _tally = None
 
 
-def counted(module: str, kernels) -> None:
+def counted(module: str, kernels, attr: str = "LAUNCHES") -> None:
     """Count each launch of ``kernels`` (their names) in ``LAUNCHES`` of
     the module named ``module``: an int where it launches one kernel,
-    else a dict by kernel."""
+    else a dict by kernel. With ``attr``, ``kernels`` name counts of the
+    module's counter ``attr`` instead, that ``count`` adds to."""
     for what in kernels:
         _COUNTERS[what] = module
+        if attr != "LAUNCHES":
+            _ATTRS[what] = attr
 
 
 def _count(what: str, n: int) -> None:
@@ -269,17 +276,28 @@ def _count(what: str, n: int) -> None:
     if module is None:  # a launcher no wrapper module counts
         return
     mod = sys.modules[module]
-    if isinstance(mod.LAUNCHES, dict):
-        mod.LAUNCHES[what] += n
+    attr = _ATTRS.get(what, "LAUNCHES")
+    counter = getattr(mod, attr)
+    if isinstance(counter, dict):
+        counter[what] += n
     else:
-        mod.LAUNCHES += n
+        setattr(mod, attr, counter + n)
+
+
+def count(what: str, n: int) -> None:
+    """Add ``n`` to the count ``what`` (``counted``), or to the tally of
+    the CUDA graph being captured (``capturing``)."""
+    if _tally is None:
+        _count(what, n)
+    else:
+        _tally[what] = _tally.get(what, 0) + n
 
 
 @contextlib.contextmanager
 def capturing():
-    """Inside, launches are tallied and not counted, as a CUDA graph's
-    capture launches nothing. Yields the tally ({kernel: launches}) that
-    each replay of the graph counts (``replayed``)."""
+    """Inside, launches and counts are tallied and not counted, as a CUDA
+    graph's capture launches nothing. Yields the tally ({kernel or count:
+    number}) that each replay of the graph counts (``replayed``)."""
     global _tally
     _tally = tally = {}
     try:

@@ -27,6 +27,13 @@ SIGNATURES = {"bvhw": "ppppiiiiffffppppp"}
 # CPU calls never launch)
 LAUNCHES = 0
 _build.counted(__name__, SIGNATURES)
+# the bytes those launches move at the least (``launch_bytes``), counted
+# as LAUNCHES is: a graph's capture tallies them, each replay adds them
+BYTES = 0
+_build.counted(__name__, ("bvhw.bytes",), attr="BYTES")
+# a ray read once (o, d, t_max), its hit written once (valid, t, tri, b;
+# an any-hit query's valid alone), a table row read once
+RAY_BYTES, HIT_BYTES, ANY_HIT_BYTES, ROW_BYTES = 28, 21, 1, WW * 4
 
 _fns = None
 
@@ -77,6 +84,15 @@ def _check(table, o, d, t_max):
     return dev, n
 
 
+def launch_bytes(rows: int, n: int, any_hit: bool) -> int:
+    """The bytes a launch of ``n`` rays over a table of ``rows`` rows
+    moves at the least: every ray read once, its hit written once, the
+    table read once (the roofline's count: whatever the traversal reads
+    again, and whichever rows it visits, are not counted)."""
+    return n * (RAY_BYTES + (ANY_HIT_BYTES if any_hit else HIT_BYTES)) \
+        + rows * ROW_BYTES
+
+
 def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
                    stackw: int = STACKW):
     """BVH32 traversal of every ray (accel/bvhw.py has the table layout).
@@ -106,6 +122,7 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), table.shape[0], n,
             int(bool(any_hit)), int(stackw), G_SLAB, GAMMA2, GAMMA3, GAMMA5,
             *outs)
+        _build.count("bvhw.bytes", launch_bytes(table.shape[0], n, any_hit))
     if any_hit:
         return valid
     return dict(valid=valid, t=t, tri=tri, b=b)

@@ -29,7 +29,10 @@ The spans (``pt::`` names; parent by nesting):
   material's parameters), ``pt::nee`` (one ``estimate_direct``),
   ``pt::scatter`` (the BSDF sample through Russian roulette);
 - ``pt::texture`` (``eval_texture``), ``pt::alpha_cut`` and
-  ``pt::k:<kernel>``, around the launch of a hand-written kernel.
+  ``pt::k:<kernel>``, around the launch of a hand-written kernel;
+- ``pt::bsdf:metal``, ``pt::bsdf:substrate``, ``pt::bsdf:glass``: a
+  material's branch of ``ops/bsdf.eval_f_pdf`` (in ``pt::nee``) or
+  ``ops/bsdf.sample_f`` (in ``pt::scatter``), where the scene holds it.
 """
 
 from __future__ import annotations

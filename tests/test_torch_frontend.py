@@ -195,8 +195,7 @@ def test_cli_profile_writes_a_trace_and_logs_occupancy(tmp_path, cornell32,
     with open(tmp_path / "prof" / "trace.json") as fh:
         assert json.load(fh)["traceEvents"]
     cam, scene = cornell32
-    integ = PathIntegrator(PathConfig(max_depth=3, count_occupancy=True),
-                           spp=2)
+    integ = PathIntegrator(PathConfig(max_depth=3), spp=2)
     film = integ.render(cam, scene)
     np.testing.assert_array_equal(png[..., :3], to_rgb8(film))
     lines = [m for name, m in records

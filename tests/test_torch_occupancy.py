@@ -1,6 +1,8 @@
-"""The occupancy counters (``PathConfig.count_occupancy``): the live lanes
-a bounce, summed over a render's bands and frames into
-``PathIntegrator.bounce_occupancy``, against the JAX package's.
+"""The occupancy counters, always on in the port (the JAX package's
+``PathConfig.count_occupancy``): the live lanes a bounce, summed over a
+render's bands and frames into ``PathIntegrator.bounce_occupancy``,
+against the JAX package's; and the lane-bounces live and run over the
+integrator's renders, ``PathIntegrator.lane_bounces``.
 
 Bounce 0 counts the camera lanes and must match exactly; later bounces
 within 0.1 %, as XLA's jit flips a few grazing lanes' outcomes (ROADMAP
@@ -22,7 +24,7 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORNELL = os.path.join(ROOT, "data", "cornell-box.xml")
-COUNT = PathConfig(max_depth=3, count_occupancy=True)
+COUNT = PathConfig(max_depth=3)
 
 
 @pytest.fixture(scope="module")
@@ -82,8 +84,11 @@ def test_counting_changes_no_film_bit(scene_name):
     scene = TracedScene.create(sd)
     cfg = PathConfig(max_depth=3, mis_mode="onesample")
     plain = PathIntegrator(cfg, spp=2)
-    counted = PathIntegrator(PathConfig(max_depth=3, mis_mode="onesample",
-                                        count_occupancy=True), spp=2)
+    counted = PathIntegrator(cfg, spp=2)
+    inner = plain.render_frames
+    # the plain render's band-frames are handed no count to add into
+    plain.render_frames = lambda su, film_pad, band, s0, n_frames, occ: \
+        inner(su, film_pad, band, s0, n_frames, None)
     assert torch.equal(plain.render(cam, scene), counted.render(cam, scene))
     assert plain.bounce_occupancy.tolist() == [0.0] * 4
     assert counted.bounce_occupancy[0] == 24 * 20 * 2

@@ -140,20 +140,19 @@ def test_depth5_wave_matches_jax_bounce_loop(mis_mode):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(sampler="stratified"), dict(light_strategy="all"),
-    dict(count_occupancy=True)])
+    dict(sampler="stratified"), dict(light_strategy="all"), dict()])
 def test_options_outside_the_slice_raise(kwargs):
     """The options once outside the port's first slice: the stratified
-    sampler, the all-lights strategy and count_occupancy (ported with the
-    frontends, which fills ``bounce_occupancy``) all render."""
+    sampler, the all-lights strategy and the occupancy count (ported with
+    the frontends as ``count_occupancy``, now always on: it fills
+    ``bounce_occupancy``) all render."""
     cam, sd, _ = load_mitsuba(CORNELL, resolution=(8, 8), device="cpu")
     integ = PathIntegrator(PathConfig(max_depth=1, **kwargs), spp=1)
     film = integ.render(cam, sd)
     assert torch.isfinite(film).all() and (film[..., 3] > 0).all()
-    if kwargs.get("count_occupancy"):
-        # bounce 0 counts every camera lane of the 12 x 12 sample rectangle
-        assert integ.bounce_occupancy.tolist()[0] == 12 * 12
-        assert len(integ.bounce_occupancy) == 2
+    # bounce 0 counts every camera lane of the 12 x 12 sample rectangle
+    assert integ.bounce_occupancy.tolist()[0] == 12 * 12
+    assert len(integ.bounce_occupancy) == 2
 
 
 def _cuda_stand_in(ts):
@@ -169,7 +168,9 @@ def test_graph_engages_only_where_a_capture_holds_the_band_frame(case):
     """The CUDA graph takes cornell's band-frames on a card and nowhere
     else: not on the CPU, not for any alpha route (split subset, dense
     pass, its own table, the all-masked binary tree, K1's retries), not
-    under count_occupancy, not under the hash samplers."""
+    under the hash samplers. The occupancy count (once the JAX package's
+    opt-in ``count_occupancy``, which kept the graph off) is always on and
+    keeps it off no more."""
     from pathtracer_tpu_torch.integrator import TracedScene, _graph_engages
     from pathtracer_tpu_torch.scene.scene import SceneBuilder
     from torch_alpha_scenes import ROUTES, build
@@ -183,12 +184,11 @@ def test_graph_engages_only_where_a_capture_holds_the_band_frame(case):
         _, sd, _ = load_mitsuba(CORNELL, resolution=(8, 8), device="cpu")
         ts = TracedScene.create(sd)
         assert not ts.has_alpha
-    if case == "count_occupancy":
-        cfg = dataclasses.replace(cfg, count_occupancy=True)
     if case in ("stratified", "random"):
         cfg = dataclasses.replace(cfg, sampler=case)
     scene = ts if case == "cpu" else _cuda_stand_in(ts)
-    assert _graph_engages(scene, cfg) == (case == "card")
+    assert _graph_engages(scene, cfg) == (case in ("card", "count_occupancy"))
+    assert not hasattr(cfg, "count_occupancy")
 
 
 def test_cpu_render_counts_its_band_frames_eager():
