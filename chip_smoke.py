@@ -89,7 +89,8 @@ printing one JSON line:
              hit);
 13. profile - device times from a torch.profiler trace: K1's and K2's
              (both ray sets each and K2 on Sponza's alpha table, closest and
-             any hit), K3's and K4's (phase 17b's calls), P1-P9's and their
+             any hit), K3's and K4's (phase 17b's calls), K5's and K6's
+             (phase 17c's), P1-P9's and their
              library calls', P1-P5's at one lane (N = 1) and P6-P9's at
              one index row (S = 1): each kernel's launch floor,
              ``floor_device_ms`` in the kernels line;
@@ -148,6 +149,16 @@ retries) and the alpha routes it does not take:
              and outputs, the descriptor rows and tri_attr rows used, the
              texels the image lanes need: those the plain version gathers
              for them, each once);
+17c. bsdf_kernels - K5 and K6 (csrc/bsdf.cu) against their plain
+             versions (ops/bsdf.eval_world, sample_world) on the arguments
+             of the first calls of a cornell-spheres render (depth 15,
+             four materials) and of a cornell render (Matte only), taken
+             by a spy on the eager path at 640x480 (130,732 lanes): every
+             output ``torch.equal``, timed (ms over back-to-back calls,
+             one call, host us, the plain version's ms; the device time
+             in phase 13), with the bound (the bytes each lane's model
+             reads and writes), and the launches of a 640x480 4-spp
+             render of each;
 18. alpha_routes - at 131,072 lanes: the dense pass (512 masked
              triangles), closest and any hit, ms and peak bytes; the binary
              tree of an all-masked scene (1,024 triangles) against the
@@ -480,7 +491,9 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
     data). Returns the last film and the renders' figures: Mrays/s as the
     median, min and max of the renders, with each render's seconds, and
     each render's retry counts; kernels K3's and K4's launches a render
-    (the same in every render; K4's one for each alpha-table query)."""
+    (the same in every render; K4's one for each alpha-table query), and
+    K5's and K6's (``bsdf_launches``: exactly those of a render's shading
+    bounces)."""
     import torch
 
     from pathtracer_tpu_torch import integrator as pint
@@ -489,12 +502,18 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
         from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
     except ImportError:  # a checkout from before K3 / K4 (kernel_ab.py)
         tx = types.SimpleNamespace(LAUNCHES={})
+    try:
+        from pathtracer_tpu_torch.ops.cuda import bsdf_cu
+        want_bsdf = bsdf_launches(integ, cam, scene)
+    except ImportError:  # a checkout from before K5 / K6 (kernel_ab.py)
+        bsdf_cu, want_bsdf = types.SimpleNamespace(LAUNCHES={}), {}
     seconds, retry, texture = [], [], []
     for _ in range(RENDER_REPS):
         for mod in expect:
             mod.LAUNCHES = 0  # the main path's run starts here
-        for key in tx.LAUNCHES:
-            tx.LAUNCHES[key] = 0
+        for counts in (tx.LAUNCHES, bsdf_cu.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
         for key in pint.RETRY_COUNTS:
             pint.RETRY_COUNTS[key] = 0
         torch.cuda.synchronize()
@@ -519,6 +538,9 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
             raise AssertionError(f"{what} render launched K3 / K4 "
                                  f"{texture}, alpha-table queries "
                                  f"{pint.RETRY_COUNTS['alpha_tree']}")
+        if bsdf_cu.LAUNCHES != want_bsdf:
+            raise AssertionError(f"{what} render launched K5 / K6 "
+                                 f"{bsdf_cu.LAUNCHES}, expected {want_bsdf}")
     rates = [integ.last_ray_count / dt / 1e6 for dt in seconds]
     return film, dict(rays=integ.last_ray_count,
                       seconds=statistics.median(seconds),
@@ -526,7 +548,25 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
                       mrays_per_s=statistics.median(rates),
                       mrays_per_s_min=min(rates), mrays_per_s_max=max(rates),
                       renders=RENDER_REPS, retry_counts_runs=retry,
-                      texture_launches=texture[-1])
+                      texture_launches=texture[-1],
+                      bsdf_launches=dict(bsdf_cu.LAUNCHES))
+
+
+def bsdf_launches(integ, cam, scene) -> dict:
+    """K5's and K6's launches in one render: in each band-frame's shading
+    bounces (every bounce but the last), one ``bsdf_eval`` a light NEE
+    samples and one ``bsdf_sample`` for the scatter ("ref" MIS: and one
+    more a light sampled)."""
+    from pathtracer_tpu_torch.integrator import _wave_flags
+
+    cfg = integ.cfg
+    do_nee, one_sample, _ = _wave_flags(scene, cfg)
+    _, n_bands = integ.band_layout(cam)
+    lights = scene.n_lights if cfg.light_strategy == "all" else 1
+    nee = lights if do_nee else 0
+    bounces = n_bands * integ.spp * cfg.max_depth
+    return dict(bsdf_eval=bounces * nee,
+                bsdf_sample=bounces * (1 + (0 if one_sample else nee)))
 
 
 def timings(kernel, plain=None, library=None, plain_calls: int = PER_CALL,
@@ -2069,6 +2109,128 @@ def phase_texture_kernels(dev, class_cam, class_scene, sponza_cam,
     return out, calls
 
 
+# bytes a lane of each material reads for its own model in K5 (eval) and
+# K6 (sample), beside the type (4 B) and the lane's common inputs and
+# outputs (BSDF_LANE_BYTES): kd / ks / eta3 / k rows 12 B each, eta, ax,
+# ay, metallic 4 B each (csrc/bsdf.cu)
+BSDF_MODEL_BYTES = {
+    "eval": {0: 12, 1: 0, 2: 0, 3: 44, 4: 32, 5: 28, 6: 24},
+    "sample": {0: 12, 1: 0, 2: 16, 3: 44, 4: 32, 5: 28, 6: 24}}
+# the frame (48 B) and the type (4 B), then K5's wo, wi (24 B) and f, pdf,
+# cosine (20 B); K6's wo, u (20 B) and wi, f, pdf, cosine, two flags
+# (34 B)
+BSDF_LANE_BYTES = {"eval": 52 + 24 + 20, "sample": 52 + 20 + 34}
+BSDF_RES = (640, 480)
+SPHERES = os.path.join(ROOT, "benchmark", "scenes", "cornell-spheres.xml")
+
+
+def capture_bsdf_inputs(cam, scene, depth: int) -> dict:
+    """The arguments of a render's first K5 and K6 calls (mp, it, wo, wi
+    or u, present), on the eager path (the CUDA graph off, so the spy may
+    stop the render): the main path's inputs at its shapes."""
+    import torch
+
+    from pathtracer_tpu_torch import integrator as pint
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import bsdf_cu
+
+    got = {}
+    calls = dict(eval=bsdf_cu.bsdf_eval, sample=bsdf_cu.bsdf_sample)
+
+    def spy(kind):
+        def call(mp, it, wo, x, present):
+            got.setdefault(kind, (mp, it, wo, x, present))
+            if len(got) == 2:
+                raise CaptureDone
+            return calls[kind](mp, it, wo, x, present=present)
+        return call
+
+    engages = pint._graph_engages
+    bsdf_cu.bsdf_eval, bsdf_cu.bsdf_sample = spy("eval"), spy("sample")
+    pint._graph_engages = lambda scene, cfg: False
+    try:
+        PathIntegrator(PathConfig(max_depth=depth, mis_mode="onesample"),
+                       spp=1).render(cam, scene)
+    except CaptureDone:
+        pass
+    finally:
+        bsdf_cu.bsdf_eval, bsdf_cu.bsdf_sample = calls["eval"], \
+            calls["sample"]
+        pint._graph_engages = engages
+    torch.cuda.synchronize()
+    if len(got) != 2:
+        raise AssertionError(f"the render made no K5 / K6 call: {set(got)}")
+    return got
+
+
+def bsdf_case(kind: str, args) -> dict:
+    """K5 or K6 against its plain version on one captured call (every
+    output ``torch.equal``, or the elements that differ reported and
+    raised), timed (the device time in ``phase_profile``),
+    with its bound: the bytes of ``BSDF_LANE_BYTES`` and
+    ``BSDF_MODEL_BYTES`` of each lane."""
+    import torch
+
+    from pathtracer_tpu_torch.ops import bsdf
+    from pathtracer_tpu_torch.ops.cuda import bsdf_cu
+
+    mp, it, wo, x, present = args
+    kernel = dict(eval=bsdf_cu.bsdf_eval, sample=bsdf_cu.bsdf_sample)[kind]
+    plain = dict(eval=bsdf.eval_world, sample=bsdf.sample_world)[kind]
+
+    def flat(out):
+        return list(out.values()) if isinstance(out, dict) else list(out)
+
+    got = flat(kernel(mp, it, wo, x, present=present))
+    want = flat(plain(mp, it, wo, x, present=present))
+    torch.cuda.synchronize()
+    mtype = mp["mtype"]
+    first = min(present)
+    per_type = {int(t): int((mtype == t).sum()) for t in range(7)}
+    model = sum(n * BSDF_MODEL_BYTES[kind][t if t in present else first]
+                for t, n in per_type.items())
+    n = mtype.shape[0]
+    out = dict(lanes=n, present=list(present), lanes_by_type=per_type,
+               differing=[int((g != w).sum()) for g, w in zip(got, want)])
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        emit(dict(phase="bsdf_kernels_mismatch", kernel=kind, **out))
+        raise AssertionError(f"K5 / K6 {kind} differs from its plain "
+                             f"version: {out}")
+    out.update(timings(lambda: kernel(mp, it, wo, x, present=present),
+                       plain=lambda: plain(mp, it, wo, x, present=present)))
+    out.update(bound(BSDF_LANE_BYTES[kind] * n + model, 0.0))
+    return out
+
+
+def phase_bsdf_kernels(dev):
+    """K5 and K6 against their plain versions at the main path's shapes,
+    on the first calls of a cornell-spheres render (depth 15) and of a
+    cornell render (depth 5). Returns the phase's figures and, for the
+    profile phase, a call of each case."""
+    from pathtracer_tpu_torch.integrator import TracedScene
+    from pathtracer_tpu_torch.ops.cuda import bsdf_cu
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    t0 = time.perf_counter()
+    cases, calls = {}, {}
+    kernels = dict(eval=bsdf_cu.bsdf_eval, sample=bsdf_cu.bsdf_sample)
+    for name, path, depth in (("spheres", SPHERES, 15),
+                              ("cornell", CORNELL, 5)):
+        cam, sd, _ = load_mitsuba(path, resolution=BSDF_RES, device=dev)
+        scene = TracedScene.create(sd)
+        args = capture_bsdf_inputs(cam, scene, depth)
+        for kind in ("eval", "sample"):
+            cases[f"{name}_{kind}"] = bsdf_case(kind, args[kind])
+            calls[f"{name}_{kind}"] = (
+                f"bsdf_{kind}_kernel",
+                lambda f=kernels[kind], a=args[kind]: f(*a[:4],
+                                                        present=a[4]))
+    out = dict(phase="bsdf_kernels", cases=cases,
+               seconds=time.perf_counter() - t0)
+    emit(out)
+    return out, calls
+
+
 def phase_sponza_profile(cam, scene):
     """One Sponza render of phase 17 under torch.profiler, host and
     device (``render_profile``): the busy share, K2's share, device events
@@ -2506,6 +2668,7 @@ def phase_samplers_main(dev, smi: str):
         check_film(film, SLICE_RES, f"cornell {name}")
         out[name] = dict(sampler=sampler, light_strategy=strategy,
                          check_32=check, **runs, launches=k1.LAUNCHES,
+                         bsdf_host=bsdf_host_cost(integ, cam, scene),
                          expected_launches=expect,
                          peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
                          bad_samples=integ.bad_sample_count,
@@ -2513,6 +2676,46 @@ def phase_samplers_main(dev, smi: str):
                                         film[..., :3].mean(dim=(0, 1)).cpu()])
     emit(out)
     return out
+
+
+def bsdf_host_cost(integ, cam, scene) -> dict:
+    """One more render of an eager path with K5's and K6's wrappers on a
+    host clock (each call's checks, allocations and enqueue; no
+    synchronise inside): their calls, host microseconds a call, the share
+    of the render's wall time they take, and the render's Mrays/s."""
+    import torch
+
+    from pathtracer_tpu_torch.ops.cuda import bsdf_cu
+
+    calls = dict(eval=bsdf_cu.bsdf_eval, sample=bsdf_cu.bsdf_sample)
+    spent = dict(eval=[0, 0.0], sample=[0, 0.0])
+
+    def clocked(kind):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            result = calls[kind](*args, **kwargs)
+            spent[kind][0] += 1
+            spent[kind][1] += time.perf_counter() - t0
+            return result
+        return call
+
+    bsdf_cu.bsdf_eval, bsdf_cu.bsdf_sample = clocked("eval"), \
+        clocked("sample")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integ.render(cam, scene)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        bsdf_cu.bsdf_eval, bsdf_cu.bsdf_sample = calls["eval"], \
+            calls["sample"]
+    return dict(calls={k: n for k, (n, _) in spent.items()},
+                host_us_per_call={k: sec / n * 1e6
+                                  for k, (n, sec) in spent.items() if n},
+                host_share=sum(sec for _, sec in spent.values()) / wall,
+                seconds=wall,
+                mrays_per_s=integ.last_ray_count / wall / 1e6)
 
 
 def lt_queries(tracer, scene) -> int:
@@ -3142,10 +3345,12 @@ def box_render_profile(dev) -> dict:
     return render_profile(cam, scene, 2, "bvhw_kernel")
 
 
-def phase_profile(dev, k1_sets: dict, alpha_set: tuple, tex_calls: dict):
+def phase_profile(dev, k1_sets: dict, alpha_set: tuple, tex_calls: dict,
+                  bsdf_calls: dict):
     """Device times from a torch.profiler trace: K1's and K2's at the
     shapes of phases 3 and 6 (K2 also on Sponza's alpha table, phase 16's
-    rays), K3's and K4's on the calls of ``texture_kernels``, P1-P9's and
+    rays), K3's and K4's on the calls of ``texture_kernels``, K5's and
+    K6's on those of ``bsdf_kernels``, P1-P9's and
     their library calls' at the probes' shapes (all the device work of a
     call); then a whole cornell and box-field render. It
     runs after every timed render of this process but phase 24's
@@ -3192,6 +3397,8 @@ def phase_profile(dev, k1_sets: dict, alpha_set: tuple, tex_calls: dict):
                                   stackw=scene.bw_depth), "bvhw_kernel")
     texture_ms = {case: kernel_device_ms(fn, name)
                   for case, (name, fn) in tex_calls.items()}
+    bsdf_ms = {case: kernel_device_ms(fn, name)
+               for case, (name, fn) in bsdf_calls.items()}
     x, x2 = pg.probe_inputs(dev), pg2.probe_inputs(dev)
     one, one2 = one_lane(x), one_row(x2)
     floor_ms = {pid: kernel_device_ms(lambda: fn(one))
@@ -3217,6 +3424,7 @@ def phase_profile(dev, k1_sets: dict, alpha_set: tuple, tex_calls: dict):
                k2_alpha_kernel_device_ms=k2_alpha_ms,
                k2_alpha_anyhit_kernel_device_ms=k2_alpha_any_ms,
                texture_kernel_device_ms=texture_ms,
+               bsdf_kernel_device_ms=bsdf_ms,
                probe_kernel_device_ms=probe_ms,
                probe_floor_device_ms=floor_ms,
                library_device_ms=library_ms, reps=K1_REPS,
@@ -3230,6 +3438,7 @@ def phase_build():
     """Compile every native source at once (one compiler process each)."""
     from pathtracer_tpu_torch.accel import cpp
     from pathtracer_tpu_torch.ops.cuda import _build
+    from pathtracer_tpu_torch.ops.cuda import bsdf_cu as k56
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
     from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
@@ -3245,6 +3454,7 @@ def phase_build():
                   intersect=lambda: k1.build(verbose=True),
                   bvhw=lambda: k2.build(verbose=True),
                   texture=lambda: tx.build(verbose=True),
+                  bsdf=lambda: k56.build(verbose=True),
                   gather_probe=lambda: pg.build(verbose=True),
                   gather_probe2=lambda: pg2.build(verbose=True),
                   bvh_builder=cpp.library_path)
@@ -3255,6 +3465,7 @@ def phase_build():
     k1._load()
     k2._load()
     tx._load()
+    k56._load()
     pg._load()
     pg2._load()
     cpp._load()
@@ -3265,6 +3476,7 @@ def phase_build():
                probe_ptxas=probe_ptxas,
                probe2_ptxas=_build.ptxas_report(pg2.build()),
                texture_ptxas=_build.ptxas_report(tx.build()),
+               bsdf_ptxas=_build.ptxas_report(k56.build()),
                p8_rows=pg2.macro("P8_ROWS"),
                p1_threads=pg.threads("P1"), p3_threads=pg.threads("P3"),
                p4_threads=pg.threads("P4"), p4_rows=pg.macro("P4_ROWS"),
@@ -3315,6 +3527,7 @@ def main() -> int:
     sponza_out, sponza_cam, sponza_scene = phase_sponza_main(dev, smi)
     tex_out, tex_calls = phase_texture_kernels(
         dev, class_cam, class_scene, sponza_cam, sponza_scene, alpha_set)
+    bsdf_out, bsdf_calls = phase_bsdf_kernels(dev)
     routes_out = phase_alpha_routes(dev)
     t_slice = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3328,7 +3541,8 @@ def main() -> int:
     emit(dict(phase="slice_total", seconds=time.perf_counter() - t_slice,
               phases=["mitsuba_golden", "mitsuba_main", "samplers_main",
                       "lighttrace"]))
-    prof_out = phase_profile(dev, k1_sets, alpha_set, tex_calls)
+    prof_out = phase_profile(dev, k1_sets, alpha_set, tex_calls,
+                             bsdf_calls)
     phase_sponza_profile(sponza_cam, sponza_scene)
     # after the profiles: with these phases before them, phase 13's first
     # three traces once held no kernel activity (a later run that traced
@@ -3428,6 +3642,28 @@ def main() -> int:
             max_abs_err=max(tex_cases[case]["max_abs_err"]
                             for case in mine),
             cases=mine, **times(tex_cases[main_case], tex_ms[main_case])))
+    bsdf_ms = prof_out["bsdf_kernel_device_ms"]
+    bsdf_runs = dict(main=main_out, box_main=box_out,
+                     **{f"materials_main_{config}": mat_out[config]
+                        for config in MATERIAL_CONFIGS},
+                     classroom_main=class_out, sponza_main=sponza_out,
+                     mitsuba_main=feature_out,
+                     **{f"samplers_main_{sampler}_{strategy}":
+                        samplers_out[f"{sampler}_{strategy}"]
+                        for sampler, strategy in SAMPLER_CONFIGS})
+    for kind, key, plain in (("eval", "K5", "eval_f_pdf"),
+                             ("sample", "K6", "sample_f")):
+        mine = {case: times(c, bsdf_ms[case])
+                for case, c in bsdf_out["cases"].items()
+                if case.endswith(kind)}
+        kernels.append(dict(
+            name=f"bsdf_{kind} ({key})", route="cuda",
+            source="pathtracer_tpu_torch/csrc/bsdf.cu",
+            replaces=f"pathtracer_tpu/ops/bsdf.py {plain}",
+            launches=main_out["bsdf_launches"][f"bsdf_{kind}"],
+            launches_by_path={path: runs["bsdf_launches"][f"bsdf_{kind}"]
+                              for path, runs in bsdf_runs.items()},
+            cases=mine, **mine[f"spheres_{kind}"]))
     for pid, kernel, line in (("P1", "gather_rows", 65),
                               ("P2", "gather_rows", 78),
                               ("P3", "gather_cols", 92),

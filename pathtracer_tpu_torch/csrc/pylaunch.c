@@ -177,6 +177,53 @@ static PyObject* pppppppifppppp(PyObject* self, PyObject* const* args,
                               a[10].p, a[11].p, a[12].p, a[13].p));
 }
 
+// K5 and K6 begin with the material parameters, each by its element
+// strides: (type, s, kd, r, c, ks, r, c, eta, s, eta3, r, c, k, r, c, ax,
+// s, ay, s, metallic, s), and the frame (ss, ts, ns, ng)
+#define BSDF_IN_TYPES                                                    \
+  void*, int, void*, int, int, void*, int, int, void*, int, void*, int,   \
+      int, void*, int, int, void*, int, void*, int, void*, int, void*,    \
+      void*, void*, void*
+#define BSDF_IN_VALUES                                                   \
+  a[0].p, a[1].i, a[2].p, a[3].i, a[4].i, a[5].p, a[6].i, a[7].i, a[8].p,  \
+      a[9].i, a[10].p, a[11].i, a[12].i, a[13].p, a[14].i, a[15].i,        \
+      a[16].p, a[17].i, a[18].p, a[19].i, a[20].p, a[21].i, a[22].p,       \
+      a[23].p, a[24].p, a[25].p
+
+// K5: (material..., frame..., wo, wi, present, n, f, pdf, cosine, stream)
+typedef int (*pipiipiipipiipiipipipippppppiipppp_t)(BSDF_IN_TYPES, void*,
+                                                     void*, int, int, void*,
+                                                     void*, void*, void*);
+static PyObject* pipiipiipipiipiipipipippppppiipppp(PyObject* self,
+                                                     PyObject* const* args,
+                                                     Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[34];
+  if (unpack("pipiipiipipiipiipipipippppppiipppp", args, nargs, &fn, a) < 0)
+    return NULL;
+  CALL(((pipiipiipipiipiipipipippppppiipppp_t)fn)(
+      BSDF_IN_VALUES, a[26].p, a[27].p, a[28].i, a[29].i, a[30].p,
+      a[31].p, a[32].p, a[33].p));
+}
+
+// K6: (material..., frame..., wo, u, present, n, wi, f, pdf, specular,
+// transmission, cosine, stream)
+typedef int (*pipiipiipipiipiipipipippppppiippppppp_t)(
+    BSDF_IN_TYPES, void*, void*, int, int, void*, void*, void*, void*,
+    void*, void*, void*);
+static PyObject* pipiipiipipiipiipipipippppppiippppppp(PyObject* self,
+                                                        PyObject* const* args,
+                                                        Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[37];
+  if (unpack("pipiipiipipiipiipipipippppppiippppppp", args, nargs, &fn, a) <
+      0)
+    return NULL;
+  CALL(((pipiipiipipiipiipipipippppppiippppppp_t)fn)(
+      BSDF_IN_VALUES, a[26].p, a[27].p, a[28].i, a[29].i, a[30].p,
+      a[31].p, a[32].p, a[33].p, a[34].p, a[35].p, a[36].p));
+}
+
 #define ENTRY(name) \
   {#name, (PyCFunction)(void (*)(void))name, METH_FASTCALL, NULL}
 
@@ -184,7 +231,8 @@ static PyMethodDef methods[] = {
     ENTRY(ppiipp),          ENTRY(ppipp),
     ENTRY(ppiiipp),         ENTRY(ppppiiifffppppp),
     ENTRY(ppppiiiiffffppppp), ENTRY(ppppppiippppiiipp),
-    ENTRY(pppppppifppppp),  {NULL, NULL, 0, NULL}};
+    ENTRY(pppppppifppppp),  ENTRY(pipiipiipipiipiipipipippppppiipppp),
+    ENTRY(pipiipiipipiipiipipipippppppiippppppp), {NULL, NULL, 0, NULL}};
 
 static struct PyModuleDef module = {
     PyModuleDef_HEAD_INIT, "pylaunch",

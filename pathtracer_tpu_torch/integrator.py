@@ -63,7 +63,7 @@ from .ops import lights as lt
 from .ops import samplers as smp
 from .ops import sobol as sb
 from .ops.cuda.bvhw_cu import bvhw_intersect
-from .ops.cuda import _build, texture_cu
+from .ops.cuda import _build, bsdf_cu, texture_cu
 from .ops.cuda.intersect_cu import intersect
 from .ops.intersect import GAMMA7, intersect_alpha_dense
 from .utils.span_graph import SpanGraph
@@ -521,23 +521,6 @@ def _scene_intersect_p(scene, o, d, t_max, live=None):
             t_max)
 
 
-def _to_local(it, w):
-    return torch.stack([pm.dot(w, it["ss"]), pm.dot(w, it["ts"]),
-                        pm.dot(w, it["ns"])], dim=-1)
-
-
-def _to_world(it, w):
-    return (w[..., 0:1] * it["ss"] + w[..., 1:2] * it["ts"]
-            + w[..., 2:3] * it["ns"])
-
-
-def _reflect_ng_fn(it, wo_world):
-    """The geometric-normal reflection test of a local wi: (wi.ng)(wo.ng)
-    > 0 in world space."""
-    return lambda wi_loc: (pm.dot(_to_world(it, wi_loc), it["ng"])
-                           * pm.dot(wo_world, it["ng"])) > 0.0
-
-
 def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
                     wo_world, bsdf_branch=True, pick_prob=1.0, live=None):
     """Both-strategy MIS direct lighting for one chosen light per ray.
@@ -556,12 +539,9 @@ def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
     pdf_eff = ls["pdf"] * pick_prob
 
     # --- light-sample branch
-    wo_l = _to_local(it, wo_world)
-    wi_l = _to_local(it, wi)
-    reflect_ng = (pm.dot(wi, it["ng"]) * pm.dot(wo_world, it["ng"])) > 0.0
-    f, scatt_pdf = bx.eval_f_pdf(mp, wo_l, wi_l, reflect_ng,
-                                 present=scene.mat_set)
-    f = f * torch.abs(pm.dot(wi, it["ns"]))[..., None]
+    f, scatt_pdf, cos_wi = bsdf_cu.bsdf_eval(mp, it, wo_world, wi,
+                                             present=scene.mat_set)
+    f = f * cos_wi[..., None]
 
     branch1 = (ls["pdf"] > 0.0) & torch.any(ls["li"] != 0.0, dim=-1) & \
         torch.any(f != 0.0, dim=-1)
@@ -581,10 +561,10 @@ def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
         return ld
 
     # --- BSDF-sample branch, non-delta lights only
-    bs = bx.sample_f(mp, wo_l, u_scatt, _reflect_ng_fn(it, wo_world),
-                     present=scene.mat_set)
-    wi2_w = _to_world(it, bs["wi"])
-    f2 = bs["f"] * torch.abs(pm.dot(wi2_w, it["ns"]))[..., None]
+    bs = bsdf_cu.bsdf_sample(mp, it, wo_world, u_scatt,
+                             present=scene.mat_set)
+    wi2_w = bs["wi"]
+    f2 = bs["f"] * bs["cos"][..., None]
     branch2 = (~ls["is_delta"]) & torch.any(f2 != 0.0, dim=-1) & \
         (bs["pdf"] > 0.0)
     light_pdf2 = lt.pdf_li(sd, light_rows, it["p"], it["p_error"], it["ng"],
@@ -839,11 +819,8 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
     with span("pt::scatter"):
         # --- BSDF sampling for the next bounce
         u_bsdf = draw2(dim_base + DIM_BSDF)
-        wo_l = _to_local(it, wo)
-        bs = bx.sample_f(mp, wo_l, u_bsdf, _reflect_ng_fn(it, wo),
-                         present=scene.mat_set)
-        wi_w = _to_world(it, bs["wi"])
-        cos_ns = torch.abs(pm.dot(wi_w, it["ns"]))
+        bs = bsdf_cu.bsdf_sample(mp, it, wo, u_bsdf, present=scene.mat_set)
+        wi_w, cos_ns = bs["wi"], bs["cos"]
         dead = torch.all(bs["f"] == 0.0, dim=-1) | (bs["pdf"] == 0.0)
         new_beta = beta * bs["f"] * \
             (cos_ns / torch.clamp_min(bs["pdf"], 1e-20))[..., None]

@@ -35,12 +35,12 @@ import torch
 
 from .core import math as pm
 from .core.camera import Camera, project_points
-from .integrator import (PathConfig, TracedScene, _reflect_ng_fn,
-                         _scene_intersect, _scene_intersect_p, _to_local,
-                         _to_world)
+from .integrator import (PathConfig, TracedScene, _scene_intersect,
+                         _scene_intersect_p)
 from .ops import bsdf as bx
 from .ops import interaction as ia
 from .ops import lights as lt
+from .ops.cuda import bsdf_cu
 from .scene.scene import LA_EMIT, LA_TYPE, LIGHT_AREA
 
 
@@ -133,25 +133,22 @@ def _lt_wave(scene, film, shape, cam, depth: int, u_pick, u_pos, u_dir,
                               tex_channels=scene.tex_channels,
                               image_tex=scene.image_tex)
         wo_w = -d
-        wo_l = _to_local(it, wo_w)
 
         # connect y_k -> camera
         w_cam = pm.normalize(cam_pos - it["p"])
-        reflect_ng = (pm.dot(w_cam, it["ng"])
-                      * pm.dot(wo_w, it["ng"])) > 0.0
-        f_cam, _ = bx.eval_f_pdf(mp, wo_l, _to_local(it, w_cam), reflect_ng,
-                                 present=scene.mat_set)
-        val = beta * f_cam * torch.abs(pm.dot(w_cam, it["ns"]))[..., None]
+        f_cam, _, cos_cam = bsdf_cu.bsdf_eval(mp, it, wo_w, w_cam,
+                                              present=scene.mat_set)
+        val = beta * f_cam * cos_cam[..., None]
         film = _splat(scene, cam, film, shape, it["p"], it["p_error"],
                       it["ng"], torch.where(alive[..., None], val, 0.0),
                       alive)
         if k + 1 == depth:
             break
         # continue the light path
-        bs = bx.sample_f(mp, wo_l, u_bounce[k], _reflect_ng_fn(it, wo_w),
-                         present=scene.mat_set)
-        wi_w = _to_world(it, bs["wi"])
-        step = bs["f"] * (torch.abs(pm.dot(wi_w, it["ns"]))
+        bs = bsdf_cu.bsdf_sample(mp, it, wo_w, u_bounce[k],
+                                 present=scene.mat_set)
+        wi_w = bs["wi"]
+        step = bs["f"] * (bs["cos"]
                           / torch.clamp_min(bs["pdf"], 1e-30))[..., None]
         alive = alive & (bs["pdf"] > 0.0) & torch.any(step != 0.0, dim=-1)
         beta = torch.where(alive[..., None], beta * step, 0.0)

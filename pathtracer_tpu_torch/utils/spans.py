@@ -30,9 +30,12 @@ The spans (``pt::`` names; parent by nesting):
   ``pt::scatter`` (the BSDF sample through Russian roulette);
 - ``pt::texture`` (``eval_texture``), ``pt::alpha_cut`` and
   ``pt::k:<kernel>``, around the launch of a hand-written kernel;
-- ``pt::bsdf:metal``, ``pt::bsdf:substrate``, ``pt::bsdf:glass``: a
-  material's branch of ``ops/bsdf.eval_f_pdf`` (in ``pt::nee``) or
-  ``ops/bsdf.sample_f`` (in ``pt::scatter``), where the scene holds it.
+- on the card, kernels K5 and K6 (``ops/cuda/bsdf_cu.py``) evaluate the
+  BSDF in ``pt::nee`` and sample it in ``pt::scatter``: each launch in its
+  ``pt::k:bsdf_eval`` / ``pt::k:bsdf_sample``, and, where the scene holds
+  METAL, SUBSTRATE or GLASS, inside one ``pt::bsdf:kernel`` (a scene of
+  MATTE alone, such as cornell, opens none). The benchmark's
+  ``bsdf_ops_per_ksample`` reads the ``pt::bsdf:`` prefix.
 """
 
 from __future__ import annotations

@@ -32,7 +32,7 @@ from pathtracer_tpu_torch import integrator as pint
 from pathtracer_tpu_torch.integrator import (PathConfig, PathIntegrator,
                                              TracedScene, trace_wave)
 from pathtracer_tpu_torch.ops import bsdf as bx
-from pathtracer_tpu_torch.ops.cuda import _build, bvhw_cu
+from pathtracer_tpu_torch.ops.cuda import _build, bsdf_cu, bvhw_cu
 from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
 from pathtracer_tpu_torch.scene.scene import (MA_ETA, MA_K, MA_KD, MA_KS,
                                               MA_ROUGH, MAT_GLASS, MAT_MATTE,
@@ -325,7 +325,7 @@ def dev():
 def _render_two(dev, engage: bool):
     """Two 160 x 120 jobs at 8 spp in chunks of 4, depth 15, through one
     integrator: (films, counts, GRAPH_COUNTS moved, K2 launches and
-    bytes moved)."""
+    bytes moved, K5 / K6 launches)."""
     cam, sd, _ = load_mitsuba(SCENE, resolution=(160, 120), device=dev)
     scene = TracedScene.create(sd)
     integ = PathIntegrator(PathConfig(max_depth=15, mis_mode="onesample"),
@@ -335,6 +335,7 @@ def _render_two(dev, engage: bool):
         pint._graph_engages = lambda scene, cfg: False
     before = dict(pint.GRAPH_COUNTS)
     k2 = (bvhw_cu.LAUNCHES, bvhw_cu.BYTES)
+    bsdf = dict(bsdf_cu.LAUNCHES)
     films, occ = [], []
     try:
         for shift in (0.0, 0.04):
@@ -349,14 +350,16 @@ def _render_two(dev, engage: bool):
     moved = {k: v - before[k] for k, v in pint.GRAPH_COUNTS.items()}
     return dict(films=films, occ=occ, moved=moved,
                 lanes=dict(integ.lane_bounces),
-                k2=(bvhw_cu.LAUNCHES - k2[0], bvhw_cu.BYTES - k2[1]))
+                k2=(bvhw_cu.LAUNCHES - k2[0], bvhw_cu.BYTES - k2[1]),
+                bsdf={k: v - bsdf[k] for k, v in bsdf_cu.LAUNCHES.items()})
 
 
 @pytest.mark.cuda
 def test_graph_films_equal_eager_on_the_spheres(dev):
     """Graph replay against eager on the new scene (K2, four BSDF
     branches, 16 bounces), with the spans and the live-lane count in
-    place: films and counts equal, K2's launches and bytes alike."""
+    place: films and counts equal, K2's launches and bytes alike, and
+    K5 / K6's: one each a shading bounce, 15 a band-frame."""
     g, e = _render_two(dev, True), _render_two(dev, False)
     assert g["moved"]["replays"] > 0 and e["moved"]["replays"] == 0
     for got, want in zip(g["films"], e["films"]):
@@ -366,6 +369,9 @@ def test_graph_films_equal_eager_on_the_spheres(dev):
         np.testing.assert_array_equal(got, want)
     assert g["lanes"] == e["lanes"] and g["k2"] == e["k2"]
     assert g["k2"][0] > 0 and g["k2"][1] > 0
+    frames = g["moved"]["captures"] + g["moved"]["replays"]
+    assert g["bsdf"] == e["bsdf"] == dict(bsdf_eval=15 * frames,
+                                          bsdf_sample=15 * frames)
 
 
 @pytest.mark.cuda
@@ -373,7 +379,8 @@ def test_every_k2_kernel_of_a_traced_replay_links_to_its_span(dev):
     """Under the profiler a replay runs the cut form: each K2 kernel
     links, by its graph launch's correlation id, to a ``pt::k:bvhw``
     span, as many as the replays' counted launches; the BSDF spans hold
-    device work."""
+    device work: each K5 / K6 kernel links to its ``pt::k:bsdf_*`` span
+    inside ``pt::bsdf:kernel``, as many as their counted launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -384,12 +391,14 @@ def test_every_k2_kernel_of_a_traced_replay_links_to_its_span(dev):
     integ.render(cam, scene)  # captures
     torch.cuda.synchronize()
     launches = bvhw_cu.LAUNCHES
+    bsdf_before = dict(bsdf_cu.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         integ.render(cam, scene)
         torch.cuda.synchronize()
     launches = bvhw_cu.LAUNCHES - launches
     spans, runtime, k2, bsdf = [], {}, [], 0
+    kernels = {"bsdf_eval": [], "bsdf_sample": []}
     events = list(prof.profiler.kineto_results.events())
     for e in events:
         if e.device_type() == DeviceType.CPU:
@@ -404,8 +413,17 @@ def test_every_k2_kernel_of_a_traced_replay_links_to_its_span(dev):
             if "bvhw_kernel" in e.name():
                 k2.append((name, held))
             bsdf += any(n.startswith("pt::bsdf:") for n in held)
+            for kernel, found in kernels.items():
+                if kernel + "_kernel" in e.name():
+                    found.append((name, held))
     assert len(k2) == launches > 0
     for name, held in k2:
         assert name.startswith("cudaGraphLaunch"), name
         assert held[-1] == "pt::k:bvhw", held
     assert bsdf > 0
+    for kernel, found in kernels.items():
+        assert len(found) == bsdf_cu.LAUNCHES[kernel] - bsdf_before[kernel]
+        assert found
+        for name, held in found:
+            assert name.startswith("cudaGraphLaunch"), name
+            assert held[-2:] == ["pt::bsdf:kernel", "pt::k:" + kernel], held

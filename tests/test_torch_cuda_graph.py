@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from pathtracer_tpu_torch import integrator as pint
-from pathtracer_tpu_torch.ops.cuda import intersect_cu
+from pathtracer_tpu_torch.ops.cuda import bsdf_cu, intersect_cu
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORNELL = os.path.join(ROOT, "data", "cornell-box.xml")
@@ -47,7 +47,8 @@ def _cameras(cam):
 
 def _two_jobs(dev):
     """Two cornell jobs through one integrator, in chunks: (films, done
-    frames a callback, GRAPH_COUNTS moved, K1 launches). Between the jobs
+    frames a callback, GRAPH_COUNTS moved, K1 and K5 / K6 launches).
+    Between the jobs
     the first job's set-up tensors (camera, Sobol tables, band statics)
     are dropped and their blocks taken by tensors of garbage, so a graph
     that read an address of the first job's would read garbage."""
@@ -76,6 +77,7 @@ def _two_jobs(dev):
     integ.setup, integ.band = spy_setup, spy_band
     before = dict(pint.GRAPH_COUNTS)
     k1_before = intersect_cu.LAUNCHES
+    bsdf_before = dict(bsdf_cu.LAUNCHES)
     films, done = [], []
     for job, camera in enumerate(_cameras(cam)):
         if job:
@@ -91,7 +93,9 @@ def _two_jobs(dev):
     moved = {k: v - before[k] for k, v in pint.GRAPH_COUNTS.items()}
     bands = integ.band_layout(cam)[1]
     return dict(films=films, done=done, moved=moved, bands=bands,
-                k1=intersect_cu.LAUNCHES - k1_before)
+                k1=intersect_cu.LAUNCHES - k1_before,
+                bsdf={k: v - bsdf_before[k]
+                      for k, v in bsdf_cu.LAUNCHES.items()})
 
 
 @pytest.fixture(scope="module")
@@ -138,6 +142,16 @@ def test_k1_launches_count_alike_on_both_paths(runs):
     assert g["k1"] == e["k1"] == 2 * SPP * g["bands"] * (2 * DEPTH + 1)
 
 
+@pytest.mark.cuda
+def test_bsdf_launches_count_alike_on_both_paths(runs):
+    """K5 and K6 launch once each a shading bounce (NEE's light branch and
+    the scatter), on the graph path as eagerly: 10 a band-frame."""
+    g, e = runs["graph"], runs["eager"]
+    frames = 2 * SPP * g["bands"]
+    assert g["bsdf"] == e["bsdf"] == dict(bsdf_eval=frames * DEPTH,
+                                          bsdf_sample=frames * DEPTH)
+
+
 def _profiled(fn):
     """Run ``fn`` under the profiler, synchronised: (the ``pt::`` spans as
     (name, start, end) sorted by start, {correlation id: (runtime call's
@@ -174,7 +188,9 @@ def test_replayed_kernels_lie_in_their_band_frame(dev):
     inside ``pt::graph_replay`` inside ``pt::band_frame``: each K1 kernel
     to a launch of its own, in the ``pt::k:intersect`` span inside
     ``pt::intersect`` that the replay opened; K1's kernels as many as the
-    replays' counted launches."""
+    replays' counted launches. Each K5 / K6 kernel likewise, in its
+    ``pt::k:bsdf_*`` span inside ``pt::nee`` / ``pt::scatter``, in no
+    ``pt::bsdf:`` span (cornell holds only MATTE)."""
     from pathtracer_tpu_torch.integrator import (PathConfig, PathIntegrator,
                                                  TracedScene)
     from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
@@ -186,6 +202,7 @@ def test_replayed_kernels_lie_in_their_band_frame(dev):
     integ.render(cam, scene)  # captures
     torch.cuda.synchronize()
     before, k1_before = dict(pint.GRAPH_COUNTS), intersect_cu.LAUNCHES
+    bsdf_before = dict(bsdf_cu.LAUNCHES)
     spans, runtime, ops = _profiled(lambda: integ.render(cam, scene))
     assert pint.GRAPH_COUNTS["replays"] - before["replays"] == 2
     assert pint.GRAPH_COUNTS["captures"] == before["captures"]
@@ -198,6 +215,17 @@ def test_replayed_kernels_lie_in_their_band_frame(dev):
         held = _held(spans, t)
         assert "pt::band_frame" in held and "pt::graph_replay" in held, held
         assert held[-2:] == ["pt::intersect", "pt::k:intersect"], held
+    for kernel, parent in (("bsdf_eval", "pt::nee"),
+                           ("bsdf_sample", "pt::scatter")):
+        corrs = [c for n, c in ops if kernel + "_kernel" in n]
+        assert len(corrs) == bsdf_cu.LAUNCHES[kernel] - bsdf_before[kernel] \
+            == 2 * DEPTH
+        for corr in corrs:
+            name, t = runtime[corr]
+            assert name.startswith("cudaGraphLaunch"), name
+            held = _held(spans, t)
+            assert held[-2:] == [parent, "pt::k:" + kernel], held
+            assert not any(n.startswith("pt::bsdf:") for n in held), held
 
 
 @pytest.mark.cuda

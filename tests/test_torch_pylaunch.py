@@ -17,13 +17,17 @@ import types
 
 import pytest
 
-from pathtracer_tpu_torch.ops.cuda import (_build, bvhw_cu, intersect_cu,
-                                           texture_cu)
+from pathtracer_tpu_torch.ops.cuda import (_build, bsdf_cu, bvhw_cu,
+                                           intersect_cu, texture_cu)
 from pathtracer_tpu_torch.probes import gather, gather2
 
 SIGS = ("ppiipp", "ppipp", "ppiiipp", "ppppiiifffppppp", "ppppiiiiffffppppp",
-        "ppppppiippppiiipp", "pppppppifppppp")
-MODULES = (intersect_cu, bvhw_cu, texture_cu, gather, gather2)
+        "ppppppiippppiiipp", "pppppppifppppp",
+        "pipiipiipipiipiipipipippppppiipppp",
+        "pipiipiipipiipiipipipippppppiippppppp")
+MODULES = (intersect_cu, bvhw_cu, texture_cu, bsdf_cu, gather, gather2)
+# slots of the stand-ins' records: the longest signature's arguments
+SLOTS = max(len(sig) for sig in SIGS)
 CTYPE = {"p": "void*", "i": "int", "f": "float"}
 SEEN = {"p": "seen_p[{k}] = (uintptr_t)a{k};", "i": "seen_i[{k}] = a{k};",
         "f": "seen_f[{k}] = a{k};"}
@@ -32,8 +36,9 @@ SEEN = {"p": "seen_p[{k}] = (uintptr_t)a{k};", "i": "seen_i[{k}] = a{k};",
 def _stand_ins() -> str:
     """C launchers ``pt_<sig>_launch`` that store their arguments by
     position in seen_p / seen_i / seen_f and return ``ret_code``."""
-    lines = ["#include <stdint.h>", "uint64_t seen_p[17];", "int seen_i[17];",
-             "float seen_f[17];", "int ret_code;"]
+    lines = ["#include <stdint.h>", f"uint64_t seen_p[{SLOTS}];",
+             f"int seen_i[{SLOTS}];", f"float seen_f[{SLOTS}];",
+             "int ret_code;"]
     for sig in SIGS:
         params = ", ".join(f"{CTYPE[c]} a{k}" for k, c in enumerate(sig))
         body = " ".join(SEEN[c].format(k=k) for k, c in enumerate(sig))
@@ -80,9 +85,9 @@ def test_trampoline_passes_every_argument_intact(built, sig):
     mod, lib = built
     addr = ctypes.cast(getattr(lib, f"pt_{sig}_launch"),
                        ctypes.c_void_p).value
-    seen_p = (ctypes.c_uint64 * 17).in_dll(lib, "seen_p")
-    seen_i = (ctypes.c_int * 17).in_dll(lib, "seen_i")
-    seen_f = (ctypes.c_float * 17).in_dll(lib, "seen_f")
+    seen_p = (ctypes.c_uint64 * SLOTS).in_dll(lib, "seen_p")
+    seen_i = (ctypes.c_int * SLOTS).in_dll(lib, "seen_i")
+    seen_f = (ctypes.c_float * SLOTS).in_dll(lib, "seen_f")
     ctypes.c_int.in_dll(lib, "ret_code").value = 0
     args = _args(sig)
     assert getattr(mod, sig)(addr, *args) == 0
@@ -120,7 +125,7 @@ def test_launch_raises_on_a_nonzero_code(built, monkeypatch):
     monkeypatch.setattr(_build, "_current_device", lambda: 0)
     monkeypatch.setattr(_build, "_raw_stream", lambda index: stream)
     ret = ctypes.c_int.in_dll(lib, "ret_code")
-    seen_p = (ctypes.c_uint64 * 17).in_dll(lib, "seen_p")
+    seen_p = (ctypes.c_uint64 * SLOTS).in_dll(lib, "seen_p")
     ret.value = 0
     assert _build.launch(fn, "probe", 0, 1 << 33, 2, 7, 3) is None
     assert seen_p[4] == stream
