@@ -17,7 +17,8 @@ Run from the repository root: ``python3 bench_torch.py``. Legs:
   triangles through their own BVH32 table, with re-spawn retries), the
   same way, with the retry loops' host syncs in each timed chunk;
 - ``graft_entry``: the port's twin of ``__graft_entry__.entry()``, one
-  64x64, depth 3, 1 spp cornell band through ``render_band``;
+  64x64, depth 3, 1 spp cornell band through
+  ``PathIntegrator.render_frames``;
 - ``mitsuba_feature``: the Mitsuba feature scene of
   ``tests/torch_mitsuba_scenes.py`` (every BSDF, texture, shape and
   emitter arm of the importer; 392 triangles, K2) at 640x480, 16 spp,
@@ -47,7 +48,6 @@ import sys
 import tempfile
 import time
 
-import numpy as np
 import torch
 
 RENDERS = 3
@@ -237,45 +237,23 @@ def graft_entry(device="cuda"):
     """The port's twin of ``__graft_entry__.entry()``: (fn, args), where
     ``fn(*args)`` renders one Sobol-sampled row band covering the whole
     64x64 cornell box (depth 3, 1 spp) into the padded film ``args[1]``
-    through ``render_band`` and returns (film_pad, rays, non-finite)."""
-    from pathtracer_tpu_torch.core.film import film_pad_new, sample_bounds
-    from pathtracer_tpu_torch.core.filter import filter_f1d
-    from pathtracer_tpu_torch.integrator import (PathConfig, TracedScene,
-                                                 render_band)
-    from pathtracer_tpu_torch.ops import sobol as sb
+    through ``PathIntegrator.render_frames`` and returns (film_pad, rays,
+    non-finite)."""
+    from pathtracer_tpu_torch.core.film import film_pad_new
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
     from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
 
     res = (64, 64)
     cam, sd, _ = load_mitsuba("data/cornell-box.xml", resolution=res,
                               device=device)
-    scene = TracedScene.create(sd)
-    cfg = PathConfig(max_depth=3)
-    f1d, radius = filter_f1d()
-    f1d = tuple(float(v) for v in f1d)
-    (x0, y0), (x1, y1) = sample_bounds(*res, radius)
-    ws, hs = x1 - x0, y1 - y0
-    domain = sb.SobolDomain.create((x0, y0), (x1, y1), 1)
-    xs, ys = np.meshgrid(np.arange(x0, x1), np.arange(y0, y1), indexing="xy")
-    px, py = xs.ravel(), ys.ravel()
-    scramble, b_base = sb.pixel_statics(domain, px, py)
-    lo, hi, delta = sb.frame_statics(domain, 0)
+    integ = PathIntegrator(PathConfig(max_depth=3), spp=1)
+    su = integ.setup(cam, sd)
 
-    def t(a, dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    def fn(su_in, film_pad, band_in):
+        return integ.render_frames(su_in, film_pad, band_in, 0, 1)
 
-    def fn(scene_in, film_pad, px_in, py_in, b_in, scr_in):
-        return render_band(
-            scene_in, cfg, 1, (hs, ws), py_in < y1, film_pad, x0, y0, px_in,
-            py_in, b_in, scr_in, [int(lo)], [int(hi)], [int(delta)],
-            *sb.vdc_inv_rows(domain, device), *cam.ray_params(device), f1d,
-            sb.sm32_device(device), float(np.float32(domain.resolution)),
-            float(np.float32(domain.p_min[0])),
-            float(np.float32(domain.p_min[1])), filter_radius=radius)
-
-    args = (scene, film_pad_new(*res, extra_rows=hs, device=device),
-            t(px, torch.int32), t(py, torch.int32),
-            t(b_base.astype(np.int64), torch.int64),
-            t(scramble.astype(np.int64), torch.int64))
+    args = (su, film_pad_new(*res, extra_rows=su.hs, device=device),
+            integ.band(su, su.y0, su.hs, su.y1))
     return fn, args
 
 

@@ -50,7 +50,7 @@ def render_single_pixel(camera, scene, cfg: PathConfig, pixel,
         hi.append(h_)
     lo, hi = torch.cat(lo), torch.cat(hi)
     scr = torch.as_tensor(scramble.astype(np.int64), device=dev)
-    # dims 0/1 unscrambled, as render_band draws the camera jitter, so the
+    # dims 0/1 unscrambled, as band_frame draws the camera jitter, so the
     # debug pixel re-traces the film's samples
     s01 = sb.sobol_sample_dim2(lo, hi, 0, torch.zeros_like(scr), pack)
     pxf = torch.as_tensor(px, dtype=torch.float32, device=dev)

@@ -867,31 +867,32 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
     return st
 
 
-def _sobol_draws(b_base, scramble, f_lo, f_hi, f_delta, inv_lo, inv_hi,
-                 sobol_pack, sobol_scale, sobol_off_x, sobol_off_y, pxf, pyf):
-    """One Sobol sample frame of a band: (draw, draw2, jx, jy)."""
+def _sobol_draws(su, band, frame_lo, frame_hi, frame_delta, pxf, pyf):
+    """One Sobol sample frame of a band at the frame's words: (draw,
+    draw2, jx, jy)."""
     def draw(dim):
         with span("pt::sampler"):
-            return sb.sobol_sample_dim(idx_lo, idx_hi, dim, scramble,
-                                       sobol_pack)
+            return sb.sobol_sample_dim(idx_lo, idx_hi, dim, band.scramble,
+                                       su.sobol_pack)
 
     def draw2(dim):
         with span("pt::sampler"):
-            return sb.sobol_sample_dim2(idx_lo, idx_hi, dim, scramble,
-                                        sobol_pack)
+            return sb.sobol_sample_dim2(idx_lo, idx_hi, dim, band.scramble,
+                                        su.sobol_pack)
 
     with span("pt::sampler"):
-        idx_lo, idx_hi = sb.sobol_index(b_base, f_delta, f_lo, f_hi, inv_lo,
-                                        inv_hi)
+        idx_lo, idx_hi = sb.sobol_index(band.b_base, frame_delta, frame_lo,
+                                        frame_hi, su.inv_lo, su.inv_hi)
         # camera dims 0,1 remapped into the pixel, drawn UNSCRAMBLED (as
         # the reference and PBRT's SobolSampler do)
         s01 = sb.sobol_sample_dim2(idx_lo, idx_hi, 0,
-                                   torch.zeros_like(scramble), sobol_pack)
+                                   torch.zeros_like(band.scramble),
+                                   su.sobol_pack)
         one_minus = float(pm.ONE_MINUS_EPSILON)
-        jx = torch.clamp(s01[..., 0] * sobol_scale + sobol_off_x - pxf, 0.0,
-                         one_minus)
-        jy = torch.clamp(s01[..., 1] * sobol_scale + sobol_off_y - pyf, 0.0,
-                         one_minus)
+        jx = torch.clamp(s01[..., 0] * su.sobol_scale + su.sobol_off_x - pxf,
+                         0.0, one_minus)
+        jy = torch.clamp(s01[..., 1] * su.sobol_scale + su.sobol_off_y - pyf,
+                         0.0, one_minus)
     return draw, draw2, jx, jy
 
 
@@ -925,124 +926,52 @@ def _hash_draws(sampler: str, pixel_hash, frame: int, total_spp_log2: int):
     return draw, draw2, None
 
 
-def band_frame(scene, cfg: PathConfig, band_shape: tuple[int, int],
-               valid_lanes, px, py, b_base, scramble, frame_lo, frame_hi,
-               frame_delta, inv_lo, inv_hi, r2c, cam_rot, cam_pos, filter_f1d,
-               sobol_pack, sobol_scale, sobol_off_x, sobol_off_y,
-               filter_radius: float = 2.0, dxdy_cam=None, diff_scale=1.0,
-               frame: int = 0, total_spp_log2: int = 0, pixel_hash=None,
+def band_frame(scene, cfg: PathConfig, su: RenderSetup, band: Band, words,
                occupancy=None):
     """One sample frame of one row band, up to its splat tile: the
     sampler's draws, the camera rays, ``trace_wave`` and ``splat_tile``.
     Returns (tile (4, Th+2h, Tw+2h), ray count, non-finite count).
 
-    Arguments as ``render_band``'s, for the one frame: frame_lo / hi /
-    delta are its Sobol words, host ints or 0-d int64 tensors on the
-    device (``ops/sobol.sobol_index``); the Sobol scalars and
-    ``diff_scale`` are host floats or 0-d float32 tensors on the device,
-    which give the same bits; ``frame`` is its index for the
-    stratified and random samplers, which read ``pixel_hash``
-    (``samplers.pixel_hash``) instead. Every tensor it reads is an
-    argument or the scene's, and it copies nothing from the host once
-    the constants it shares (``core/math.device_const``) exist, so a CUDA
-    graph can hold it (``_BandGraph``).
+    ``words`` are the frame's sampler words (``PathIntegrator.
+    render_frames``): the Sobol sampler's (lo, hi, delta)
+    (``ops/sobol.sobol_index``), or the stratified and random samplers'
+    (frame index,); host ints, or 0-d int64 tensors on the device. The
+    records' floats (the Sobol scalars, ``diff_scale``) are host floats or
+    0-d float32 tensors on the device, which give the same bits.
+    ``occupancy``: as ``trace_wave``'s. Every tensor it reads is a field
+    of ``su`` or ``band`` or the scene's, and it copies nothing from the
+    host once the constants it shares (``core/math.device_const``) exist,
+    so a CUDA graph can hold it (``_BandGraph``).
     """
-    th, tw = band_shape
-    pxf = px.to(torch.float32)
-    pyf = py.to(torch.float32)
+    th, tw = band.rows, su.ws
+    pxf = band.px.to(torch.float32)
+    pyf = band.py.to(torch.float32)
     draw2_arr = None
     if cfg.sampler == "sobol":
-        draw, draw2, jx, jy = _sobol_draws(
-            b_base, scramble, frame_lo, frame_hi, frame_delta, inv_lo,
-            inv_hi, sobol_pack, sobol_scale, sobol_off_x, sobol_off_y, pxf,
-            pyf)
+        draw, draw2, jx, jy = _sobol_draws(su, band, *words, pxf, pyf)
     else:
-        draw, draw2, draw2_arr = _hash_draws(cfg.sampler, pixel_hash, frame,
-                                             total_spp_log2)
+        draw, draw2, draw2_arr = _hash_draws(cfg.sampler, band.pixel_hash,
+                                             *words, su.tsl)
         jx = draw(0)
         jy = draw(1)
     with span("pt::camera"):
         p_film = torch.stack([pxf + jx, pyf + jy], dim=-1)
-        if dxdy_cam is not None and (scene.has_tex or scene.has_normal_maps):
+        if su.dxdy_cam is not None:
             o, d, rxd, ryd = generate_rays_diff(
-                r2c, cam_rot, cam_pos, p_film, dxdy_cam, diff_scale)
+                su.r2c, su.cam_rot, su.cam_pos, p_film, su.dxdy_cam,
+                su.diff_scale)
         else:
-            o, d = generate_rays(r2c, cam_rot, cam_pos, p_film)
+            o, d = generate_rays(su.r2c, su.cam_rot, su.cam_pos, p_film)
             rxd = ryd = None
     radiance, rays, n_bad = trace_wave(
-        scene, cfg, draw, draw2, o, d, rxd, ryd, lane_valid=valid_lanes,
+        scene, cfg, draw, draw2, o, d, rxd, ryd, lane_valid=band.valid,
         draw2_arr=draw2_arr, occupancy=occupancy)
+    filter_f1d, filter_radius = su.pixel_filter
     with span("pt::film"):
         tile = splat_tile(radiance.reshape(th, tw, 3), jx.reshape(th, tw),
-                          jy.reshape(th, tw), valid_lanes.reshape(th, tw),
+                          jy.reshape(th, tw), band.valid.reshape(th, tw),
                           filter_f1d, radius=filter_radius)
     return tile, rays, n_bad
-
-
-def render_band(scene, cfg: PathConfig, spp: int, band_shape: tuple[int, int],
-                valid_lanes, film_pad, band_x0: int, band_y0: int, px, py,
-                b_base, scramble, frame_lo, frame_hi, frame_delta,
-                inv_lo, inv_hi, r2c, cam_rot, cam_pos, filter_f1d,
-                sobol_pack, sobol_scale: float, sobol_off_x: float,
-                sobol_off_y: float, filter_radius: float = 2.0,
-                dxdy_cam=None, diff_scale: float = 1.0, frame_base: int = 0,
-                total_spp_log2: int = 0, occupancy=None):
-    """Render ``spp`` sampler frames for one row band into the padded film
-    (in place), each an eager ``band_frame``. Returns (film_pad, ray
-    count, non-finite count).
-
-    band_shape = (Th, Tw); px/py: (Th*Tw,) absolute pixel coords;
-    valid_lanes: (Th*Tw,) bool (padding rows carry zero weight); b_base /
-    scramble: (Th*Tw,) int64 Sobol words; frame_*: host per-frame Sobol
-    constants (sobol.frame_statics); dxdy_cam: the camera's (2, 3)
-    raster-step offsets (Camera.diff_params) that turn on ray
-    differentials where the scene binds a texture or normal map, None for
-    none; diff_scale: their scale, 1/sqrt(spp) of the whole render. The
-    stratified and random samplers read none of the Sobol arguments
-    (None will do) but ``frame_base``, the render's index of the band's
-    first frame, and, stratified, ``total_spp_log2``, log2 of the whole
-    render's spp, so a render in chunks draws the samples of a whole one.
-    ``occupancy``: as ``trace_wave``'s, summed over the frames.
-    """
-    _check_config(cfg)
-    pixel_hash = None
-    if cfg.sampler != "sobol":
-        with span("pt::sampler"):
-            pixel_hash = smp.pixel_hash(px, py)
-
-    def frame(s):
-        GRAPH_COUNTS["eager"] += 1
-        sobol_words = (None, None, None) if frame_lo is None else \
-            (frame_lo[s], frame_hi[s], frame_delta[s])
-        return band_frame(
-            scene, cfg, band_shape, valid_lanes, px, py, b_base, scramble,
-            *sobol_words, inv_lo, inv_hi, r2c, cam_rot, cam_pos, filter_f1d,
-            sobol_pack, sobol_scale, sobol_off_x, sobol_off_y,
-            filter_radius=filter_radius, dxdy_cam=dxdy_cam,
-            diff_scale=diff_scale, frame=frame_base + s,
-            total_spp_log2=total_spp_log2, pixel_hash=pixel_hash,
-            occupancy=occupancy)
-    return _band_frames(frame, spp, film_pad, band_x0, band_y0,
-                        filter_radius, px.device)
-
-
-def _band_frames(frame, n_frames: int, film_pad, band_x0: int, band_y0: int,
-                 filter_radius: float, device):
-    """Run ``n_frames`` band-frames ``frame(s)`` -> (tile, ray count,
-    non-finite count), each in ``pt::band_frame``, and splat each tile
-    into the padded film (in place) at the band's offset. Returns
-    (film_pad, ray count, non-finite count)."""
-    rays_total = torch.zeros((), device=device)
-    bad_total = torch.zeros((), device=device)
-    half = splat_halfwidth(filter_radius)
-    for s in range(n_frames):
-        with span("pt::band_frame"):
-            tile, rays, n_bad = frame(s)
-            film_pad = film_pad_accumulate(film_pad, tile, band_x0, band_y0,
-                                           half=half)
-            rays_total = rays_total + rays
-            bad_total = bad_total + n_bad
-    return film_pad, rays_total, bad_total
 
 
 def _graph_engages(scene, cfg: PathConfig) -> bool:
@@ -1066,6 +995,18 @@ def _graph_engages(scene, cfg: PathConfig) -> bool:
             and cfg.sampler == "sobol")
 
 
+def _static(value, device):
+    """A capture's copy of a record's field: a buffer like a tensor, a
+    0-d float32 buffer for a float; an int, None or host object stays as
+    it is, baked into the capture (the graph's key holds those that
+    ``band_frame`` reads)."""
+    if isinstance(value, torch.Tensor):
+        return torch.empty_like(value)
+    if isinstance(value, float):
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return value
+
+
 class _BandGraph:
     """One band-frame of one band shape, captured as CUDA graphs
     (``utils/span_graph.SpanGraph``: one graph, and, for replays under a
@@ -1074,71 +1015,55 @@ class _BandGraph:
 
     It owns the graphs, their memory pool (the tensors the captures made,
     the outputs among them: the band-frame's tile and counts, and its live
-    lanes a bounce) and the static buffers the graphs read: a band's pixel
-    statics, the camera's parameters, the Sobol tables and scalars, the
-    differentials' scale and the frame's three Sobol words.
-    ``stage`` copies a render's band into them, ``run`` a frame's words;
-    the first ``run`` runs the band-frame eagerly on the capture's stream
-    (the warm-up PyTorch's graph docs prescribe; its result is that
-    band-frame's) and then captures it, every later one replays it. A
-    replay runs the same kernels on the same bits as the eager
+    lanes a bounce) and the static buffers the graphs read: copies of the
+    render's ``RenderSetup`` and the band's ``Band`` with a buffer in
+    each tensor and float field (``_static``), and the frame's sampler
+    words. ``stage`` copies a render's band into them, ``run`` a frame's
+    words; the first ``run`` runs the band-frame eagerly on the capture's
+    stream (the warm-up PyTorch's graph docs prescribe; its result is
+    that band-frame's) and then captures it, every later one replays it.
+    A replay runs the same kernels on the same bits as the eager
     ``band_frame``, and counts the hand kernels' launches that the
     capture tallied (``ops/cuda/_build.replayed``).
     """
 
-    WORDS = ("frame_lo", "frame_hi", "frame_delta")
-    SCALARS = ("sobol_scale", "sobol_off_x", "sobol_off_y", "diff_scale")
-
-    def __init__(self, integ: "PathIntegrator", su: "RenderSetup",
-                 band: tuple):
+    def __init__(self, integ: PathIntegrator, su: RenderSetup, band: Band):
         self.scene, self.cfg, self.device = su.scene, integ.cfg, su.device
-        # host values the capture bakes in (the rest of the graph's key)
-        self.host_args = dict(band_shape=(band[1], su.ws),
-                              filter_f1d=integ.filter_f1d,
-                              filter_radius=integ.filter_radius)
-        self.static = {k: None if v is None else torch.empty_like(v)
-                       for k, v in self._inputs(su, band).items()}
-        for keys, dtype in ((self.WORDS, torch.int64),
-                            (self.SCALARS, torch.float32)):
-            for k in keys:
-                self.static[k] = torch.zeros((), dtype=dtype,
-                                             device=self.device)
+        self.su, self.band = (
+            dataclasses.replace(r, **{k: _static(v, self.device)
+                                      for k, v in vars(r).items()})
+            for r in (su, band))
+        self.words = None  # 0-d int64 buffers, made at the first run
         self.graph = SpanGraph(self.device)
         self.launches = None  # a replay's hand kernel launches, once captured
 
-    @staticmethod
-    def _inputs(su, band) -> dict:
-        """``band_frame``'s tensor arguments of a band of a render."""
-        _, _, px, py, valid, b_base, scramble = band
-        return dict(valid_lanes=valid, px=px, py=py, b_base=b_base,
-                    scramble=scramble, inv_lo=su.inv_lo, inv_hi=su.inv_hi,
-                    sobol_pack=su.sobol_pack, r2c=su.r2c,
-                    cam_rot=su.cam_rot, cam_pos=su.cam_pos,
-                    dxdy_cam=su.dxdy_cam)
-
-    def stage(self, su, band) -> None:
-        """Copy a band's statics, the camera, the Sobol tables and the
-        render's scalars into the static buffers (on the current stream,
-        before the frames)."""
-        for k, v in self._inputs(su, band).items():
-            if v is not None:
-                self.static[k].copy_(v)
-        for k, v in zip(self.SCALARS, (*su.sobol_consts, su.diff_scale)):
-            self.static[k].fill_(v)
+    def stage(self, su: RenderSetup, band: Band) -> None:
+        """Copy a render's set-up and band into the static buffers (on the
+        current stream, before the frames)."""
+        for static, record in ((self.su, su), (self.band, band)):
+            for k, v in vars(record).items():
+                buf = getattr(static, k)
+                if isinstance(v, float):
+                    buf.fill_(v)
+                elif isinstance(buf, torch.Tensor):
+                    buf.copy_(v)
 
     def _body(self):
         live = torch.zeros((self.cfg.max_depth + 1,), dtype=torch.float32,
                            device=self.device)
-        return (*band_frame(self.scene, self.cfg, **self.host_args,
-                            **self.static, occupancy=live), live)
+        return (*band_frame(self.scene, self.cfg, self.su, self.band,
+                            self.words, occupancy=live), live)
 
     def run(self, words) -> tuple:
-        """One band-frame at the Sobol words ``words`` (lo, hi, delta):
-        (tile, ray count, non-finite count, live lanes a bounce). The
-        outputs of a replay are the graph's own: read them before the next
-        ``run``."""
-        for k, w in zip(self.WORDS, words):
-            self.static[k].fill_(int(w))
+        """One band-frame at the sampler words ``words``: (tile, ray
+        count, non-finite count, live lanes a bounce). The outputs of a
+        replay are the graph's own: read them before the next ``run``."""
+        if self.words is None:
+            self.words = tuple(torch.zeros((), dtype=torch.int64,
+                                           device=self.device)
+                               for _ in words)
+        for buf, w in zip(self.words, words):
+            buf.fill_(w)
         if self.launches is not None:
             with span("pt::graph_replay"):
                 out = self.graph.replay()
@@ -1168,9 +1093,10 @@ class _BandGraph:
 
 @dataclasses.dataclass(frozen=True)
 class RenderSetup:
-    """What every band of a render shares: the traced scene, the sample
-    rectangle ``[x0, x1) x [y0, y1)``, the sampler's statics (None where
-    the sampler reads none) and the camera's parameters, on ``device``."""
+    """What every band of a render shares, on ``device``: the traced
+    scene, the sample rectangle ``[x0, x1) x [y0, y1)``, the sampler's
+    statics (None or 0.0 where the sampler reads none), the camera's
+    parameters and the pixel filter (its (16,) host row, its radius)."""
 
     scene: TracedScene
     device: torch.device
@@ -1182,13 +1108,16 @@ class RenderSetup:
     inv_lo: torch.Tensor | None
     inv_hi: torch.Tensor | None
     sobol_pack: torch.Tensor | None
-    sobol_consts: tuple
-    tsl: int
-    r2c: object
-    cam_rot: object
-    cam_pos: object
-    dxdy_cam: object
+    sobol_scale: float
+    sobol_off_x: float
+    sobol_off_y: float
+    tsl: int  # log2 of the render's spp (the stratified sampler's)
+    r2c: torch.Tensor
+    cam_rot: torch.Tensor
+    cam_pos: torch.Tensor
+    dxdy_cam: torch.Tensor | None
     diff_scale: float
+    pixel_filter: tuple
 
     @property
     def ws(self) -> int:
@@ -1197,6 +1126,23 @@ class RenderSetup:
     @property
     def hs(self) -> int:
         return self.y1 - self.y0
+
+
+@dataclasses.dataclass(frozen=True)
+class Band:
+    """The ``rows`` rows from ``by0`` of a render (``PathIntegrator.band``)
+    on the device: its lanes' int32 pixels ``px`` / ``py``, their weights
+    ``valid`` (False on padding rows), the Sobol sampler's int64 words
+    ``b_base`` / ``scramble`` or the hash samplers' ``pixel_hash``."""
+
+    by0: int
+    rows: int
+    px: torch.Tensor
+    py: torch.Tensor
+    valid: torch.Tensor
+    b_base: torch.Tensor | None
+    scramble: torch.Tensor | None
+    pixel_hash: torch.Tensor | None
 
 
 class PathIntegrator:
@@ -1262,31 +1208,30 @@ class PathIntegrator:
         w, h = camera.resolution
         (x0, y0), (x1, y1) = sample_bounds(w, h, self.filter_radius)
         domain = inv_lo = inv_hi = sobol_pack = None
-        sobol_consts = (0.0, 0.0, 0.0)
+        scale = off_x = off_y = 0.0
         # the Sobol statics only where the Sobol sampler reads them
         if self.cfg.sampler == "sobol":
             domain = sb.SobolDomain.create((x0, y0), (x1, y1), self.spp)
             inv_lo, inv_hi = sb.vdc_inv_rows(domain, dev)
             sobol_pack = sb.sm32_device(dev)
-            sobol_consts = tuple(float(np.float32(v)) for v in (
+            scale, off_x, off_y = (float(np.float32(v)) for v in (
                 domain.resolution, domain.p_min[0], domain.p_min[1]))
         r2c, cam_rot, cam_pos = camera.ray_params(dev)
         diff = not self.no_diff and (scene.has_tex or scene.has_normal_maps)
         return RenderSetup(
             scene=scene, device=dev, x0=x0, y0=y0, x1=x1, y1=y1,
             domain=domain, inv_lo=inv_lo, inv_hi=inv_hi,
-            sobol_pack=sobol_pack, sobol_consts=sobol_consts,
-            tsl=pm.log2_int(self.spp)
-            if self.cfg.sampler == "stratified" else 0,
+            sobol_pack=sobol_pack, sobol_scale=scale, sobol_off_x=off_x,
+            sobol_off_y=off_y, tsl=pm.log2_int(self.spp),
             r2c=r2c, cam_rot=cam_rot, cam_pos=cam_pos,
             dxdy_cam=camera.diff_params(dev) if diff else None,
-            diff_scale=float(np.float32(1.0 / np.sqrt(self.spp))))
+            diff_scale=float(np.float32(1.0 / np.sqrt(self.spp))),
+            pixel_filter=(self.filter_f1d, self.filter_radius))
 
     def band(self, su: RenderSetup, by0: int, rows: int,
-             y_stop: int) -> tuple:
-        """The pixel statics of the band of ``rows`` rows from ``by0``:
-        (by0, rows, px, py, valid, b_base, scramble) on the device; rows
-        from ``y_stop`` on are padding (zero weight)."""
+             y_stop: int) -> Band:
+        """The Band of ``rows`` rows from ``by0``; rows from ``y_stop`` on
+        are padding (zero weight)."""
         dev = su.device
         xs, ys = np.meshgrid(np.arange(su.x0, su.x1),
                              np.arange(by0, by0 + rows), indexing="xy")
@@ -1295,22 +1240,27 @@ class PathIntegrator:
 
         def t(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-        b_base = scramble = None
+        px_t, py_t = t(px, torch.int32), t(py, torch.int32)
+        b_base = scramble = pixel_hash = None
         if su.domain is not None:
             scramble, b_base = sb.pixel_statics(
                 su.domain, px, np.minimum(py, su.y1 - 1))
             b_base = t(b_base.astype(np.int64), torch.int64)
             scramble = t(scramble.astype(np.int64), torch.int64)
-        return (by0, rows, t(px, torch.int32), t(py, torch.int32),
-                t(py < y_stop, torch.bool), b_base, scramble)
+        else:
+            with span("pt::sampler"):
+                pixel_hash = smp.pixel_hash(px_t, py_t)
+        return Band(by0=by0, rows=rows, px=px_t, py=py_t,
+                    valid=t(py < y_stop, torch.bool), b_base=b_base,
+                    scramble=scramble, pixel_hash=pixel_hash)
 
-    def _band_graph(self, su: RenderSetup, band: tuple) -> _BandGraph:
+    def _band_graph(self, su: RenderSetup, band: Band) -> _BandGraph:
         """The captured band-frame for ``band``'s shape, made at first use.
         A graph serves every band, frame and render of its key (the scene,
         the band's shape, differentials on or off: cameras, spp and
         resolutions of that band shape only fill its buffers). Capturing
         one drops the device's others, and with them their memory pools."""
-        key = (su.device, id(su.scene), self.cfg, band[1], su.ws,
+        key = (su.device, id(su.scene), self.cfg, band.rows, su.ws,
                su.dxdy_cam is not None)
         entry = self._graphs.get(key)
         if entry is None:
@@ -1319,42 +1269,41 @@ class PathIntegrator:
             entry = self._graphs[key] = _BandGraph(self, su, band)
         return entry
 
-    def render_frames(self, su: RenderSetup, film_pad, band: tuple,
+    def render_frames(self, su: RenderSetup, film_pad, band: Band,
                       s0: int, n_frames: int, occupancy=None):
         """Render frames ``[s0, s0 + n_frames)`` of one ``band`` into the
         padded film (in place): (film_pad, ray count, non-finite count),
         each frame's live lanes a bounce added into ``occupancy`` (None:
-        not counted). Where ``_graph_engages``, each frame is a replay of
-        the band's captured graph (``_BandGraph``), its live lanes added
-        after it as its tile is; else ``render_band`` runs them
-        eagerly."""
-        by0, rows, px, py, valid, b_base, scramble = band
-        frame_lo = frame_hi = frame_delta = None
-        if su.domain is not None:
-            frames = [sb.frame_statics(su.domain, s0 + i)
-                      for i in range(n_frames)]
-            frame_lo, frame_hi, frame_delta = (
-                [int(f[k]) for f in frames] for k in range(3))
+        not counted). Each frame is a ``band_frame`` at its sampler words,
+        in ``pt::band_frame``: where ``_graph_engages``, a replay of the
+        band's captured graph (``_BandGraph``), its live lanes added after
+        it as its tile is; else run eagerly."""
+        words = [tuple(int(w) for w in sb.frame_statics(su.domain, s))
+                 if su.domain is not None else (s,)
+                 for s in range(s0, s0 + n_frames)]
+        graph = None
         if _graph_engages(su.scene, self.cfg):
             graph = self._band_graph(su, band)
             graph.stage(su, band)
-            words = list(zip(frame_lo, frame_hi, frame_delta))
-
-            def frame(s):
-                tile, rays, n_bad, live = graph.run(words[s])
-                if occupancy is not None:
-                    occupancy.add_(live)
-                return tile, rays, n_bad
-            return _band_frames(frame, n_frames, film_pad, su.x0, by0,
-                                self.filter_radius, su.device)
-        return render_band(
-            su.scene, self.cfg, n_frames, (rows, su.ws), valid, film_pad,
-            su.x0, by0, px, py, b_base, scramble, frame_lo, frame_hi,
-            frame_delta, su.inv_lo, su.inv_hi, su.r2c, su.cam_rot,
-            su.cam_pos, self.filter_f1d, su.sobol_pack, *su.sobol_consts,
-            filter_radius=self.filter_radius, dxdy_cam=su.dxdy_cam,
-            diff_scale=su.diff_scale, frame_base=s0, total_spp_log2=su.tsl,
-            occupancy=occupancy)
+        rays_total = torch.zeros((), device=su.device)
+        bad_total = torch.zeros((), device=su.device)
+        half = splat_halfwidth(self.filter_radius)
+        for frame_words in words:
+            with span("pt::band_frame"):
+                if graph is not None:
+                    tile, rays, n_bad, live = graph.run(frame_words)
+                    if occupancy is not None:
+                        occupancy.add_(live)
+                else:
+                    GRAPH_COUNTS["eager"] += 1
+                    tile, rays, n_bad = band_frame(
+                        su.scene, self.cfg, su, band, frame_words,
+                        occupancy=occupancy)
+                film_pad = film_pad_accumulate(film_pad, tile, su.x0,
+                                               band.by0, half=half)
+                rays_total = rays_total + rays
+                bad_total = bad_total + n_bad
+        return film_pad, rays_total, bad_total
 
     def render_progressive(self, camera: Camera, scene,
                            chunk_spp: int | None = None, callback=None,

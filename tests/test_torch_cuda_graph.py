@@ -49,9 +49,9 @@ def _two_jobs(dev):
     """Two cornell jobs through one integrator, in chunks: (films, done
     frames a callback, GRAPH_COUNTS moved, K1 and K5 / K6 launches).
     Between the jobs
-    the first job's set-up tensors (camera, Sobol tables, band statics)
-    are dropped and their blocks taken by tensors of garbage, so a graph
-    that read an address of the first job's would read garbage."""
+    every tensor field of the first job's ``RenderSetup`` and ``Band``
+    records is dropped and its block taken by a tensor of garbage, so a
+    graph that read an address of the first job's would read garbage."""
     from pathtracer_tpu_torch.integrator import (PathConfig, PathIntegrator,
                                                  TracedScene)
     from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
@@ -63,18 +63,15 @@ def _two_jobs(dev):
     made = []
     setup, band = integ.setup, integ.band
 
-    def spy_setup(*a, **k):
-        su = setup(*a, **k)
-        made.extend(t for t in (su.inv_lo, su.inv_hi, su.sobol_pack, su.r2c,
-                                su.cam_rot, su.cam_pos) if t is not None)
-        return su
+    def spy(make):
+        def made_by(*a, **k):
+            record = make(*a, **k)
+            made.extend(t for t in vars(record).values()
+                        if isinstance(t, torch.Tensor))
+            return record
+        return made_by
 
-    def spy_band(*a, **k):
-        b = band(*a, **k)
-        made.extend(t for t in b[2:] if t is not None)
-        return b
-
-    integ.setup, integ.band = spy_setup, spy_band
+    integ.setup, integ.band = spy(setup), spy(band)
     before = dict(pint.GRAPH_COUNTS)
     k1_before = intersect_cu.LAUNCHES
     bsdf_before = dict(bsdf_cu.LAUNCHES)

@@ -241,6 +241,41 @@ def test_one_band_graph_a_device_and_one_trace_a_scene_data(monkeypatch):
     assert list(integ._graphs.values()) == [g5] and len(made) == 3
 
 
+def test_a_band_graphs_staged_records_give_the_eager_band_frame(
+        monkeypatch):
+    """The buffers a captured band-frame reads, filled with garbage and
+    then staged from another camera's set-up and another band, give that
+    band-frame's eager bits (run here on the CPU, without a capture):
+    ``stage`` fills every field ``band_frame`` reads, the floats as 0-d
+    float32 tensors, and the words as 0-d int64 tensors read alike."""
+    from pathtracer_tpu_torch import integrator as pint
+    from pathtracer_tpu_torch.ops import sobol as sb
+    monkeypatch.setattr(pint, "SpanGraph", lambda device: None)
+    cam, sd, _ = load_mitsuba(CORNELL, resolution=(16, 12), device="cpu")
+    moved = dataclasses.replace(cam, cam_to_world=cam.cam_to_world * 1.01)
+    integ = PathIntegrator(PathConfig(max_depth=2, mis_mode="onesample"),
+                           spp=4, band_rows=6)
+    su = integ.setup(cam, sd)
+    graph = pint._BandGraph(integ, su, integ.band(su, su.y0, 6, su.y1))
+    assert isinstance(graph.su.sobol_scale, torch.Tensor)
+    for record in (graph.su, graph.band):
+        for v in vars(record).values():
+            if isinstance(v, torch.Tensor):
+                v.fill_(-7)
+    su2 = integ.setup(moved, sd)
+    band2 = integ.band(su2, su2.y0 + 6, 6, su2.y1)
+    graph.stage(su2, band2)
+    words = tuple(int(w) for w in sb.frame_statics(su2.domain, 3))
+    graph.words = tuple(torch.tensor(w) for w in words)
+    occ = torch.zeros(3)
+    want = pint.band_frame(su2.scene, integ.cfg, su2, band2, words,
+                           occupancy=occ)
+    got = graph._body()
+    assert len(got) == 4
+    for g, w in zip(got, want + (occ,)):
+        assert torch.equal(g, w)
+
+
 def test_port_render_imports_no_jax():
     code = (
         "import sys, torch\n"
