@@ -9,7 +9,8 @@ printing one JSON line:
 2. build   - compiles kernel K1 (csrc/intersect.cu), kernel K2
              (csrc/bvhw.cu), kernels K3 and K4 (csrc/texture.cu: the
              texture evaluation and the alpha cut test, with their ptxas
-             registers and spills) and the gather probes
+             registers and spills), K5 / K6 (csrc/bsdf.cu), K7
+             (csrc/sobol.cu) and the gather probes
              (csrc/gather_probe.cu,
              csrc/gather_probe2.cu) with nvcc, the launch module
              (csrc/pylaunch.c) with cc and the native BVH builder
@@ -159,6 +160,14 @@ retries) and the alpha routes it does not take:
              in phase 13), with the bound (the bytes each lane's model
              reads and writes), and the launches of a 640x480 4-spp
              render of each;
+17d. sobol_kernels - K7 (csrc/sobol.cu: the Sobol index and draws)
+             against the plain chain (ops/sobol.py) on the 130,732 lanes
+             of a 640x480 render's first band: the index and every
+             dimension a depth-15 band-frame draws, one and two at a
+             time, scrambled and not, ``torch.equal``; the index, a 1-D
+             and a 2-D draw and the camera pair timed beside the plain
+             chain (its device time in phase 13), with their byte
+             bounds;
 18. alpha_routes - at 131,072 lanes: the dense pass (512 masked
              triangles), closest and any hit, ms and peak bytes; the binary
              tree of an all-masked scene (1,024 triangles) against the
@@ -252,6 +261,7 @@ last the status line. Any failure raises (non-zero exit). Without a CUDA
 card it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -491,9 +501,10 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
     data). Returns the last film and the renders' figures: Mrays/s as the
     median, min and max of the renders, with each render's seconds, and
     each render's retry counts; kernels K3's and K4's launches a render
-    (the same in every render; K4's one for each alpha-table query), and
-    K5's and K6's (``bsdf_launches``: exactly those of a render's shading
-    bounces)."""
+    (the same in every render; K4's one for each alpha-table query), K5's
+    and K6's (``bsdf_launches``: exactly those of a render's shading
+    bounces) and K7's (``sobol_launches``: exactly a render's Sobol
+    draws)."""
     import torch
 
     from pathtracer_tpu_torch import integrator as pint
@@ -507,11 +518,16 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
         want_bsdf = bsdf_launches(integ, cam, scene)
     except ImportError:  # a checkout from before K5 / K6 (kernel_ab.py)
         bsdf_cu, want_bsdf = types.SimpleNamespace(LAUNCHES={}), {}
+    try:
+        from pathtracer_tpu_torch.ops.cuda import sobol_cu
+        want_sobol = sobol_launches(integ, cam, scene)
+    except ImportError:  # a checkout from before K7 (kernel_ab.py)
+        sobol_cu, want_sobol = types.SimpleNamespace(LAUNCHES={}), {}
     seconds, retry, texture = [], [], []
     for _ in range(RENDER_REPS):
         for mod in expect:
             mod.LAUNCHES = 0  # the main path's run starts here
-        for counts in (tx.LAUNCHES, bsdf_cu.LAUNCHES):
+        for counts in (tx.LAUNCHES, bsdf_cu.LAUNCHES, sobol_cu.LAUNCHES):
             for key in counts:
                 counts[key] = 0
         for key in pint.RETRY_COUNTS:
@@ -541,6 +557,10 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
         if bsdf_cu.LAUNCHES != want_bsdf:
             raise AssertionError(f"{what} render launched K5 / K6 "
                                  f"{bsdf_cu.LAUNCHES}, expected {want_bsdf}")
+        if sobol_cu.LAUNCHES != want_sobol:
+            raise AssertionError(f"{what} render launched K7 "
+                                 f"{sobol_cu.LAUNCHES}, expected "
+                                 f"{want_sobol}")
     rates = [integ.last_ray_count / dt / 1e6 for dt in seconds]
     return film, dict(rays=integ.last_ray_count,
                       seconds=statistics.median(seconds),
@@ -549,7 +569,8 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
                       mrays_per_s_min=min(rates), mrays_per_s_max=max(rates),
                       renders=RENDER_REPS, retry_counts_runs=retry,
                       texture_launches=texture[-1],
-                      bsdf_launches=dict(bsdf_cu.LAUNCHES))
+                      bsdf_launches=dict(bsdf_cu.LAUNCHES),
+                      sobol_launches=dict(sobol_cu.LAUNCHES))
 
 
 def bsdf_launches(integ, cam, scene) -> dict:
@@ -567,6 +588,36 @@ def bsdf_launches(integ, cam, scene) -> dict:
     bounces = n_bands * integ.spp * cfg.max_depth
     return dict(bsdf_eval=bounces * nee,
                 bsdf_sample=bounces * (1 + (0 if one_sample else nee)))
+
+
+def sobol_launches(integ, cam, scene) -> dict:
+    """K7's launches in one render: none under the hash samplers; under
+    the Sobol sampler, in each band-frame the index, the camera pair and
+    the draws of each shading bounce (every bounce but the last,
+    ``_wave_bounce``): NEE's u_light pair ("ref" MIS: and its u_scatter
+    pair; light_strategy "all": those of each light; "one": and the light
+    pick where the scene has more than one light), the BSDF's u_bsdf pair,
+    and roulette's draw at the bounces above ``rr_start_depth``."""
+    from pathtracer_tpu_torch.integrator import _wave_flags
+
+    cfg = integ.cfg
+    if cfg.sampler != "sobol":
+        return dict(sobol_index=0, sobol_draw=0)
+    do_nee, one_sample, _ = _wave_flags(scene, cfg)
+    _, n_bands = integ.band_layout(cam)
+    pairs = 1 if one_sample else 2
+    if not do_nee:
+        nee = 0
+    elif cfg.light_strategy == "all":
+        nee = pairs * scene.n_lights
+    else:
+        nee = pairs + (scene.n_lights > 1)
+    roulette = max(cfg.max_depth - 1 - cfg.rr_start_depth, 0) \
+        if cfg.rr_enable else 0
+    frames = n_bands * integ.spp
+    return dict(sobol_index=frames,
+                sobol_draw=frames * (1 + cfg.max_depth * (nee + 1)
+                                     + roulette))
 
 
 def timings(kernel, plain=None, library=None, plain_calls: int = PER_CALL,
@@ -613,6 +664,23 @@ def kernel_device_ms(fn, name: str | None = None,
               f"{PROFILE_ATTEMPTS} held no device time for {name} (it "
               f"held {seen})", file=sys.stderr, flush=True)
     raise AssertionError(f"profiler saw no device time for {name}")
+
+
+@contextlib.contextmanager
+def eager_band_frames():
+    """Inside, every render runs its band-frames eagerly, the CUDA graph
+    off (``integrator._graph_engages``): a spy in the bounce loop then
+    sees each band-frame's own tensors, computed, and may stop the
+    render, where a capture would hand it buffers whose values a replay
+    overwrites."""
+    from pathtracer_tpu_torch import integrator as pint
+
+    engages = pint._graph_engages
+    pint._graph_engages = lambda scene, cfg: False
+    try:
+        yield
+    finally:
+        pint._graph_engages = engages
 
 
 def first_band_rays(cam, integ, dev):
@@ -722,7 +790,8 @@ def k1_render_inputs(dev, bounce: int = 2, resolution=(640, 480)):
         return wave_bounce(scene_, cfg, b, st, draw, draw2, **kw)
     im._wave_bounce = record
     try:
-        integ.render(cam, scene)
+        with eager_band_frames():
+            integ.render(cam, scene)
     finally:
         im._wave_bounce = wave_bounce
     o, d, active = seen[-1]  # the last band
@@ -1905,8 +1974,9 @@ def capture_texture_inputs(cam, scene, want: tuple) -> dict:
 
     tx.texture_eval, tx.alpha_cut = spy_texture, spy_cut
     try:
-        PathIntegrator(PathConfig(max_depth=5, mis_mode="onesample"),
-                       spp=1).render(cam, scene)
+        with eager_band_frames():
+            PathIntegrator(PathConfig(max_depth=5, mis_mode="onesample"),
+                           spp=1).render(cam, scene)
     except CaptureDone:
         pass
     finally:
@@ -2126,11 +2196,10 @@ SPHERES = os.path.join(ROOT, "benchmark", "scenes", "cornell-spheres.xml")
 
 def capture_bsdf_inputs(cam, scene, depth: int) -> dict:
     """The arguments of a render's first K5 and K6 calls (mp, it, wo, wi
-    or u, present), on the eager path (the CUDA graph off, so the spy may
-    stop the render): the main path's inputs at its shapes."""
+    or u, present), on the eager path (``eager_band_frames``, so the spy
+    may stop the render): the main path's inputs at its shapes."""
     import torch
 
-    from pathtracer_tpu_torch import integrator as pint
     from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
     from pathtracer_tpu_torch.ops.cuda import bsdf_cu
 
@@ -2145,18 +2214,16 @@ def capture_bsdf_inputs(cam, scene, depth: int) -> dict:
             return calls[kind](mp, it, wo, x, present=present)
         return call
 
-    engages = pint._graph_engages
     bsdf_cu.bsdf_eval, bsdf_cu.bsdf_sample = spy("eval"), spy("sample")
-    pint._graph_engages = lambda scene, cfg: False
     try:
-        PathIntegrator(PathConfig(max_depth=depth, mis_mode="onesample"),
-                       spp=1).render(cam, scene)
+        with eager_band_frames():
+            PathIntegrator(PathConfig(max_depth=depth, mis_mode="onesample"),
+                           spp=1).render(cam, scene)
     except CaptureDone:
         pass
     finally:
         bsdf_cu.bsdf_eval, bsdf_cu.bsdf_sample = calls["eval"], \
             calls["sample"]
-        pint._graph_engages = engages
     torch.cuda.synchronize()
     if len(got) != 2:
         raise AssertionError(f"the render made no K5 / K6 call: {set(got)}")
@@ -2226,6 +2293,98 @@ def phase_bsdf_kernels(dev):
                 lambda f=kernels[kind], a=args[kind]: f(*a[:4],
                                                         present=a[4]))
     out = dict(phase="bsdf_kernels", cases=cases,
+               seconds=time.perf_counter() - t0)
+    emit(out)
+    return out, calls
+
+
+# bytes a K7 lane must move (csrc/sobol.cu): the index reads b_base (8 B)
+# and writes the (lo, hi) words (16 B); a draw reads the index words (16
+# B) and its scramble (8 B; the camera's unscrambled pair none) and writes
+# 4 B a dimension
+SOBOL_LANE_BYTES = dict(index=8 + 16, dim=16 + 8 + 4, dim2=16 + 8 + 8,
+                        camera=16 + 8)
+# the spheres' depth: its draws reach dimension 2 + 8 * 14 + 7
+SOBOL_DEPTH = 15
+
+
+def phase_sobol_kernels(dev):
+    """K7 against the plain chain of ``ops/sobol.py`` at the main path's
+    shapes: the 130,732 lanes of a 640 x 480 render's first band (b_base,
+    scramble) at its frame 3 and at frame 4101 (the shifted high word
+    set). The index and every draw a depth-15 band-frame makes
+    ``torch.equal``; the index, a 1-D and a 2-D scrambled draw and the
+    camera's unscrambled pair timed beside the plain chain, with their
+    byte bounds (K7's launches are checked in each main path's renders,
+    ``timed_renders``). Returns the phase's figures and, for the profile
+    phase, a call of each case and of its plain chain."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops import sobol as sb
+    from pathtracer_tpu_torch.ops.cuda import _build
+    from pathtracer_tpu_torch.ops.cuda import sobol_cu as k7
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    t0 = time.perf_counter()
+    cam, sd, _ = load_mitsuba(CORNELL, resolution=BSDF_RES, device=dev)
+    integ = PathIntegrator(PathConfig(max_depth=5, mis_mode="onesample"),
+                           spp=4)
+    su = integ.setup(cam, sd)
+    band = integ.band(su, su.y0, integ.band_layout(cam)[0], su.y1)
+    b_base, scr, sm32 = band.b_base, band.scramble, su.sobol_pack
+    n = b_base.shape[0]
+    inv = (su.inv_lo, su.inv_hi)
+    mismatches = []
+    for frame in (3, 4101):
+        lo_w, hi_w, delta = (int(w) for w in sb.frame_statics(su.domain,
+                                                              frame))
+        got = k7.sobol_index(b_base, delta, lo_w, hi_w, *inv)
+        idx = sb.sobol_index(b_base, delta, lo_w, hi_w, *inv)
+        if not all(torch.equal(g, w) for g, w in zip(got, idx)):
+            mismatches.append(dict(frame=frame, what="index"))
+        for dim in range(2 + 8 * SOBOL_DEPTH):
+            for kernel, plain in ((k7.sobol_sample_dim, sb.sobol_sample_dim),
+                                  (k7.sobol_sample_dim2,
+                                   sb.sobol_sample_dim2)):
+                for s in (scr, None):
+                    got = kernel(*idx, dim, s, sm32)
+                    want = plain(*idx, dim, torch.zeros_like(scr)
+                                 if s is None else s, sm32)
+                    if not torch.equal(got, want):
+                        mismatches.append(dict(
+                            frame=frame, dim=dim, what=plain.__name__,
+                            scrambled=s is not None,
+                            differing=int((got != want).sum())))
+    torch.cuda.synchronize()
+    if mismatches:
+        emit(dict(phase="sobol_kernels_mismatch", cases=mismatches[:20]))
+        raise AssertionError(f"K7 differs from the plain chain in "
+                             f"{len(mismatches)} cases")
+    lo_w, hi_w, delta = (int(w) for w in sb.frame_statics(su.domain, 3))
+    idx = sb.sobol_index(b_base, delta, lo_w, hi_w, *inv)
+    pairs = dict(
+        index=(lambda: k7.sobol_index(b_base, delta, lo_w, hi_w, *inv),
+               lambda: sb.sobol_index(b_base, delta, lo_w, hi_w, *inv),
+               "sobol_index_kernel"),
+        dim=(lambda: k7.sobol_sample_dim(*idx, 7, scr, sm32),
+             lambda: sb.sobol_sample_dim(*idx, 7, scr, sm32),
+             "sobol_draw_kernel"),
+        dim2=(lambda: k7.sobol_sample_dim2(*idx, 5, scr, sm32),
+              lambda: sb.sobol_sample_dim2(*idx, 5, scr, sm32),
+              "sobol_draw_kernel"),
+        camera=(lambda: k7.sobol_sample_dim2(*idx, 0, None, sm32),
+                lambda: sb.sobol_sample_dim2(*idx, 0, torch.zeros_like(scr),
+                                             sm32),
+                "sobol_draw_kernel"))
+    cases, calls = {}, {}
+    for case, (kernel, plain, name) in pairs.items():
+        cases[case] = dict(lanes=n, **timings(kernel, plain=plain),
+                           **bound(SOBOL_LANE_BYTES[case] * n, 0.0))
+        calls[case] = (name, kernel)
+        calls[f"plain_{case}"] = (None, plain)
+    out = dict(phase="sobol_kernels", cases=cases,
+               ptxas=_build.ptxas_report(k7.build()),
                seconds=time.perf_counter() - t0)
     emit(out)
     return out, calls
@@ -3346,11 +3505,12 @@ def box_render_profile(dev) -> dict:
 
 
 def phase_profile(dev, k1_sets: dict, alpha_set: tuple, tex_calls: dict,
-                  bsdf_calls: dict):
+                  bsdf_calls: dict, sobol_calls: dict):
     """Device times from a torch.profiler trace: K1's and K2's at the
     shapes of phases 3 and 6 (K2 also on Sponza's alpha table, phase 16's
     rays), K3's and K4's on the calls of ``texture_kernels``, K5's and
-    K6's on those of ``bsdf_kernels``, P1-P9's and
+    K6's on those of ``bsdf_kernels``, K7's and the plain chain's (all the
+    device work of a call) on those of ``sobol_kernels``, P1-P9's and
     their library calls' at the probes' shapes (all the device work of a
     call); then a whole cornell and box-field render. It
     runs after every timed render of this process but phase 24's
@@ -3399,6 +3559,8 @@ def phase_profile(dev, k1_sets: dict, alpha_set: tuple, tex_calls: dict,
                   for case, (name, fn) in tex_calls.items()}
     bsdf_ms = {case: kernel_device_ms(fn, name)
                for case, (name, fn) in bsdf_calls.items()}
+    sobol_ms = {case: kernel_device_ms(fn, name)
+                for case, (name, fn) in sobol_calls.items()}
     x, x2 = pg.probe_inputs(dev), pg2.probe_inputs(dev)
     one, one2 = one_lane(x), one_row(x2)
     floor_ms = {pid: kernel_device_ms(lambda: fn(one))
@@ -3425,6 +3587,7 @@ def phase_profile(dev, k1_sets: dict, alpha_set: tuple, tex_calls: dict,
                k2_alpha_anyhit_kernel_device_ms=k2_alpha_any_ms,
                texture_kernel_device_ms=texture_ms,
                bsdf_kernel_device_ms=bsdf_ms,
+               sobol_kernel_device_ms=sobol_ms,
                probe_kernel_device_ms=probe_ms,
                probe_floor_device_ms=floor_ms,
                library_device_ms=library_ms, reps=K1_REPS,
@@ -3441,6 +3604,7 @@ def phase_build():
     from pathtracer_tpu_torch.ops.cuda import bsdf_cu as k56
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.ops.cuda import sobol_cu as k7
     from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
     from pathtracer_tpu_torch.probes import gather as pg
     from pathtracer_tpu_torch.probes import gather2 as pg2
@@ -3455,6 +3619,7 @@ def phase_build():
                   bvhw=lambda: k2.build(verbose=True),
                   texture=lambda: tx.build(verbose=True),
                   bsdf=lambda: k56.build(verbose=True),
+                  sobol=lambda: k7.build(verbose=True),
                   gather_probe=lambda: pg.build(verbose=True),
                   gather_probe2=lambda: pg2.build(verbose=True),
                   bvh_builder=cpp.library_path)
@@ -3466,6 +3631,7 @@ def phase_build():
     k2._load()
     tx._load()
     k56._load()
+    k7._load()
     pg._load()
     pg2._load()
     cpp._load()
@@ -3477,6 +3643,7 @@ def phase_build():
                probe2_ptxas=_build.ptxas_report(pg2.build()),
                texture_ptxas=_build.ptxas_report(tx.build()),
                bsdf_ptxas=_build.ptxas_report(k56.build()),
+               sobol_ptxas=_build.ptxas_report(k7.build()),
                p8_rows=pg2.macro("P8_ROWS"),
                p1_threads=pg.threads("P1"), p3_threads=pg.threads("P3"),
                p4_threads=pg.threads("P4"), p4_rows=pg.macro("P4_ROWS"),
@@ -3528,6 +3695,7 @@ def main() -> int:
     tex_out, tex_calls = phase_texture_kernels(
         dev, class_cam, class_scene, sponza_cam, sponza_scene, alpha_set)
     bsdf_out, bsdf_calls = phase_bsdf_kernels(dev)
+    sobol_out, sobol_calls = phase_sobol_kernels(dev)
     routes_out = phase_alpha_routes(dev)
     t_slice = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3542,7 +3710,7 @@ def main() -> int:
               phases=["mitsuba_golden", "mitsuba_main", "samplers_main",
                       "lighttrace"]))
     prof_out = phase_profile(dev, k1_sets, alpha_set, tex_calls,
-                             bsdf_calls)
+                             bsdf_calls, sobol_calls)
     phase_sponza_profile(sponza_cam, sponza_scene)
     # after the profiles: with these phases before them, phase 13's first
     # three traces once held no kernel activity (a later run that traced
@@ -3643,7 +3811,7 @@ def main() -> int:
                             for case in mine),
             cases=mine, **times(tex_cases[main_case], tex_ms[main_case])))
     bsdf_ms = prof_out["bsdf_kernel_device_ms"]
-    bsdf_runs = dict(main=main_out, box_main=box_out,
+    main_runs = dict(main=main_out, box_main=box_out,
                      **{f"materials_main_{config}": mat_out[config]
                         for config in MATERIAL_CONFIGS},
                      classroom_main=class_out, sponza_main=sponza_out,
@@ -3662,8 +3830,21 @@ def main() -> int:
             replaces=f"pathtracer_tpu/ops/bsdf.py {plain}",
             launches=main_out["bsdf_launches"][f"bsdf_{kind}"],
             launches_by_path={path: runs["bsdf_launches"][f"bsdf_{kind}"]
-                              for path, runs in bsdf_runs.items()},
+                              for path, runs in main_runs.items()},
             cases=mine, **mine[f"spheres_{kind}"]))
+    sobol_ms = prof_out["sobol_kernel_device_ms"]
+    kernels.append(dict(
+        name="sobol_index, sobol_draw (K7)", route="cuda",
+        source="pathtracer_tpu_torch/csrc/sobol.cu",
+        replaces="pathtracer_tpu/ops/sobol.py sobol_index, "
+                 "sobol_sample_dim, sobol_sample_dim2 (XLA, not Pallas)",
+        launches=main_out["sobol_launches"],
+        launches_by_path={path: runs["sobol_launches"]
+                          for path, runs in main_runs.items()},
+        cases={case: dict(times(c, sobol_ms[case]),
+                          plain_device_ms=sobol_ms[f"plain_{case}"])
+               for case, c in sobol_out["cases"].items()},
+        **times(sobol_out["cases"]["dim2"], sobol_ms["dim2"])))
     for pid, kernel, line in (("P1", "gather_rows", 65),
                               ("P2", "gather_rows", 78),
                               ("P3", "gather_cols", 92),

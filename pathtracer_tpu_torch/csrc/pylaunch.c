@@ -224,6 +224,33 @@ static PyObject* pipiipiipipiipiipipipippppppiippppppp(PyObject* self,
       a[31].p, a[32].p, a[33].p, a[34].p, a[35].p, a[36].p));
 }
 
+// K7 sobol_index: (b_base, inv_lo, inv_hi, w_delta, w_lo, w_hi, delta, lo,
+// hi, n, out_lo, out_hi, stream)
+typedef int (*ppppppiiiippp_t)(void*, void*, void*, void*, void*, void*, int,
+                               int, int, int, void*, void*, void*);
+static PyObject* ppppppiiiippp(PyObject* self, PyObject* const* args,
+                               Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[13];
+  if (unpack("ppppppiiiippp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((ppppppiiiippp_t)fn)(a[0].p, a[1].p, a[2].p, a[3].p, a[4].p, a[5].p,
+                             a[6].i, a[7].i, a[8].i, a[9].i, a[10].p,
+                             a[11].p, a[12].p));
+}
+
+// K7 sobol_draw: (idx_lo, idx_hi, scramble, table, dim, k, rows, n, out,
+// stream)
+typedef int (*ppppiiiipp_t)(void*, void*, void*, void*, int, int, int, int,
+                            void*, void*);
+static PyObject* ppppiiiipp(PyObject* self, PyObject* const* args,
+                            Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[10];
+  if (unpack("ppppiiiipp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((ppppiiiipp_t)fn)(a[0].p, a[1].p, a[2].p, a[3].p, a[4].i, a[5].i,
+                          a[6].i, a[7].i, a[8].p, a[9].p));
+}
+
 #define ENTRY(name) \
   {#name, (PyCFunction)(void (*)(void))name, METH_FASTCALL, NULL}
 
@@ -232,7 +259,8 @@ static PyMethodDef methods[] = {
     ENTRY(ppiiipp),         ENTRY(ppppiiifffppppp),
     ENTRY(ppppiiiiffffppppp), ENTRY(ppppppiippppiiipp),
     ENTRY(pppppppifppppp),  ENTRY(pipiipiipipiipiipipipippppppiipppp),
-    ENTRY(pipiipiipipiipiipipipippppppiippppppp), {NULL, NULL, 0, NULL}};
+    ENTRY(pipiipiipipiipiipipipippppppiippppppp), ENTRY(ppppppiiiippp),
+    ENTRY(ppppiiiipp),      {NULL, NULL, 0, NULL}};
 
 static struct PyModuleDef module = {
     PyModuleDef_HEAD_INIT, "pylaunch",

@@ -63,7 +63,7 @@ from .ops import lights as lt
 from .ops import samplers as smp
 from .ops import sobol as sb
 from .ops.cuda.bvhw_cu import bvhw_intersect
-from .ops.cuda import _build, bsdf_cu, texture_cu
+from .ops.cuda import _build, bsdf_cu, sobol_cu, texture_cu
 from .ops.cuda.intersect_cu import intersect
 from .ops.intersect import GAMMA7, intersect_alpha_dense
 from .utils.span_graph import SpanGraph
@@ -869,25 +869,26 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
 
 def _sobol_draws(su, band, frame_lo, frame_hi, frame_delta, pxf, pyf):
     """One Sobol sample frame of a band at the frame's words: (draw,
-    draw2, jx, jy)."""
+    draw2, jx, jy). On the card each draw, and the index, is one launch of
+    kernel K7 (``ops/cuda/sobol_cu.py``); on the CPU the plain chain."""
     def draw(dim):
         with span("pt::sampler"):
-            return sb.sobol_sample_dim(idx_lo, idx_hi, dim, band.scramble,
-                                       su.sobol_pack)
+            return sobol_cu.sobol_sample_dim(idx_lo, idx_hi, dim,
+                                             band.scramble, su.sobol_pack)
 
     def draw2(dim):
         with span("pt::sampler"):
-            return sb.sobol_sample_dim2(idx_lo, idx_hi, dim, band.scramble,
-                                        su.sobol_pack)
+            return sobol_cu.sobol_sample_dim2(idx_lo, idx_hi, dim,
+                                              band.scramble, su.sobol_pack)
 
     with span("pt::sampler"):
-        idx_lo, idx_hi = sb.sobol_index(band.b_base, frame_delta, frame_lo,
-                                        frame_hi, su.inv_lo, su.inv_hi)
+        idx_lo, idx_hi = sobol_cu.sobol_index(band.b_base, frame_delta,
+                                              frame_lo, frame_hi, su.inv_lo,
+                                              su.inv_hi)
         # camera dims 0,1 remapped into the pixel, drawn UNSCRAMBLED (as
         # the reference and PBRT's SobolSampler do)
-        s01 = sb.sobol_sample_dim2(idx_lo, idx_hi, 0,
-                                   torch.zeros_like(band.scramble),
-                                   su.sobol_pack)
+        s01 = sobol_cu.sobol_sample_dim2(idx_lo, idx_hi, 0, None,
+                                         su.sobol_pack)
         one_minus = float(pm.ONE_MINUS_EPSILON)
         jx = torch.clamp(s01[..., 0] * su.sobol_scale + su.sobol_off_x - pxf,
                          0.0, one_minus)
