@@ -39,6 +39,9 @@ Each band-frame counts its live lanes a bounce (``trace_wave``'s
 ``occupancy``) into a (max_depth + 1,) float64 tensor of the render's on
 the device, which the host reads at each chunk's sync into
 ``PathIntegrator.bounce_occupancy`` and ``PathIntegrator.lane_bounces``.
+In a scene with an environment the tensor holds one entry more: the live
+lanes whose environment result enters the estimate, which the same read
+takes into ``PathIntegrator.env_lanes``.
 """
 
 from __future__ import annotations
@@ -68,9 +71,9 @@ from .ops.cuda.intersect_cu import intersect
 from .ops.intersect import GAMMA7, intersect_alpha_dense
 from .utils.span_graph import SpanGraph
 from .utils.spans import span
-from .scene.scene import (LIGHT_AREA, MAT_GLASS, MAT_MATTE, MAT_MIRROR,
-                          TA_ALPHA, TA_NG0, TA_P0, TA_P1, TA_P2, TA_UV0,
-                          TA_UV1, TA_UV2, SceneData, pack_alpha_tri,
+from .scene.scene import (LIGHT_AREA, LIGHT_INFINITE, MAT_GLASS, MAT_MATTE,
+                          MAT_MIRROR, TA_ALPHA, TA_NG0, TA_P0, TA_P1, TA_P2,
+                          TA_UV0, TA_UV1, TA_UV2, SceneData, pack_alpha_tri,
                           pack_light_attr, pack_mat_attr, pack_tri_attr,
                           reorder_triangles)
 
@@ -109,6 +112,12 @@ RETRY_COUNTS = dict(syncs=0, passes=0, alpha_tree=0)
 # "replays", replays of a captured graph; "eager", the rest
 # (``_graph_engages``)
 GRAPH_COUNTS = dict(captures=0, replays=0, eager=0)
+# the lanes the environment's code evaluates over a process, a call site's
+# width each time the host issues it ("env.run": a capture tallies it and
+# each replay adds the tally, as ``_build`` counts launches);
+# ``PathIntegrator.env_lanes`` takes a render's share at each chunk's sync
+ENV_RUN = 0
+_build.counted(__name__, ("env.run",), attr="ENV_RUN")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -522,7 +531,8 @@ def _scene_intersect_p(scene, o, d, t_max, live=None):
 
 
 def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
-                    wo_world, bsdf_branch=True, pick_prob=1.0, live=None):
+                    wo_world, bsdf_branch=True, pick_prob=1.0, live=None,
+                    env_used=None):
     """Both-strategy MIS direct lighting for one chosen light per ray.
 
     Returns (N, 3) radiance (pre num_lights scaling). With
@@ -530,11 +540,22 @@ def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
     and ``pick_prob`` folds into the light pdf. ``live`` ((N,) bool, None
     for all) marks the lanes whose result the caller keeps: a ray of a
     lane outside it, or of a branch whose term is zero, tests nothing.
+    ``env_used`` (a list, or None: not counted) gets, at each call of the
+    environment's code, the (N,) bool mask of the lanes of ``live`` whose
+    environment result enters the estimate, and ``ENV_RUN`` the lanes the
+    call evaluates.
     """
     sd = scene.data
     light_rows = scene.light_attr[light_idx.long()]
     ls = lt.sample_li(sd, light_rows, it["p"], it["p_error"], it["ng"],
                       u_light, light_set=scene.light_set)
+    count_env = env_used is not None and LIGHT_INFINITE in scene.light_set
+    if count_env:
+        _build.count("env.run", light_idx.shape[0])
+        took = ls["is_env"] if live is None else live
+        if live is not None and len(scene.light_set) > 1:
+            took = live & ls["is_env"]  # less the lanes of other lights
+        env_used.append(took)
     wi = ls["wi"]
     pdf_eff = ls["pdf"] * pick_prob
 
@@ -581,9 +602,13 @@ def estimate_direct(scene, cfg, it, mp, u_scatt, u_light, light_idx,
         ls["is_area"]
     li2 = torch.where(hit_the_light[..., None], li2_hit, 0.0)
     if scene.has_env:
-        li2_env = torch.where((ls["is_env"] & ~hit2["valid"])[..., None],
-                              lt.env_le(sd, wi2_w), 0.0)
+        sees_env = ls["is_env"] & ~hit2["valid"]
+        li2_env = torch.where(sees_env[..., None], lt.env_le(sd, wi2_w), 0.0)
         li2 = torch.where(hit_the_light[..., None], li2, li2_env)
+        if count_env:
+            _build.count("env.run", light_idx.shape[0])
+            sees_env = sees_env & branch2
+            env_used.append(sees_env if live is None else live & sees_env)
     contrib2 = f2 * li2 * w2[..., None] / \
         torch.clamp_min(bs["pdf"], 1e-20)[..., None]
     return ld + torch.where(branch2[..., None], contrib2, 0.0)
@@ -600,12 +625,15 @@ def trace_wave(scene, cfg: PathConfig, draw, draw2, o, d, rxd=None,
     (None: none), used at the first hit only. ``occupancy``, a
     (max_depth + 1,) float tensor or None, gets each bounce's live lanes
     (the bounce's own count, ``_wave_bounce``'s ``live``) added in place,
-    one add a wave (the reference returns them as a fourth value).
+    one add a wave (the reference returns them as a fourth value); in a
+    scene with an environment it holds one entry more, which gets the
+    lanes of the wave's ``env_used`` masks (``_wave_bounce``), counted
+    once a wave.
     Returns (L (N, 3), ray count, non-finite sample count), the two counts
     as 0-d tensors.
     """
     st = _wave_init(scene, cfg, o, d, lane_valid=lane_valid)
-    live = []
+    live, env_used = [], []
     for bounce in range(cfg.max_depth + 1):
         with span("pt::bounce"):
             st = _wave_bounce(scene, cfg, bounce, st, draw, draw2,
@@ -613,7 +641,10 @@ def trace_wave(scene, cfg: PathConfig, draw, draw2, o, d, rxd=None,
                               rxd=rxd if bounce == 0 else None,
                               ryd=ryd if bounce == 0 else None)
         live.append(st["live"])
+        env_used += st.get("env_used", ())
     if occupancy is not None:
+        if env_used:
+            live.append(torch.cat(env_used).sum(dtype=torch.float32))
         occupancy += torch.stack(live)
     out, n_bad = _wave_radiance(cfg, st)
     return out, st["rays"], n_bad
@@ -680,7 +711,13 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
                  rxd=None, ryd=None):
     """ONE wavefront bounce: intersect, Le, NEE, BSDF sample, RR.
     draw2_arr: the latin-hypercube arrays (trace_wave); rxd / ryd: the
-    camera rays' differential directions (bounce 0 only)."""
+    camera rays' differential directions (bounce 0 only). In a scene with
+    an environment, ``st["env_used"]`` holds the bounce's (N,) bool masks
+    of the live lanes whose environment result enters the estimate: those
+    that escape (in "ref", at the camera or after a specular bounce) and
+    those whose light sample, or "ref"'s BSDF sample, takes the
+    environment; ``ENV_RUN`` counts the lanes each of those calls
+    evaluates."""
     sd = scene.data
     do_nee, one_sample, pick_prob = _wave_flags(scene, cfg)
     last = bounce == cfg.max_depth
@@ -737,6 +774,8 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
         if scene.has_env:
             # escaped rays see the environment, MIS-weighted in "onesample"
             # against the previous vertex's light-sampling density
+            _build.count("env.run", n)
+            seen = (active if one_sample else le_mask) & ~hit["valid"]
             le_env = lt.env_le(sd, d)
             if one_sample:
                 if bounce == 0:
@@ -747,11 +786,11 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
                     w_env = torch.where(specular, 1.0,
                                         pm.power_heuristic(1.0, prev_pdf, 1.0,
                                                            epdf))
-                l = l + torch.where((active & ~hit["valid"])[..., None],
+                l = l + torch.where(seen[..., None],
                                     beta * le_env * w_env[..., None], 0.0)
             else:
-                l = l + torch.where((le_mask & ~hit["valid"])[..., None],
-                                    beta * le_env, 0.0)
+                l = l + torch.where(seen[..., None], beta * le_env, 0.0)
+            st["env_used"] = [seen]
         if last:
             st["l"] = l
             return st
@@ -765,6 +804,7 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
 
     # --- NEE for materials with non-specular lobes
     rays = st["rays"]
+    env_used = st.get("env_used")
     if do_nee:
         nonspec = bx.has_nonspecular(mp["mtype"]) & cont
         shadow_rays = 1.0 if one_sample else 2.0
@@ -789,7 +829,8 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
                     ld = ld + estimate_direct(scene, cfg, it, mp, u_scatt,
                                               u_light, idx_i, wo,
                                               bsdf_branch=not one_sample,
-                                              live=nonspec)
+                                              live=nonspec,
+                                              env_used=env_used)
             l = l + torch.where(nonspec[..., None], beta * ld, 0.0)
             rays = rays + shadow_rays * scene.n_lights * \
                 torch.sum(nonspec.to(torch.float32))
@@ -810,7 +851,8 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
                                      light_idx, wo,
                                      bsdf_branch=not one_sample,
                                      pick_prob=pick_prob if one_sample
-                                     else 1.0, live=nonspec)
+                                     else 1.0, live=nonspec,
+                                     env_used=env_used)
             scale = 1.0 if one_sample else n_l
             l = l + torch.where(nonspec[..., None], beta * ld * scale, 0.0)
             rays = rays + shadow_rays * torch.sum(nonspec.to(torch.float32))
@@ -1050,15 +1092,17 @@ class _BandGraph:
                     buf.copy_(v)
 
     def _body(self):
-        live = torch.zeros((self.cfg.max_depth + 1,), dtype=torch.float32,
-                           device=self.device)
+        n = self.cfg.max_depth + 1 + int(self.scene.has_env)
+        live = torch.zeros((n,), dtype=torch.float32, device=self.device)
         return (*band_frame(self.scene, self.cfg, self.su, self.band,
                             self.words, occupancy=live), live)
 
     def run(self, words) -> tuple:
         """One band-frame at the sampler words ``words``: (tile, ray
-        count, non-finite count, live lanes a bounce). The outputs of a
-        replay are the graph's own: read them before the next ``run``."""
+        count, non-finite count, live lanes a bounce and, in a scene with
+        an environment, its used lanes: ``trace_wave``'s ``occupancy``).
+        The outputs of a replay are the graph's own: read them before the
+        next ``run``."""
         if self.words is None:
             self.words = tuple(torch.zeros((), dtype=torch.int64,
                                            device=self.device)
@@ -1161,7 +1205,11 @@ class PathIntegrator:
     integrator, at the same syncs, the lane-bounces run (``run``: every
     lane of every band-frame, padding lanes too, at each of its bounces,
     as the bounce loop runs them all) and those of them whose lane was
-    live (``live``)."""
+    live (``live``). ``env_lanes`` sums, in scenes with an environment,
+    the lanes its code evaluates (``run``: each call site's full width,
+    ``ENV_RUN``) and the live lanes whose environment result enters the
+    estimate (``used``, counted on the device, ``_wave_bounce``), read at
+    the same syncs."""
 
     def __init__(self, cfg: PathConfig = PathConfig(), spp: int = 4,
                  filter_kind: str = "gaussian", band_rows: int | None = None,
@@ -1177,6 +1225,7 @@ class PathIntegrator:
         self.bad_sample_count = 0.0
         self.bounce_occupancy = np.zeros(0, np.float64)
         self.lane_bounces = dict(live=0.0, run=0.0)
+        self.env_lanes = dict(used=0.0, run=0.0)
         self._graphs: dict = {}  # _band_graph's captured band-frames
         self._traced = None  # (SceneData, its TracedScene): setup's last
 
@@ -1275,10 +1324,12 @@ class PathIntegrator:
         """Render frames ``[s0, s0 + n_frames)`` of one ``band`` into the
         padded film (in place): (film_pad, ray count, non-finite count),
         each frame's live lanes a bounce added into ``occupancy`` (None:
-        not counted). Each frame is a ``band_frame`` at its sampler words,
-        in ``pt::band_frame``: where ``_graph_engages``, a replay of the
-        band's captured graph (``_BandGraph``), its live lanes added after
-        it as its tile is; else run eagerly."""
+        not counted; in a scene with an environment it holds its used
+        lanes too, as ``trace_wave``'s). Each frame is a ``band_frame`` at
+        its sampler words, in ``pt::band_frame``: where
+        ``_graph_engages``, a replay of the band's captured graph
+        (``_BandGraph``), its counts added after it as its tile is; else
+        run eagerly."""
         words = [tuple(int(w) for w in sb.frame_statics(su.domain, s))
                  if su.domain is not None else (s,)
                  for s in range(s0, s0 + n_frames)]
@@ -1325,10 +1376,13 @@ class PathIntegrator:
         dev = su.device
         self.last_ray_count = 0.0
         self.bad_sample_count = 0.0
-        self.bounce_occupancy = np.zeros(self.cfg.max_depth + 1, np.float64)
-        # the live lanes stay on the device; read once a chunk
-        occupancy = torch.zeros((self.cfg.max_depth + 1,),
+        depths = self.cfg.max_depth + 1
+        self.bounce_occupancy = np.zeros(depths, np.float64)
+        # the live lanes (and the environment's used lanes) stay on the
+        # device; read once a chunk
+        occupancy = torch.zeros((depths + int(su.scene.has_env),),
                                 dtype=torch.float64, device=dev)
+        env_read = 0.0  # the used lanes read at the syncs so far
         w, h = camera.resolution
         band, n_bands = self.band_layout(camera)
         chunk = pm.round_up_pow2(min(chunk_spp or self.spp, self.spp))
@@ -1348,6 +1402,7 @@ class PathIntegrator:
         for s0 in range(s_start, self.spp, chunk):
             n_frames = min(chunk, self.spp - s0)
             with span("pt::chunk"):
+                env_run = ENV_RUN
                 stats = []  # device scalars; one sync a chunk, not a band
                 for b in bands:
                     film_pad, rays, n_bad = self.render_frames(
@@ -1357,13 +1412,18 @@ class PathIntegrator:
                     for rays, n_bad in stats:
                         self.last_ray_count += float(rays)
                         self.bad_sample_count += float(n_bad)
-                    occ = occupancy.cpu().numpy().copy()  # a CPU tensor's own
+                    counts = occupancy.cpu().numpy().copy()  # a CPU's own
+                    occ = counts[:depths]
                     self.lane_bounces["live"] += float(
                         occ.sum() - self.bounce_occupancy.sum())
                     self.lane_bounces["run"] += float(
-                        n_frames * len(bands) * band * su.ws
-                        * (self.cfg.max_depth + 1))
+                        n_frames * len(bands) * band * su.ws * depths)
                     self.bounce_occupancy = occ
+                    if su.scene.has_env:
+                        self.env_lanes["used"] += float(counts[depths]
+                                                        - env_read)
+                        self.env_lanes["run"] += float(ENV_RUN - env_run)
+                        env_read = float(counts[depths])
                     if checkpoint:
                         np.savez(checkpoint, film_pad=film_pad.cpu().numpy(),
                                  next_frame=s0 + n_frames, spp=self.spp)

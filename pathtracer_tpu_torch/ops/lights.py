@@ -8,9 +8,14 @@ the light tracer builds on: ``power``, ``sample_le`` and ``pdf_le``, with
 PBRT-v3's semantics (the reference's own Light trait leaves them
 unimplemented). Every light type in ``light_set`` is evaluated for the
 whole batch and the per-ray result is selected by the chosen light's type.
+``env_le``, ``env_pdf_li`` and ``_env_sample_li`` each run in a
+``pt::env`` span (``utils/spans.py``), opened only where they are called:
+in a scene with an environment.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -24,6 +29,7 @@ from ..core.sampling import (concentric_sample_disk,
 from ..scene.scene import (LA_EMIT, LA_HASN, LA_N0, LA_N1, LA_N2, LA_P0,
                            LA_P1, LA_P2, LA_TYPE, LA_VEC, LIGHT_AREA,
                            LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_POINT)
+from ..utils.spans import span
 from .bsdf import select
 from .intersect import watertight_hit_diag
 
@@ -86,6 +92,16 @@ def env_lookup(scene, uv):
     return top * (1 - fy) + bot * fy
 
 
+def _env_span(fn):
+    """``fn`` run inside a ``pt::env`` span."""
+    @functools.wraps(fn)
+    def inside(*args, **kwargs):
+        with span("pt::env"):
+            return fn(*args, **kwargs)
+    return inside
+
+
+@_env_span
 def env_le(scene, d_world):
     """Radiance of the environment along world directions (zero without
     an environment)."""
@@ -93,6 +109,7 @@ def env_le(scene, d_world):
     return torch.where(scene.has_env, le, torch.zeros_like(le))
 
 
+@_env_span
 def _env_sample_li(scene, u):
     """Importance-sample the environment's 2D table at u (N, 2). Returns
     (wi_world, pdf (solid angle), radiance)."""
@@ -113,6 +130,7 @@ def _env_sample_li(scene, u):
     return wi, torch.where(ok, pdf, 0.0), torch.where(ok[..., None], le, 0.0)
 
 
+@_env_span
 def env_pdf_li(scene, w_world):
     """Solid-angle pdf of the environment light along world directions."""
     w = pm.normalize(_mat3_rows(scene.world_to_env, w_world))

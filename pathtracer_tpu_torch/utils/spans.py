@@ -30,6 +30,11 @@ The spans (``pt::`` names; parent by nesting):
   ``pt::scatter`` (the BSDF sample through Russian roulette);
 - ``pt::texture`` (``eval_texture``), ``pt::alpha_cut`` and
   ``pt::k:<kernel>``, around the launch of a hand-written kernel;
+- ``pt::env``: each call of the environment light's code
+  (``ops/lights.py``: ``env_le``, ``env_pdf_li``, ``_env_sample_li``),
+  which only a scene with an environment makes: the escaped rays' radiance
+  and density in ``pt::shade``, the light's sample in ``pt::nee``. The
+  benchmark's ``env_ops_per_ksample`` reads it;
 - on the card, kernels K5 and K6 (``ops/cuda/bsdf_cu.py``) evaluate the
   BSDF in ``pt::nee`` and sample it in ``pt::scatter``: each launch in its
   ``pt::k:bsdf_eval`` / ``pt::k:bsdf_sample``, and, where the scene holds
