@@ -168,6 +168,15 @@ retries) and the alpha routes it does not take:
              and a 2-D draw and the camera pair timed beside the plain
              chain (its device time in phase 13), with their byte
              bounds;
+17e. env_kernels - K8 (csrc/env.cu: the environment light evaluated
+             and sampled) against its plain twins (ops/lights.py
+             env_eval_plain, env_sample_plain) on the arguments of every
+             K8 call of a 640x480 tank-farm render's band 0, frame 3
+             (130,732 lanes, depth 15), taken by a spy on the eager path:
+             each output ``torch.equal``; the radiance, the pdf, both, and
+             the sample timed (ms, one call, host us, device time) beside
+             the plain twins, with their byte bounds; K8's launches in a
+             tank-farm and a cornell render;
 18. alpha_routes - at 131,072 lanes: the dense pass (512 masked
              triangles), closest and any hit, ms and peak bytes; the binary
              tree of an all-masked scene (1,024 triangles) against the
@@ -503,8 +512,9 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
     each render's retry counts; kernels K3's and K4's launches a render
     (the same in every render; K4's one for each alpha-table query), K5's
     and K6's (``bsdf_launches``: exactly those of a render's shading
-    bounces) and K7's (``sobol_launches``: exactly a render's Sobol
-    draws)."""
+    bounces), K7's (``sobol_launches``: exactly a render's Sobol draws)
+    and K8's (``env_launches``: exactly a render's calls of the
+    environment's code)."""
     import torch
 
     from pathtracer_tpu_torch import integrator as pint
@@ -523,11 +533,17 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
         want_sobol = sobol_launches(integ, cam, scene)
     except ImportError:  # a checkout from before K7 (kernel_ab.py)
         sobol_cu, want_sobol = types.SimpleNamespace(LAUNCHES={}), {}
+    try:
+        from pathtracer_tpu_torch.ops.cuda import env_cu
+        want_env = env_launches(integ, cam, scene)
+    except ImportError:  # a checkout from before K8 (kernel_ab.py)
+        env_cu, want_env = types.SimpleNamespace(LAUNCHES={}), {}
     seconds, retry, texture = [], [], []
     for _ in range(RENDER_REPS):
         for mod in expect:
             mod.LAUNCHES = 0  # the main path's run starts here
-        for counts in (tx.LAUNCHES, bsdf_cu.LAUNCHES, sobol_cu.LAUNCHES):
+        for counts in (tx.LAUNCHES, bsdf_cu.LAUNCHES, sobol_cu.LAUNCHES,
+                       env_cu.LAUNCHES):
             for key in counts:
                 counts[key] = 0
         for key in pint.RETRY_COUNTS:
@@ -561,6 +577,9 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
             raise AssertionError(f"{what} render launched K7 "
                                  f"{sobol_cu.LAUNCHES}, expected "
                                  f"{want_sobol}")
+        if env_cu.LAUNCHES != want_env:
+            raise AssertionError(f"{what} render launched K8 "
+                                 f"{env_cu.LAUNCHES}, expected {want_env}")
     rates = [integ.last_ray_count / dt / 1e6 for dt in seconds]
     return film, dict(rays=integ.last_ray_count,
                       seconds=statistics.median(seconds),
@@ -570,7 +589,8 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
                       renders=RENDER_REPS, retry_counts_runs=retry,
                       texture_launches=texture[-1],
                       bsdf_launches=dict(bsdf_cu.LAUNCHES),
-                      sobol_launches=dict(sobol_cu.LAUNCHES))
+                      sobol_launches=dict(sobol_cu.LAUNCHES),
+                      env_launches=dict(env_cu.LAUNCHES))
 
 
 def bsdf_launches(integ, cam, scene) -> dict:
@@ -618,6 +638,36 @@ def sobol_launches(integ, cam, scene) -> dict:
     return dict(sobol_index=frames,
                 sobol_draw=frames * (1 + cfg.max_depth * (nee + 1)
                                      + roulette))
+
+
+def env_launches(integ, cam, scene) -> dict:
+    """K8's launches in one render: none in a scene without an
+    environment; with one, in each band-frame one ``env_eval`` a bounce
+    for the escaped rays (their radiance, and from bounce 1 under
+    one-sample MIS its density in the same launch), and at each shading
+    bounce (every bounce but the last) with NEE, for each light sample
+    (light_strategy "all": one a light), one ``env_sample`` where the
+    scene's lights include the environment and, under "ref" MIS, one
+    ``env_eval`` for the BSDF sample's light density (the environment
+    among the lights) and one for its radiance."""
+    from pathtracer_tpu_torch.integrator import _wave_flags
+    from pathtracer_tpu_torch.scene.scene import LIGHT_INFINITE
+
+    cfg = integ.cfg
+    if not scene.has_env:
+        return dict(env_eval=0, env_sample=0)
+    do_nee, one_sample, _ = _wave_flags(scene, cfg)
+    _, n_bands = integ.band_layout(cam)
+    frames = n_bands * integ.spp
+    if not do_nee:
+        samples = 0
+    else:
+        samples = frames * cfg.max_depth * (
+            scene.n_lights if cfg.light_strategy == "all" else 1)
+    infinite = int(LIGHT_INFINITE in scene.light_set)
+    ref_evals = 0 if one_sample else infinite + 1
+    return dict(env_eval=frames * (cfg.max_depth + 1) + samples * ref_evals,
+                env_sample=samples * infinite)
 
 
 def timings(kernel, plain=None, library=None, plain_calls: int = PER_CALL,
@@ -2390,6 +2440,164 @@ def phase_sobol_kernels(dev):
     return out, calls
 
 
+# bytes a K8 lane must move (csrc/env.cu): env_eval reads its direction
+# (12 B) and writes Le (12 B), the pdf (4 B) or both; env_sample reads u
+# (8 B) and writes wi, the pdf and Le (28 B). The map and the tables are
+# the lanes' shared inputs, which the bounce loop leaves in L2: not counted
+ENV_LANE_BYTES = dict(le=12 + 12, pdf=12 + 4, le_pdf=12 + 16, sample=8 + 28)
+TANKFARM = os.path.join(ROOT, "benchmark", "scenes", "tankfarm-spheres.xml")
+# the cell's depth, and the band-frame whose calls the phase takes (the
+# fourth a render runs: band 0's frame 3)
+ENV_DEPTH = 15
+ENV_FRAME = 3
+
+
+def capture_env_inputs(cam, scene, depth: int, frame: int) -> dict:
+    """The arguments of K8's calls in band-frame ``frame`` of a render
+    (one-sample MIS at ``depth``, 4 spp) on the eager path
+    (``eager_band_frames``, so the spy may stop the render): {"eval":
+    [(sd, d, le, pdf) a call, one a bounce], "sample": [(sd, u) a call,
+    one a shading bounce]}, the main path's inputs at its shapes."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import env_cu
+
+    real_eval, real_sample = env_cu.env_eval, env_cu.env_sample
+    evals, samples = [], []
+
+    def spy_eval(sd, d, le=True, pdf=False):
+        evals.append((sd, d, le, pdf))
+        if len(evals) == (depth + 1) * (frame + 1):  # the frame's last
+            raise CaptureDone
+        return real_eval(sd, d, le=le, pdf=pdf)
+
+    def spy_sample(sd, u):
+        samples.append((sd, u))
+        return real_sample(sd, u)
+
+    env_cu.env_eval, env_cu.env_sample = spy_eval, spy_sample
+    try:
+        with eager_band_frames():
+            PathIntegrator(PathConfig(max_depth=depth, mis_mode="onesample"),
+                           spp=4).render(cam, scene)
+    except CaptureDone:
+        pass
+    finally:
+        env_cu.env_eval, env_cu.env_sample = real_eval, real_sample
+    torch.cuda.synchronize()
+    if len(evals) != (depth + 1) * (frame + 1) or \
+            len(samples) != depth * (frame + 1):
+        raise AssertionError(f"the render made {len(evals)} env_eval and "
+                             f"{len(samples)} env_sample calls")
+    return dict(eval=evals[-(depth + 1):], sample=samples[-depth:])
+
+
+def env_render_launches(dev, path: str, depth: int) -> dict:
+    """K8's launches in a 640 x 480 4-spp render of the scene at
+    ``path`` (one-sample MIS at ``depth``, the graph path after a warm-up
+    render) against ``env_launches``, and a band-frame's share."""
+    from pathtracer_tpu_torch.integrator import (PathConfig, PathIntegrator,
+                                                 TracedScene)
+    from pathtracer_tpu_torch.ops.cuda import env_cu
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    cam, sd, _ = load_mitsuba(path, resolution=BSDF_RES, device=dev)
+    scene = TracedScene.create(sd)
+    integ = PathIntegrator(PathConfig(max_depth=depth, mis_mode="onesample"),
+                           spp=4)
+    integ.render(cam, scene)
+    for key in env_cu.LAUNCHES:
+        env_cu.LAUNCHES[key] = 0
+    integ.render(cam, scene)
+    got, want = dict(env_cu.LAUNCHES), env_launches(integ, cam, scene)
+    if got != want:
+        raise AssertionError(f"{path} render launched K8 {got}, expected "
+                             f"{want}")
+    frames = integ.band_layout(cam)[1] * integ.spp
+    return dict(launches=got, band_frames=frames,
+                per_band_frame={k: v / frames for k, v in got.items()})
+
+
+def phase_env_kernels(dev):
+    """K8 against its plain twins (``lights.env_eval_plain`` /
+    ``env_sample_plain``) at the cell's shapes: the tank farm's map and
+    tables, the 130,732 lanes of a 640 x 480 render's first band at its
+    frame 3, on the arguments of every K8 call of that band-frame (taken
+    by a spy on the eager path): each direction with radiance, pdf and
+    both, each u, ``torch.equal``. Then timed: the camera rays' radiance
+    (bounce 0), bounce 1's radiance and pdf and its pdf alone, bounce 0's
+    light sample: per call over back-to-back calls, one call, host us,
+    device time (profiler), the plain twin's time and device time, and
+    the byte bound. Last, K8's launches in a tank-farm render (16
+    ``env_eval`` + 15 ``env_sample`` a band-frame) and a cornell one
+    (none), held to ``env_launches``."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator import TracedScene
+    from pathtracer_tpu_torch.ops import lights as lt
+    from pathtracer_tpu_torch.ops.cuda import _build
+    from pathtracer_tpu_torch.ops.cuda import env_cu as k8
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    t0 = time.perf_counter()
+    cam, sd, _ = load_mitsuba(TANKFARM, resolution=BSDF_RES, device=dev)
+    got = capture_env_inputs(cam, TracedScene.create(sd), ENV_DEPTH,
+                             ENV_FRAME)
+    mismatches = []
+    for bounce, (sd_, d, _, _) in enumerate(got["eval"]):
+        for le, pdf in ((True, False), (False, True), (True, True)):
+            outs = zip(("le", "pdf"), k8.env_eval(sd_, d, le=le, pdf=pdf),
+                       lt.env_eval_plain(sd_, d, le=le, pdf=pdf))
+            for name, g, w in outs:
+                if g is not None and not torch.equal(g, w):
+                    mismatches.append(dict(
+                        bounce=bounce, call=(le, pdf), what=name,
+                        differing=int((g != w).any(-1).sum() if g.dim() > 1
+                                      else (g != w).sum())))
+    for bounce, (sd_, u) in enumerate(got["sample"]):
+        outs = zip(("wi", "pdf", "le"), k8.env_sample(sd_, u),
+                   lt.env_sample_plain(sd_, u))
+        for name, g, w in outs:
+            if not torch.equal(g, w):
+                mismatches.append(dict(bounce=bounce, call="sample",
+                                       what=name))
+    torch.cuda.synchronize()
+    if mismatches:
+        emit(dict(phase="env_kernels_mismatch", cases=mismatches[:20]))
+        raise AssertionError(f"K8 differs from its plain twins in "
+                             f"{len(mismatches)} cases")
+    d0, d1 = got["eval"][0][1], got["eval"][1][1]
+    u0 = got["sample"][0][1]
+    n = d0.shape[0]
+    pairs = dict(
+        le=(lambda: k8.env_eval(sd, d0),
+            lambda: lt.env_eval_plain(sd, d0), "env_eval_kernel"),
+        pdf=(lambda: k8.env_eval(sd, d1, le=False, pdf=True),
+             lambda: lt.env_eval_plain(sd, d1, le=False, pdf=True),
+             "env_eval_kernel"),
+        le_pdf=(lambda: k8.env_eval(sd, d1, pdf=True),
+                lambda: lt.env_eval_plain(sd, d1, pdf=True),
+                "env_eval_kernel"),
+        sample=(lambda: k8.env_sample(sd, u0),
+                lambda: lt.env_sample_plain(sd, u0), "env_sample_kernel"))
+    cases = {}
+    for case, (kernel, plain, name) in pairs.items():
+        cases[case] = dict(lanes=n, **timings(kernel, plain=plain),
+                           device_ms=kernel_device_ms(kernel, name),
+                           plain_device_ms=kernel_device_ms(plain),
+                           **bound(ENV_LANE_BYTES[case] * n, 0.0))
+    out = dict(phase="env_kernels", cases=cases,
+               map=list(sd.env_map.shape), tables=list(
+                   sd.env_cond_cdf.shape),
+               tankfarm=env_render_launches(dev, TANKFARM, ENV_DEPTH),
+               cornell=env_render_launches(dev, CORNELL, 5),
+               ptxas=_build.ptxas_report(k8.build()),
+               seconds=time.perf_counter() - t0)
+    emit(out)
+    return out
+
+
 def phase_sponza_profile(cam, scene):
     """One Sponza render of phase 17 under torch.profiler, host and
     device (``render_profile``): the busy share, K2's share, device events
@@ -3603,6 +3811,7 @@ def phase_build():
     from pathtracer_tpu_torch.ops.cuda import _build
     from pathtracer_tpu_torch.ops.cuda import bsdf_cu as k56
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
+    from pathtracer_tpu_torch.ops.cuda import env_cu as k8
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
     from pathtracer_tpu_torch.ops.cuda import sobol_cu as k7
     from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
@@ -3620,6 +3829,7 @@ def phase_build():
                   texture=lambda: tx.build(verbose=True),
                   bsdf=lambda: k56.build(verbose=True),
                   sobol=lambda: k7.build(verbose=True),
+                  env=lambda: k8.build(verbose=True),
                   gather_probe=lambda: pg.build(verbose=True),
                   gather_probe2=lambda: pg2.build(verbose=True),
                   bvh_builder=cpp.library_path)
@@ -3632,6 +3842,7 @@ def phase_build():
     tx._load()
     k56._load()
     k7._load()
+    k8._load()
     pg._load()
     pg2._load()
     cpp._load()
@@ -3644,6 +3855,7 @@ def phase_build():
                texture_ptxas=_build.ptxas_report(tx.build()),
                bsdf_ptxas=_build.ptxas_report(k56.build()),
                sobol_ptxas=_build.ptxas_report(k7.build()),
+               env_ptxas=_build.ptxas_report(k8.build()),
                p8_rows=pg2.macro("P8_ROWS"),
                p1_threads=pg.threads("P1"), p3_threads=pg.threads("P3"),
                p4_threads=pg.threads("P4"), p4_rows=pg.macro("P4_ROWS"),
@@ -3696,6 +3908,7 @@ def main() -> int:
         dev, class_cam, class_scene, sponza_cam, sponza_scene, alpha_set)
     bsdf_out, bsdf_calls = phase_bsdf_kernels(dev)
     sobol_out, sobol_calls = phase_sobol_kernels(dev)
+    env_out = phase_env_kernels(dev)
     routes_out = phase_alpha_routes(dev)
     t_slice = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3845,6 +4058,19 @@ def main() -> int:
                           plain_device_ms=sobol_ms[f"plain_{case}"])
                for case, c in sobol_out["cases"].items()},
         **times(sobol_out["cases"]["dim2"], sobol_ms["dim2"])))
+    kernels.append(dict(
+        name="env_eval, env_sample (K8)", route="cuda",
+        source="pathtracer_tpu_torch/csrc/env.cu",
+        replaces="pathtracer_tpu/ops/lights.py env_le, env_pdf_li, "
+                 "_env_sample_li (XLA, not Pallas)",
+        launches=env_out["tankfarm"]["launches"],
+        launches_by_path={path: runs["env_launches"]
+                          for path, runs in main_runs.items()},
+        cases={case: dict(times(c, c["device_ms"]),
+                          plain_device_ms=c["plain_device_ms"])
+               for case, c in env_out["cases"].items()},
+        **times(env_out["cases"]["sample"],
+                env_out["cases"]["sample"]["device_ms"])))
     for pid, kernel, line in (("P1", "gather_rows", 65),
                               ("P2", "gather_rows", 78),
                               ("P3", "gather_cols", 92),

@@ -251,6 +251,38 @@ static PyObject* ppppiiiipp(PyObject* self, PyObject* const* args,
                           a[6].i, a[7].i, a[8].p, a[9].p));
 }
 
+// K8 env_eval: (d, w2e, map, cond_func, marg_int, has_env, n, h, w, nv,
+// nu, le, pdf, stream)
+typedef int (*ppppppiiiiippp_t)(void*, void*, void*, void*, void*, void*,
+                                int, int, int, int, int, void*, void*,
+                                void*);
+static PyObject* ppppppiiiiippp(PyObject* self, PyObject* const* args,
+                                Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[14];
+  if (unpack("ppppppiiiiippp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((ppppppiiiiippp_t)fn)(a[0].p, a[1].p, a[2].p, a[3].p, a[4].p,
+                              a[5].p, a[6].i, a[7].i, a[8].i, a[9].i,
+                              a[10].i, a[11].p, a[12].p, a[13].p));
+}
+
+// K8 env_sample: (u, e2w, map, cond_func, cond_cdf, cond_int, marg_func,
+// marg_cdf, marg_int, n, h, w, nv, nu, wi, pdf, le, stream)
+typedef int (*pppppppppiiiiipppp_t)(void*, void*, void*, void*, void*,
+                                    void*, void*, void*, void*, int, int,
+                                    int, int, int, void*, void*, void*,
+                                    void*);
+static PyObject* pppppppppiiiiipppp(PyObject* self, PyObject* const* args,
+                                    Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[18];
+  if (unpack("pppppppppiiiiipppp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((pppppppppiiiiipppp_t)fn)(a[0].p, a[1].p, a[2].p, a[3].p, a[4].p,
+                                  a[5].p, a[6].p, a[7].p, a[8].p, a[9].i,
+                                  a[10].i, a[11].i, a[12].i, a[13].i,
+                                  a[14].p, a[15].p, a[16].p, a[17].p));
+}
+
 #define ENTRY(name) \
   {#name, (PyCFunction)(void (*)(void))name, METH_FASTCALL, NULL}
 
@@ -260,7 +292,8 @@ static PyMethodDef methods[] = {
     ENTRY(ppppiiiiffffppppp), ENTRY(ppppppiippppiiipp),
     ENTRY(pppppppifppppp),  ENTRY(pipiipiipipiipiipipipippppppiipppp),
     ENTRY(pipiipiipipiipiipipipippppppiippppppp), ENTRY(ppppppiiiippp),
-    ENTRY(ppppiiiipp),      {NULL, NULL, 0, NULL}};
+    ENTRY(ppppiiiipp),      ENTRY(ppppppiiiiippp),
+    ENTRY(pppppppppiiiiipppp), {NULL, NULL, 0, NULL}};
 
 static struct PyModuleDef module = {
     PyModuleDef_HEAD_INIT, "pylaunch",

@@ -776,16 +776,19 @@ def _wave_bounce(scene, cfg, bounce, st, draw, draw2, draw2_arr=None,
             # against the previous vertex's light-sampling density
             _build.count("env.run", n)
             seen = (active if one_sample else le_mask) & ~hit["valid"]
-            le_env = lt.env_le(sd, d)
+            if one_sample and bounce > 0:
+                # the radiance and the density along d in one call
+                le_env, epdf = lt.env_le_pdf(sd, d)
+            else:
+                le_env = lt.env_le(sd, d)
             if one_sample:
                 if bounce == 0:
                     w_env = torch.ones((n,), dtype=torch.float32,
                                        device=o.device)
                 else:
-                    epdf = lt.env_pdf_li(sd, d) * pick_prob
                     w_env = torch.where(specular, 1.0,
                                         pm.power_heuristic(1.0, prev_pdf, 1.0,
-                                                           epdf))
+                                                           epdf * pick_prob))
                 l = l + torch.where(seen[..., None],
                                     beta * le_env * w_env[..., None], 0.0)
             else:

@@ -8,9 +8,11 @@ the light tracer builds on: ``power``, ``sample_le`` and ``pdf_le``, with
 PBRT-v3's semantics (the reference's own Light trait leaves them
 unimplemented). Every light type in ``light_set`` is evaluated for the
 whole batch and the per-ray result is selected by the chosen light's type.
-``env_le``, ``env_pdf_li`` and ``_env_sample_li`` each run in a
-``pt::env`` span (``utils/spans.py``), opened only where they are called:
-in a scene with an environment.
+``env_le``, ``env_pdf_li``, ``env_le_pdf`` and ``_env_sample_li`` each
+run in a ``pt::env`` span (``utils/spans.py``), opened only where they are
+called: in a scene with an environment. On the card each is one launch of
+kernel K8 (``ops/cuda/env_cu.py``); on the CPU each runs its plain twin,
+``env_eval_plain`` or ``env_sample_plain``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..scene.scene import (LA_EMIT, LA_HASN, LA_N0, LA_N1, LA_N2, LA_P0,
                            LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_POINT)
 from ..utils.spans import span
 from .bsdf import select
+from .cuda import env_cu
 from .intersect import watertight_hit_diag
 
 GAMMA6 = float(gamma(6))
@@ -65,11 +68,19 @@ def _mat3_rows(m, w):
         w[..., 2:3] * m[:, 2]
 
 
+def _env_theta_uv(scene, w_world):
+    """The polar angle theta of world directions in the map's frame, and
+    their equirect uv."""
+    w = pm.normalize(_mat3_rows(scene.world_to_env, w_world))
+    theta = pm.spherical_theta(w)
+    uv = torch.stack([pm.spherical_phi(w) * pm.INV_2_PI, theta * pm.INV_PI],
+                     dim=-1)
+    return theta, uv
+
+
 def env_direction_to_uv(scene, w_world):
     """World direction -> equirect uv of the environment map."""
-    w = pm.normalize(_mat3_rows(scene.world_to_env, w_world))
-    return torch.stack([pm.spherical_phi(w) * pm.INV_2_PI,
-                        pm.spherical_theta(w) * pm.INV_PI], dim=-1)
+    return _env_theta_uv(scene, w_world)[1]
 
 
 def env_lookup(scene, uv):
@@ -92,27 +103,28 @@ def env_lookup(scene, uv):
     return top * (1 - fy) + bot * fy
 
 
-def _env_span(fn):
-    """``fn`` run inside a ``pt::env`` span."""
-    @functools.wraps(fn)
-    def inside(*args, **kwargs):
-        with span("pt::env"):
-            return fn(*args, **kwargs)
-    return inside
+def env_eval_plain(scene, d_world, le: bool = True, pdf: bool = False):
+    """The environment's radiance (N, 3; zero without an environment) and
+    solid-angle pdf (N,) along world directions, each where asked (else
+    None), from one uv of each direction: the plain twin of kernel K8's
+    ``env_eval`` (``ops/cuda/env_cu.py``), which CPU tensors take."""
+    theta, uv = _env_theta_uv(scene, d_world)
+    out_le = out_pdf = None
+    if le:
+        out_le = env_lookup(scene, uv)
+        out_le = torch.where(scene.has_env, out_le, torch.zeros_like(out_le))
+    if pdf:
+        sin_t = torch.sin(theta)
+        d2 = pdf_distribution_2d(scene.env_cond_func, scene.env_marg_int, uv)
+        out_pdf = d2 / (2.0 * np.pi * np.pi * torch.clamp_min(sin_t, 1e-20))
+        out_pdf = torch.where((sin_t == 0.0) | ~scene.has_env, 0.0, out_pdf)
+    return out_le, out_pdf
 
 
-@_env_span
-def env_le(scene, d_world):
-    """Radiance of the environment along world directions (zero without
-    an environment)."""
-    le = env_lookup(scene, env_direction_to_uv(scene, d_world))
-    return torch.where(scene.has_env, le, torch.zeros_like(le))
-
-
-@_env_span
-def _env_sample_li(scene, u):
+def env_sample_plain(scene, u):
     """Importance-sample the environment's 2D table at u (N, 2). Returns
-    (wi_world, pdf (solid angle), radiance)."""
+    (wi_world, pdf (solid angle), radiance): the plain twin of kernel K8's
+    ``env_sample`` (``ops/cuda/env_cu.py``), which CPU tensors take."""
     uv, map_pdf = sample_distribution_2d(
         scene.env_cond_func, scene.env_cond_cdf, scene.env_cond_int,
         scene.env_marg_func, scene.env_marg_cdf, scene.env_marg_int, u)
@@ -130,18 +142,40 @@ def _env_sample_li(scene, u):
     return wi, torch.where(ok, pdf, 0.0), torch.where(ok[..., None], le, 0.0)
 
 
+def _env_span(fn):
+    """``fn`` run inside a ``pt::env`` span."""
+    @functools.wraps(fn)
+    def inside(*args, **kwargs):
+        with span("pt::env"):
+            return fn(*args, **kwargs)
+    return inside
+
+
+@_env_span
+def env_le(scene, d_world):
+    """Radiance of the environment along world directions (zero without
+    an environment)."""
+    return env_cu.env_eval(scene, d_world, le=True)[0]
+
+
 @_env_span
 def env_pdf_li(scene, w_world):
     """Solid-angle pdf of the environment light along world directions."""
-    w = pm.normalize(_mat3_rows(scene.world_to_env, w_world))
-    theta = pm.spherical_theta(w)
-    phi = pm.spherical_phi(w)
-    sin_t = torch.sin(theta)
-    d2 = pdf_distribution_2d(
-        scene.env_cond_func, scene.env_marg_int,
-        torch.stack([phi * pm.INV_2_PI, theta * pm.INV_PI], dim=-1))
-    pdf = d2 / (2.0 * np.pi * np.pi * torch.clamp_min(sin_t, 1e-20))
-    return torch.where((sin_t == 0.0) | ~scene.has_env, 0.0, pdf)
+    return env_cu.env_eval(scene, w_world, le=False, pdf=True)[1]
+
+
+@_env_span
+def env_le_pdf(scene, d_world):
+    """``env_le`` and ``env_pdf_li`` along the same directions, in one
+    call: (radiance (N, 3), pdf (N,))."""
+    return env_cu.env_eval(scene, d_world, le=True, pdf=True)
+
+
+@_env_span
+def _env_sample_li(scene, u):
+    """Importance-sample the environment's 2D table at u (N, 2). Returns
+    (wi_world, pdf (solid angle), radiance)."""
+    return env_cu.env_sample(scene, u)
 
 
 def _tri_pdf_along_sampled(rows, ref_p, ref_err, ref_n, wi):

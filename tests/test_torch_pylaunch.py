@@ -18,7 +18,7 @@ import types
 import pytest
 
 from pathtracer_tpu_torch.ops.cuda import (_build, bsdf_cu, bvhw_cu,
-                                           intersect_cu, sobol_cu,
+                                           env_cu, intersect_cu, sobol_cu,
                                            texture_cu)
 from pathtracer_tpu_torch.probes import gather, gather2
 
@@ -26,9 +26,9 @@ SIGS = ("ppiipp", "ppipp", "ppiiipp", "ppppiiifffppppp", "ppppiiiiffffppppp",
         "ppppppiippppiiipp", "pppppppifppppp",
         "pipiipiipipiipiipipipippppppiipppp",
         "pipiipiipipiipiipipipippppppiippppppp", "ppppppiiiippp",
-        "ppppiiiipp")
-MODULES = (intersect_cu, bvhw_cu, texture_cu, bsdf_cu, sobol_cu, gather,
-           gather2)
+        "ppppiiiipp", "ppppppiiiiippp", "pppppppppiiiiipppp")
+MODULES = (intersect_cu, bvhw_cu, texture_cu, bsdf_cu, sobol_cu, env_cu,
+           gather, gather2)
 # slots of the stand-ins' records: the longest signature's arguments
 SLOTS = max(len(sig) for sig in SIGS)
 CTYPE = {"p": "void*", "i": "int", "f": "float"}

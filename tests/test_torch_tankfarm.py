@@ -312,7 +312,8 @@ def _spied_render(monkeypatch, cam, scene, cfg, spp=2):
     {"used", "run"} counted directly)."""
     direct = dict(used=0, run=0)
     closest, nee = pint._scene_intersect, pint.estimate_direct
-    env_le, env_sample = lt.env_le, lt._env_sample_li
+    env_le, env_le_pdf = lt.env_le, lt.env_le_pdf
+    env_sample = lt._env_sample_li
 
     def scene_intersect(scene_, o, d, t_max, live=None):
         hit = closest(scene_, o, d, t_max, live=live)
@@ -334,6 +335,7 @@ def _spied_render(monkeypatch, cam, scene, cfg, spp=2):
     monkeypatch.setattr(pint, "_scene_intersect", scene_intersect)
     monkeypatch.setattr(pint, "estimate_direct", estimate_direct)
     monkeypatch.setattr(lt, "env_le", widths(env_le))
+    monkeypatch.setattr(lt, "env_le_pdf", widths(env_le_pdf))
     monkeypatch.setattr(lt, "_env_sample_li", widths(env_sample))
     integ = PathIntegrator(cfg, spp=spp)
     film = integ.render_progressive(cam, scene, chunk_spp=1)
@@ -345,8 +347,8 @@ def test_env_lanes_count_the_lanes_that_use_the_environment(tankfarm,
     """On the eager path ``env_lanes`` equals a direct count: ``used``,
     the live lanes that escape plus those whose light sample is the
     environment's; ``run``, the width of every call of its code (the
-    escape's radiance and density count once a bounce, as one call
-    site). Counting changes no film bit, and a render without the count
+    escape's radiance and density are one call a bounce, ``env_le`` or
+    ``env_le_pdf``). Counting changes no film bit, and a render without the count
     gives the same film."""
     cam, sd, _ = tankfarm
     scene = TracedScene.create(sd)
@@ -393,9 +395,10 @@ def test_no_environment_no_count_and_no_span():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         integ.render(cam, sd)
     names = [e.name() for e in prof.profiler.kineto_results.events()]
-    # a band-frame: 3 escapes, 2 of them with the density, 2 light samples
+    # a band-frame: 3 escapes (one call each, 2 of them with the
+    # density), 2 light samples
     frames = names.count("pt::band_frame")
-    assert frames > 0 and names.count("pt::env") == 7 * frames
+    assert frames > 0 and names.count("pt::env") == 5 * frames
 
 
 # --------------------------------------------------------- the reference
