@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
@@ -118,6 +119,11 @@ GRAPH_COUNTS = dict(captures=0, replays=0, eager=0)
 # ``PathIntegrator.env_lanes`` takes a render's share at each chunk's sync
 ENV_RUN = 0
 _build.counted(__name__, ("env.run",), attr="ENV_RUN")
+# the seconds ``TracedScene.create`` has taken over a process
+# ("tables.seconds"): the binary BVH, the triangles' reorder, the BVH32
+# collapse, and packing and uploading every table, K1's and K2's among them
+TABLES_S = 0.0
+_build.counted(__name__, ("tables.seconds",), attr="TABLES_S")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,7 +220,18 @@ class TracedScene:
         the binary SAH build, the triangles reordered into its leaf order,
         and the 32-wide collapse for kernel K2; masked triangles are split
         out (class docstring). Without it, the brute-force route, kernel
-        K1, which takes any number of triangles."""
+        K1, which takes any number of triangles. Its seconds, to the
+        device's sync, are added to ``TABLES_S``."""
+        t0 = time.perf_counter()
+        out = TracedScene._tables(sd, use_bvh, max_leaf)
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+        _build.count("tables.seconds", time.perf_counter() - t0)
+        return out
+
+    @staticmethod
+    def _tables(sd: SceneData, use_bvh: bool | None,
+                max_leaf: int) -> "TracedScene":
         f = int(sd.p0.shape[0])
         if use_bvh is None:
             use_bvh = f > 128

@@ -31,6 +31,9 @@ _build.counted(__name__, SIGNATURES)
 # as LAUNCHES is: a graph's capture tallies them, each replay adds them
 BYTES = 0
 _build.counted(__name__, ("bvhw.bytes",), attr="BYTES")
+# the lanes (rays) those launches cover, live or not, counted as BYTES is
+RAYS = 0
+_build.counted(__name__, ("bvhw.rays",), attr="RAYS")
 # a ray read once (o, d, t_max), its hit written once (valid, t, tri, b;
 # an any-hit query's valid alone), a table row read once
 RAY_BYTES, HIT_BYTES, ANY_HIT_BYTES, ROW_BYTES = 28, 21, 1, WW * 4
@@ -123,6 +126,7 @@ def bvhw_intersect(table, o, d, t_max, any_hit: bool = False,
             int(bool(any_hit)), int(stackw), G_SLAB, GAMMA2, GAMMA3, GAMMA5,
             *outs)
         _build.count("bvhw.bytes", launch_bytes(table.shape[0], n, any_hit))
+        _build.count("bvhw.rays", n)
     if any_hit:
         return valid
     return dict(valid=valid, t=t, tri=tri, b=b)

@@ -8,11 +8,12 @@ the light tracer builds on: ``power``, ``sample_le`` and ``pdf_le``, with
 PBRT-v3's semantics (the reference's own Light trait leaves them
 unimplemented). Every light type in ``light_set`` is evaluated for the
 whole batch and the per-ray result is selected by the chosen light's type.
-``env_le``, ``env_pdf_li``, ``env_le_pdf`` and ``_env_sample_li`` each
-run in a ``pt::env`` span (``utils/spans.py``), opened only where they are
-called: in a scene with an environment. On the card each is one launch of
-kernel K8 (``ops/cuda/env_cu.py``); on the CPU each runs its plain twin,
-``env_eval_plain`` or ``env_sample_plain``.
+``sample_li`` and ``pdf_li`` each run in a ``pt::light`` span, and
+``env_le``, ``env_pdf_li``, ``env_le_pdf`` and ``_env_sample_li`` each in
+a ``pt::env`` span (``utils/spans.py``), opened only where they are
+called: the latter in a scene with an environment. On the card each of
+the latter is one launch of kernel K8 (``ops/cuda/env_cu.py``); on the CPU
+each runs its plain twin, ``env_eval_plain`` or ``env_sample_plain``.
 """
 
 from __future__ import annotations
@@ -142,13 +143,19 @@ def env_sample_plain(scene, u):
     return wi, torch.where(ok, pdf, 0.0), torch.where(ok[..., None], le, 0.0)
 
 
-def _env_span(fn):
-    """``fn`` run inside a ``pt::env`` span."""
-    @functools.wraps(fn)
-    def inside(*args, **kwargs):
-        with span("pt::env"):
-            return fn(*args, **kwargs)
-    return inside
+def _in_span(name: str):
+    """``fn`` run inside a span named ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inside(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inside
+    return wrap
+
+
+_env_span = _in_span("pt::env")
+_light_span = _in_span("pt::light")
 
 
 @_env_span
@@ -195,6 +202,7 @@ def _tri_pdf_along_sampled(rows, ref_p, ref_err, ref_n, wi):
     return torch.where(hit, pdf, 0.0)
 
 
+@_light_span
 def sample_li(scene, light_rows, ref_p, ref_err, ref_n, u,
               light_set=ALL_LIGHTS):
     """sample_li for each ray's chosen light.
@@ -271,6 +279,7 @@ def sample_li(scene, light_rows, ref_p, ref_err, ref_n, u,
                 is_env=ltype == LIGHT_INFINITE, is_area=ltype == LIGHT_AREA)
 
 
+@_light_span
 def pdf_li(scene, light_rows, ref_p, ref_err, ref_n, wi,
            light_set=ALL_LIGHTS):
     """pdf of each ray's chosen light along wi (the MIS BSDF branch).

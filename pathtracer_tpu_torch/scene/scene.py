@@ -385,6 +385,7 @@ class SceneBuilder:
         self.tri_mat: list[np.ndarray] = []
         self.tri_light: list[np.ndarray] = []
         self.tri_alpha: list[np.ndarray] = []
+        self.n_tri = 0  # the triangles added so far
         self.materials: list[dict] = []
         self.lights: list[dict] = []
         self.env: dict | None = None
@@ -423,7 +424,8 @@ class SceneBuilder:
         positions = np.asarray(positions, np.float32)
         indices = np.asarray(indices, np.int64)
         f = indices.shape[0]
-        first_tri = sum(len(m) for m in self.tri_mat)
+        first_tri = self.n_tri
+        self.n_tri += f
         p = positions[indices]  # (F,3,3)
         self.tri_p.append(p)
         if normals is not None and len(normals):

@@ -30,6 +30,11 @@ The spans (``pt::`` names; parent by nesting):
   ``pt::scatter`` (the BSDF sample through Russian roulette);
 - ``pt::texture`` (``eval_texture``), ``pt::alpha_cut`` and
   ``pt::k:<kernel>``, around the launch of a hand-written kernel;
+- ``pt::light``: each call of ``ops/lights.py``'s ``sample_li`` (the light
+  sample of ``integrator.estimate_direct``, in ``pt::nee``) and ``pdf_li``
+  (the light's density along a BSDF direction, in ``pt::nee``, and along
+  the ray that hit an area light, in ``pt::shade``), whatever the light.
+  The benchmark's ``light_ops_per_ksample`` reads it;
 - ``pt::env``: each call of the environment light's code
   (``ops/lights.py``: ``env_le``, ``env_pdf_li``, ``_env_sample_li``),
   which only a scene with an environment makes: the escaped rays' radiance
