@@ -177,6 +177,15 @@ retries) and the alpha routes it does not take:
              the sample timed (ms, one call, host us, device time) beside
              the plain twins, with their byte bounds; K8's launches in a
              tank-farm and a cornell render;
+17f. light_kernels - K9 (csrc/light.cu: the light sample and the area
+             light's density) against its plain twins (ops/lights.py
+             sample_li_plain, pdf_li_plain) on the arguments of every K9
+             call of a 640x480 cornell render's band 0, frame 0 (depth 5)
+             and of a cornell-spheres one (depth 15), taken by a spy on
+             the eager path: every output ``torch.equal``; the first
+             sample and density of each timed (ms, one call, host us,
+             device time) beside the plain twins, with their byte bounds;
+             K9's launches in a cornell, a spheres and a tank-farm render;
 18. alpha_routes - at 131,072 lanes: the dense pass (512 masked
              triangles), closest and any hit, ms and peak bytes; the binary
              tree of an all-masked scene (1,024 triangles) against the
@@ -513,8 +522,9 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
     (the same in every render; K4's one for each alpha-table query), K5's
     and K6's (``bsdf_launches``: exactly those of a render's shading
     bounces), K7's (``sobol_launches``: exactly a render's Sobol draws)
-    and K8's (``env_launches``: exactly a render's calls of the
-    environment's code)."""
+    K8's (``env_launches``: exactly a render's calls of the
+    environment's code) and K9's (``light_launches``: exactly a render's
+    light samples and area densities)."""
     import torch
 
     from pathtracer_tpu_torch import integrator as pint
@@ -538,12 +548,17 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
         want_env = env_launches(integ, cam, scene)
     except ImportError:  # a checkout from before K8 (kernel_ab.py)
         env_cu, want_env = types.SimpleNamespace(LAUNCHES={}), {}
+    try:
+        from pathtracer_tpu_torch.ops.cuda import light_cu
+        want_light = light_launches(integ, cam, scene)
+    except ImportError:  # a checkout from before K9 (kernel_ab.py)
+        light_cu, want_light = types.SimpleNamespace(LAUNCHES={}), {}
     seconds, retry, texture = [], [], []
     for _ in range(RENDER_REPS):
         for mod in expect:
             mod.LAUNCHES = 0  # the main path's run starts here
         for counts in (tx.LAUNCHES, bsdf_cu.LAUNCHES, sobol_cu.LAUNCHES,
-                       env_cu.LAUNCHES):
+                       env_cu.LAUNCHES, light_cu.LAUNCHES):
             for key in counts:
                 counts[key] = 0
         for key in pint.RETRY_COUNTS:
@@ -580,6 +595,10 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
         if env_cu.LAUNCHES != want_env:
             raise AssertionError(f"{what} render launched K8 "
                                  f"{env_cu.LAUNCHES}, expected {want_env}")
+        if light_cu.LAUNCHES != want_light:
+            raise AssertionError(f"{what} render launched K9 "
+                                 f"{light_cu.LAUNCHES}, expected "
+                                 f"{want_light}")
     rates = [integ.last_ray_count / dt / 1e6 for dt in seconds]
     return film, dict(rays=integ.last_ray_count,
                       seconds=statistics.median(seconds),
@@ -590,7 +609,8 @@ def timed_renders(integ, cam, scene, expect: dict, what: str) -> dict:
                       texture_launches=texture[-1],
                       bsdf_launches=dict(bsdf_cu.LAUNCHES),
                       sobol_launches=dict(sobol_cu.LAUNCHES),
-                      env_launches=dict(env_cu.LAUNCHES))
+                      env_launches=dict(env_cu.LAUNCHES),
+                      light_launches=dict(light_cu.LAUNCHES))
 
 
 def bsdf_launches(integ, cam, scene) -> dict:
@@ -668,6 +688,34 @@ def env_launches(integ, cam, scene) -> dict:
     ref_evals = 0 if one_sample else infinite + 1
     return dict(env_eval=frames * (cfg.max_depth + 1) + samples * ref_evals,
                 env_sample=samples * infinite)
+
+
+def light_launches(integ, cam, scene) -> dict:
+    """K9's launches in one render: in each band-frame, at each shading
+    bounce (every bounce but the last) with NEE, one ``light_sample`` a
+    light sample (light_strategy "all": one a light) where the scene's
+    lights include an area, point or distant light; where they include an
+    area light, one ``light_pdf`` a light sample under "ref" MIS (the
+    BSDF sample's light density), and under one-sample MIS one at each
+    bounce after the first (the area light's density along the ray that
+    reached the bounce)."""
+    from pathtracer_tpu_torch.integrator import _wave_flags
+    from pathtracer_tpu_torch.scene.scene import (LIGHT_AREA, LIGHT_DISTANT,
+                                                  LIGHT_POINT)
+
+    cfg = integ.cfg
+    do_nee, one_sample, _ = _wave_flags(scene, cfg)
+    _, n_bands = integ.band_layout(cam)
+    frames = n_bands * integ.spp
+    samples = frames * cfg.max_depth * (
+        scene.n_lights if cfg.light_strategy == "all" else 1) \
+        if do_nee else 0
+    own = any(t in scene.light_set
+              for t in (LIGHT_AREA, LIGHT_POINT, LIGHT_DISTANT))
+    area = LIGHT_AREA in scene.light_set
+    pdfs = frames * cfg.max_depth if one_sample else samples
+    return dict(light_sample=samples if own else 0,
+                light_pdf=pdfs if area else 0)
 
 
 def timings(kernel, plain=None, library=None, plain_calls: int = PER_CALL,
@@ -2493,13 +2541,13 @@ def capture_env_inputs(cam, scene, depth: int, frame: int) -> dict:
     return dict(eval=evals[-(depth + 1):], sample=samples[-depth:])
 
 
-def env_render_launches(dev, path: str, depth: int) -> dict:
-    """K8's launches in a 640 x 480 4-spp render of the scene at
-    ``path`` (one-sample MIS at ``depth``, the graph path after a warm-up
-    render) against ``env_launches``, and a band-frame's share."""
+def render_launches(dev, path: str, depth: int, module, expect) -> dict:
+    """A kernel module's launches (``module.LAUNCHES``, by kernel) in a
+    640 x 480 4-spp render of the scene at ``path`` (one-sample MIS at
+    ``depth``, the graph path after a warm-up render) against ``expect``
+    (``env_launches``, ``light_launches``), and a band-frame's share."""
     from pathtracer_tpu_torch.integrator import (PathConfig, PathIntegrator,
                                                  TracedScene)
-    from pathtracer_tpu_torch.ops.cuda import env_cu
     from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
 
     cam, sd, _ = load_mitsuba(path, resolution=BSDF_RES, device=dev)
@@ -2507,12 +2555,12 @@ def env_render_launches(dev, path: str, depth: int) -> dict:
     integ = PathIntegrator(PathConfig(max_depth=depth, mis_mode="onesample"),
                            spp=4)
     integ.render(cam, scene)
-    for key in env_cu.LAUNCHES:
-        env_cu.LAUNCHES[key] = 0
+    for key in module.LAUNCHES:
+        module.LAUNCHES[key] = 0
     integ.render(cam, scene)
-    got, want = dict(env_cu.LAUNCHES), env_launches(integ, cam, scene)
+    got, want = dict(module.LAUNCHES), expect(integ, cam, scene)
     if got != want:
-        raise AssertionError(f"{path} render launched K8 {got}, expected "
+        raise AssertionError(f"{path} render launched {got}, expected "
                              f"{want}")
     frames = integ.band_layout(cam)[1] * integ.spp
     return dict(launches=got, band_frames=frames,
@@ -2590,9 +2638,135 @@ def phase_env_kernels(dev):
     out = dict(phase="env_kernels", cases=cases,
                map=list(sd.env_map.shape), tables=list(
                    sd.env_cond_cdf.shape),
-               tankfarm=env_render_launches(dev, TANKFARM, ENV_DEPTH),
-               cornell=env_render_launches(dev, CORNELL, 5),
+               tankfarm=render_launches(dev, TANKFARM, ENV_DEPTH, k8,
+                                        env_launches),
+               cornell=render_launches(dev, CORNELL, 5, k8, env_launches),
                ptxas=_build.ptxas_report(k8.build()),
+               seconds=time.perf_counter() - t0)
+    emit(out)
+    return out
+
+
+# bytes a K9 lane must move (csrc/light.cu): light_sample reads its light
+# row (104 B), the reference point, error and normal (36 B) and u (8 B),
+# and writes wi, Le, the target, its error and normal (60 B), the pdf (4
+# B) and three flags (3 B); light_pdf reads the row, the reference and wi
+# (152 B) and writes the pdf (4 B). The world radius is shared: not counted
+LIGHT_LANE_BYTES = dict(sample=104 + 36 + 8 + 60 + 4 + 3,
+                        pdf=104 + 36 + 12 + 4)
+
+
+def capture_light_inputs(cam, scene, depth: int, frame: int = 0) -> list:
+    """The arguments of K9's calls in band-frame ``frame`` of a render
+    (one-sample MIS at ``depth``, 4 spp) on the eager path
+    (``eager_band_frames``, so the spy may stop the render): [("sample" or
+    "pdf", (sd, rows, ref_p, ref_err, ref_n, u or wi), light_set) a call,
+    in the render's order], the main path's inputs at its shapes."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator import PathConfig, PathIntegrator
+    from pathtracer_tpu_torch.ops.cuda import light_cu
+
+    integ = PathIntegrator(PathConfig(max_depth=depth, mis_mode="onesample"),
+                           spp=4)
+    want = light_launches(integ, cam, scene)
+    frames = integ.band_layout(cam)[1] * integ.spp
+    per_frame = sum(want.values()) // frames
+    real = dict(sample=light_cu.light_sample, pdf=light_cu.light_pdf)
+    calls = []
+
+    def spy(kind):
+        def call(*args, light_set):
+            calls.append((kind, args, light_set))
+            if len(calls) == per_frame * (frame + 1):  # the frame's last
+                raise CaptureDone
+            return real[kind](*args, light_set=light_set)
+        return call
+
+    light_cu.light_sample, light_cu.light_pdf = spy("sample"), spy("pdf")
+    try:
+        with eager_band_frames():
+            integ.render(cam, scene)
+    except CaptureDone:
+        pass
+    finally:
+        light_cu.light_sample, light_cu.light_pdf = real["sample"], \
+            real["pdf"]
+    torch.cuda.synchronize()
+    if len(calls) != per_frame * (frame + 1):
+        raise AssertionError(f"the render made {len(calls)} K9 calls, "
+                             f"expected {per_frame} a band-frame")
+    return calls[-per_frame:]
+
+
+def phase_light_kernels(dev):
+    """K9 against its plain twins (``lights.sample_li_plain`` /
+    ``pdf_li_plain``) at the cells' shapes: the 130,732 lanes of a
+    640 x 480 render's first band at its frame 0, on the arguments of
+    every K9 call of that band-frame of cornell (depth 5) and of the
+    spheres (depth 15), taken by a spy on the eager path: each output
+    ``torch.equal``. Then timed, each scene's first light sample and
+    first density: per call over back-to-back calls, one call, host us,
+    device time (profiler), the plain twin's time and device time, and the
+    byte bound. Last, K9's launches in a cornell render (5 + 5 a
+    band-frame), a spheres one (15 + 15) and a tank-farm one (none), held
+    to ``light_launches``."""
+    import torch
+
+    from pathtracer_tpu_torch.integrator import TracedScene
+    from pathtracer_tpu_torch.ops import lights as lt
+    from pathtracer_tpu_torch.ops.cuda import _build
+    from pathtracer_tpu_torch.ops.cuda import light_cu as k9
+    from pathtracer_tpu_torch.scene.mitsuba import load_mitsuba
+
+    t0 = time.perf_counter()
+    kernel_of = dict(sample=(k9.light_sample, lt.sample_li_plain,
+                             "light_sample_kernel"),
+                     pdf=(k9.light_pdf, lt.pdf_li_plain, "light_pdf_kernel"))
+    mismatches, cases, counts = [], {}, {}
+    for scene_name, path, depth in (("cornell", CORNELL, 5),
+                                    ("spheres", SPHERES, 15)):
+        cam, sd, _ = load_mitsuba(path, resolution=BSDF_RES, device=dev)
+        calls = capture_light_inputs(cam, TracedScene.create(sd), depth)
+        counts[scene_name] = {kind: sum(c[0] == kind for c in calls)
+                              for kind in kernel_of}
+        for number, (kind, args, light_set) in enumerate(calls):
+            kernel, plain, _ = kernel_of[kind]
+            got = kernel(*args, light_set=light_set)
+            want = plain(*args, light_set=light_set)
+            if kind == "pdf":
+                got, want = dict(pdf=got), dict(pdf=want)
+            for key in want:
+                if not torch.equal(got[key], want[key]):
+                    mismatches.append(dict(scene=scene_name, call=number,
+                                           kind=kind, what=key))
+        for kind in kernel_of:
+            _, args, light_set = next(c for c in calls if c[0] == kind)
+            kernel, plain, name = kernel_of[kind]
+            n = args[1].shape[0]
+
+            def run(fn=kernel, args=args, light_set=light_set):
+                return fn(*args, light_set=light_set)
+
+            def run_plain(fn=plain, args=args, light_set=light_set):
+                return fn(*args, light_set=light_set)
+
+            cases[f"{scene_name}_{kind}"] = dict(
+                lanes=n, **timings(run, plain=run_plain),
+                device_ms=kernel_device_ms(run, name),
+                plain_device_ms=kernel_device_ms(run_plain),
+                **bound(LIGHT_LANE_BYTES[kind] * n, 0.0))
+    torch.cuda.synchronize()
+    if mismatches:
+        emit(dict(phase="light_kernels_mismatch", cases=mismatches[:20]))
+        raise AssertionError(f"K9 differs from its plain twins in "
+                             f"{len(mismatches)} cases")
+    out = dict(phase="light_kernels", cases=cases, calls=counts,
+               cornell=render_launches(dev, CORNELL, 5, k9, light_launches),
+               spheres=render_launches(dev, SPHERES, 15, k9, light_launches),
+               tankfarm=render_launches(dev, TANKFARM, 15, k9,
+                                        light_launches),
+               ptxas=_build.ptxas_report(k9.build()),
                seconds=time.perf_counter() - t0)
     emit(out)
     return out
@@ -3813,6 +3987,7 @@ def phase_build():
     from pathtracer_tpu_torch.ops.cuda import bvhw_cu as k2
     from pathtracer_tpu_torch.ops.cuda import env_cu as k8
     from pathtracer_tpu_torch.ops.cuda import intersect_cu as k1
+    from pathtracer_tpu_torch.ops.cuda import light_cu as k9
     from pathtracer_tpu_torch.ops.cuda import sobol_cu as k7
     from pathtracer_tpu_torch.ops.cuda import texture_cu as tx
     from pathtracer_tpu_torch.probes import gather as pg
@@ -3830,6 +4005,7 @@ def phase_build():
                   bsdf=lambda: k56.build(verbose=True),
                   sobol=lambda: k7.build(verbose=True),
                   env=lambda: k8.build(verbose=True),
+                  light=lambda: k9.build(verbose=True),
                   gather_probe=lambda: pg.build(verbose=True),
                   gather_probe2=lambda: pg2.build(verbose=True),
                   bvh_builder=cpp.library_path)
@@ -3843,6 +4019,7 @@ def phase_build():
     k56._load()
     k7._load()
     k8._load()
+    k9._load()
     pg._load()
     pg2._load()
     cpp._load()
@@ -3856,6 +4033,7 @@ def phase_build():
                bsdf_ptxas=_build.ptxas_report(k56.build()),
                sobol_ptxas=_build.ptxas_report(k7.build()),
                env_ptxas=_build.ptxas_report(k8.build()),
+               light_ptxas=_build.ptxas_report(k9.build()),
                p8_rows=pg2.macro("P8_ROWS"),
                p1_threads=pg.threads("P1"), p3_threads=pg.threads("P3"),
                p4_threads=pg.threads("P4"), p4_rows=pg.macro("P4_ROWS"),
@@ -3909,6 +4087,7 @@ def main() -> int:
     bsdf_out, bsdf_calls = phase_bsdf_kernels(dev)
     sobol_out, sobol_calls = phase_sobol_kernels(dev)
     env_out = phase_env_kernels(dev)
+    light_out = phase_light_kernels(dev)
     routes_out = phase_alpha_routes(dev)
     t_slice = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4071,6 +4250,19 @@ def main() -> int:
                for case, c in env_out["cases"].items()},
         **times(env_out["cases"]["sample"],
                 env_out["cases"]["sample"]["device_ms"])))
+    kernels.append(dict(
+        name="light_sample, light_pdf (K9)", route="cuda",
+        source="pathtracer_tpu_torch/csrc/light.cu",
+        replaces="pathtracer_tpu/ops/lights.py sample_li, pdf_li "
+                 "(XLA, not Pallas)",
+        launches=light_out["cornell"]["launches"],
+        launches_by_path={path: runs["light_launches"]
+                          for path, runs in main_runs.items()},
+        cases={case: dict(times(c, c["device_ms"]),
+                          plain_device_ms=c["plain_device_ms"])
+               for case, c in light_out["cases"].items()},
+        **times(light_out["cases"]["cornell_sample"],
+                light_out["cases"]["cornell_sample"]["device_ms"])))
     for pid, kernel, line in (("P1", "gather_rows", 65),
                               ("P2", "gather_rows", 78),
                               ("P3", "gather_cols", 92),

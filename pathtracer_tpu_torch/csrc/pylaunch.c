@@ -283,6 +283,36 @@ static PyObject* pppppppppiiiiipppp(PyObject* self, PyObject* const* args,
                                   a[14].p, a[15].p, a[16].p, a[17].p));
 }
 
+// K9 light_sample: (rows, ref_p, ref_err, ref_n, u, world_radius, env_wi,
+// env_pdf, env_li, n, g2, g3, g5, g6, out, flags, stream)
+typedef int (*pppppppppiffffppp_t)(void*, void*, void*, void*, void*, void*,
+                                   void*, void*, void*, int, float, float,
+                                   float, float, void*, void*, void*);
+static PyObject* pppppppppiffffppp(PyObject* self, PyObject* const* args,
+                                   Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[17];
+  if (unpack("pppppppppiffffppp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((pppppppppiffffppp_t)fn)(a[0].p, a[1].p, a[2].p, a[3].p, a[4].p,
+                                 a[5].p, a[6].p, a[7].p, a[8].p, a[9].i,
+                                 a[10].f, a[11].f, a[12].f, a[13].f, a[14].p,
+                                 a[15].p, a[16].p));
+}
+
+// K9 light_pdf: (rows, ref_p, ref_err, ref_n, wi, env_pdf, n, every, g2,
+// g3, g5, out, stream)
+typedef int (*ppppppiifffpp_t)(void*, void*, void*, void*, void*, void*, int,
+                               int, float, float, float, void*, void*);
+static PyObject* ppppppiifffpp(PyObject* self, PyObject* const* args,
+                               Py_ssize_t nargs) {
+  void* fn;
+  arg_t a[13];
+  if (unpack("ppppppiifffpp", args, nargs, &fn, a) < 0) return NULL;
+  CALL(((ppppppiifffpp_t)fn)(a[0].p, a[1].p, a[2].p, a[3].p, a[4].p, a[5].p,
+                             a[6].i, a[7].i, a[8].f, a[9].f, a[10].f,
+                             a[11].p, a[12].p));
+}
+
 #define ENTRY(name) \
   {#name, (PyCFunction)(void (*)(void))name, METH_FASTCALL, NULL}
 
@@ -293,7 +323,8 @@ static PyMethodDef methods[] = {
     ENTRY(pppppppifppppp),  ENTRY(pipiipiipipiipiipipipippppppiipppp),
     ENTRY(pipiipiipipiipiipipipippppppiippppppp), ENTRY(ppppppiiiippp),
     ENTRY(ppppiiiipp),      ENTRY(ppppppiiiiippp),
-    ENTRY(pppppppppiiiiipppp), {NULL, NULL, 0, NULL}};
+    ENTRY(pppppppppiiiiipppp), ENTRY(pppppppppiffffppp),
+    ENTRY(ppppppiifffpp),   {NULL, NULL, 0, NULL}};
 
 static struct PyModuleDef module = {
     PyModuleDef_HEAD_INIT, "pylaunch",

@@ -15,10 +15,12 @@ loaded; a launcher is then the pair (trampoline, address).
 Every kernel wrapper checks its tensors with a fast test of the case it
 launches for (dtype by identity, ``get_device()``, ``is_contiguous()``,
 its shapes) and, only where that test fails, with ``check`` (one pass
-that raises the error for what is wrong, or finds CPU tensors); then it
-calls ``launch``, which runs the launcher on PyTorch's current stream. The
-launch path is the host's cost of every call, so it does the least it
-can: the stream's raw handle comes from
+that raises the error for what is wrong, or finds CPU tensors);
+``device`` does both for a wrapper whose inputs are (N, width) rows and
+tensors of fixed shape. Then it calls ``launch``, which runs the
+launcher on PyTorch's current stream. The launch path is the host's cost
+of every call, so it does the least it can: the stream's raw handle
+comes from
 ``torch._C._cuda_getCurrentRawStream`` (what ``torch.compile``'s generated
 code calls), and a device guard is entered only for a tensor that is not
 on the current device. Each wrapper calls ``launch`` itself, with no
@@ -242,6 +244,52 @@ def check(what: str, tensors: dict, dtypes) -> int:
         if cuda and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return dev.index if cuda else -1
+
+
+def fits(tensors: dict, widths: dict, dtypes) -> bool:
+    """Whether ``tensors`` ({name: tensor}) are laid out as a kernel takes
+    them: each of its dtype (``dtypes``: one dtype, or {name: dtype}), on
+    the first one's device, contiguous, and of its shape in ``widths``
+    ({name: the width of its (N, width) rows, N the first tensor's; or its
+    whole shape, a tuple}; a name not there may have any shape). A value
+    that is not a tensor raises AttributeError."""
+    first = next(iter(tensors.values()))
+    dev, n = first.get_device(), first.shape[0] if first.dim() else -1
+    one = isinstance(dtypes, torch.dtype)
+    for name, t in tensors.items():
+        if not (t.dtype is (dtypes if one else dtypes[name])
+                and t.get_device() == dev and t.is_contiguous()):
+            return False
+        want = widths.get(name)
+        if want is None:
+            continue
+        if isinstance(want, int):
+            if t.dim() != 2 or t.shape[0] != n or t.shape[1] != want:
+                return False
+        elif t.shape != want:
+            return False
+    return True
+
+
+def device(what: str, tensors: dict, widths: dict, dtypes=torch.float32,
+           shapes_ok: bool = True) -> int:
+    """The CUDA device index of a kernel call on ``tensors`` (``fits``,
+    and ``shapes_ok``: the wrapper's own test of shapes ``widths`` cannot
+    state), -1 for CPU tensors (the plain twin); raise for what the
+    kernel cannot take: a type, device or layout (``check``), else the
+    shapes."""
+    first = next(iter(tensors.values()))
+    try:  # the case a launch takes
+        if first.is_cuda and shapes_ok and fits(tensors, widths, dtypes):
+            return first.get_device()
+    except AttributeError:  # not a tensor
+        pass
+    if all(isinstance(t, torch.Tensor) and t.is_cpu
+           for t in tensors.values()):
+        return -1
+    check(what, tensors, dtypes)
+    raise ValueError(f"{what}: shapes the kernel cannot take: " + ", ".join(
+        f"{name} {tuple(t.shape)}" for name, t in tensors.items()))
 
 
 # PyTorch's current CUDA device and the raw handle of a device's current

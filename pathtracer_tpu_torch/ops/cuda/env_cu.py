@@ -39,15 +39,15 @@ LAUNCHES = {"env_eval": 0, "env_sample": 0}
 _build.counted(__name__, SIGNATURES)
 
 F32 = torch.float32
-# the inputs that are not float32
-DTYPES = {"has_env": torch.bool}
-
 # the scene fields each kernel reads, in its launcher's order
 EVAL_FIELDS = ("world_to_env", "env_map", "env_cond_func", "env_marg_int",
                "has_env")
 SAMPLE_FIELDS = ("env_to_world", "env_map", "env_cond_func", "env_cond_cdf",
                  "env_cond_int", "env_marg_func", "env_marg_cdf",
                  "env_marg_int")
+# each input's dtype: x (the directions or u) and the scene's fields
+DTYPES = {"x": F32, **{f: torch.bool if f == "has_env" else F32
+                       for f in EVAL_FIELDS + SAMPLE_FIELDS}}
 
 _fns = None
 
@@ -81,27 +81,11 @@ def _shapes_ok(scene, fields) -> bool:
 
 
 def _device(what: str, x, width: int, scene, fields) -> int:
-    """The CUDA device index of a call the kernel takes, -1 for CPU
-    tensors (the plain twin); raise for what the kernel cannot take: a
-    type, device or layout (``_build.check``), else the shapes."""
-    tensors = {"x": x, **{f: getattr(scene, f) for f in fields}}
-    try:  # the case a launch takes, in the fewest attribute reads
-        dev = x.get_device()
-        fast = (x.is_cuda and x.dim() == 2 and x.shape[1] == width
-                and all(t.dtype is DTYPES.get(name, F32)
-                        and t.get_device() == dev and t.is_contiguous()
-                        for name, t in tensors.items())
-                and _shapes_ok(scene, fields))
-    except AttributeError:  # not a tensor
-        fast = False
-    if fast:
-        return dev
-    if all(isinstance(t, torch.Tensor) and t.is_cpu
-           for t in tensors.values()):
-        return -1
-    _build.check(what, tensors, {k: DTYPES.get(k, F32) for k in tensors})
-    raise ValueError(f"{what}: shapes the kernel cannot take: " + ", ".join(
-        f"{name} {tuple(t.shape)}" for name, t in tensors.items()))
+    """``_build.device`` of a call on x (N, width) and the scene's
+    ``fields``."""
+    return _build.device(what, {"x": x, **{f: getattr(scene, f)
+                                           for f in fields}},
+                         {"x": width}, DTYPES, _shapes_ok(scene, fields))
 
 
 def env_eval(scene, d, le: bool = True, pdf: bool = False):

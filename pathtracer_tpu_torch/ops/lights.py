@@ -12,8 +12,12 @@ whole batch and the per-ray result is selected by the chosen light's type.
 ``env_le``, ``env_pdf_li``, ``env_le_pdf`` and ``_env_sample_li`` each in
 a ``pt::env`` span (``utils/spans.py``), opened only where they are
 called: the latter in a scene with an environment. On the card each of
-the latter is one launch of kernel K8 (``ops/cuda/env_cu.py``); on the CPU
-each runs its plain twin, ``env_eval_plain`` or ``env_sample_plain``.
+the latter is one launch of kernel K8 (``ops/cuda/env_cu.py``), and
+``sample_li`` / ``pdf_li`` one launch of kernel K9
+(``ops/cuda/light_cu.py``) where the light set holds an area, point or
+distant light (``pdf_li``: an area light); on the CPU each runs its plain
+twin, ``env_eval_plain``, ``env_sample_plain``, ``sample_li_plain`` or
+``pdf_li_plain``.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from ..scene.scene import (LA_EMIT, LA_HASN, LA_N0, LA_N1, LA_N2, LA_P0,
                            LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_POINT)
 from ..utils.spans import span
 from .bsdf import select
-from .cuda import env_cu
+from .cuda import env_cu, light_cu
 from .intersect import watertight_hit_diag
 
 GAMMA6 = float(gamma(6))
@@ -210,8 +214,24 @@ def sample_li(scene, light_rows, ref_p, ref_err, ref_n, u,
     light_rows: (N, LA_WIDTH) rows of the chosen lights; light_set: the
     light types present (the others are not evaluated; with one type, its
     result holds for every lane). Returns dict(wi, pdf, li, target_p,
-    target_err, target_n, is_delta, is_env, is_area).
+    target_err, target_n, is_delta, is_env, is_area). A set with an area,
+    point or distant light takes kernel K9's ``light_sample``
+    (``ops/cuda/light_cu.py``; CPU tensors its plain twin), the
+    environment alone ``sample_li_plain``.
     """
+    if not any(t in light_set for t in light_cu.OWN_TYPES):
+        return sample_li_plain(scene, light_rows, ref_p, ref_err, ref_n, u,
+                               light_set=light_set)
+    return light_cu.light_sample(scene, light_rows, ref_p, ref_err, ref_n,
+                                 u, light_set=light_set)
+
+
+def sample_li_plain(scene, light_rows, ref_p, ref_err, ref_n, u,
+                    light_set=ALL_LIGHTS):
+    """``sample_li`` as a chain of tensor ops over every lane, each type
+    of ``light_set`` evaluated for the whole batch and the lane's own
+    selected: the plain twin of kernel K9's ``light_sample``
+    (``ops/cuda/light_cu.py``), which CPU tensors take."""
     ltype = light_rows[:, LA_TYPE].to(torch.int32)
     emit = light_rows[:, LA_EMIT]
     lvec = light_rows[:, LA_VEC]
@@ -283,7 +303,21 @@ def sample_li(scene, light_rows, ref_p, ref_err, ref_n, u,
 def pdf_li(scene, light_rows, ref_p, ref_err, ref_n, wi,
            light_set=ALL_LIGHTS):
     """pdf of each ray's chosen light along wi (the MIS BSDF branch).
-    Delta lights (point, distant) give 0."""
+    Delta lights (point, distant) give 0. A set with an area light takes
+    kernel K9's ``light_pdf`` (``ops/cuda/light_cu.py``; CPU tensors its
+    plain twin), any other ``pdf_li_plain``."""
+    if LIGHT_AREA not in light_set:
+        return pdf_li_plain(scene, light_rows, ref_p, ref_err, ref_n, wi,
+                            light_set=light_set)
+    return light_cu.light_pdf(scene, light_rows, ref_p, ref_err, ref_n, wi,
+                              light_set=light_set)
+
+
+def pdf_li_plain(scene, light_rows, ref_p, ref_err, ref_n, wi,
+                 light_set=ALL_LIGHTS):
+    """``pdf_li`` as a chain of tensor ops over every lane: the plain twin
+    of kernel K9's ``light_pdf`` (``ops/cuda/light_cu.py``), which CPU
+    tensors take."""
     ltype = light_rows[:, LA_TYPE].to(torch.int32)
     preds, pdfs = [], []
     if LIGHT_AREA in light_set:

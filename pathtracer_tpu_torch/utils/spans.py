@@ -33,8 +33,11 @@ The spans (``pt::`` names; parent by nesting):
 - ``pt::light``: each call of ``ops/lights.py``'s ``sample_li`` (the light
   sample of ``integrator.estimate_direct``, in ``pt::nee``) and ``pdf_li``
   (the light's density along a BSDF direction, in ``pt::nee``, and along
-  the ray that hit an area light, in ``pt::shade``), whatever the light.
-  The benchmark's ``light_ops_per_ksample`` reads it;
+  the ray that hit an area light, in ``pt::shade``), whatever the light;
+  on the card, where the light set holds an area, point or distant light,
+  one launch of kernel K9 (``ops/cuda/light_cu.py``) in its
+  ``pt::k:light_sample`` / ``pt::k:light_pdf``. The benchmark's
+  ``light_ops_per_ksample`` reads it;
 - ``pt::env``: each call of the environment light's code
   (``ops/lights.py``: ``env_le``, ``env_pdf_li``, ``_env_sample_li``),
   which only a scene with an environment makes: the escaped rays' radiance
